@@ -16,6 +16,22 @@ _DEFAULTS = {
         "match_thresh": 0.9,
         "frame_rate": 30,
     },
+    "sfsort": {
+        "high_th": 0.6,
+        "match_th_first": 0.67,
+        "new_track_th": 0.7,
+        "low_th": 0.1,
+        "match_th_second": 0.3,
+        "dynamic_tuning": False,
+        "cth": 0.5,
+        "high_th_m": 0.0,
+        "new_track_th_m": 0.0,
+        "match_th_first_m": 0.0,
+        "marginal_timeout": 0,
+        "central_timeout": 0,
+        "horizontal_margin": 0,
+        "vertical_margin": 0,
+    },
 }
 
 

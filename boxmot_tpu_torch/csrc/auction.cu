@@ -8,7 +8,7 @@
 //
 // Formulation, kept exactly as the reference (lap.py:79-133) so that r2c
 // is identical to the JAX solver and to the plain PyTorch twin:
-//   w = thresh - cost, -inf where the row or column is masked out or w <= 0;
+//   w = thresh[s] - cost, -inf where the row or column is masked out or w <= 0;
 //   eps = max(w_max, 1e-2) * 1e-4 with w_max the largest finite w (or 0);
 //   one eps round from zero prices;
 //   an implicit dummy per row: second = max(finite b2, 0), and a row whose
@@ -19,15 +19,18 @@
 //   at most max_iters iterations.  A problem that stops at the cap with
 //   rows still unassigned adds 1 to capped[s], so the caller can see it.
 //
-// Bound on this card: R, C <= 256 and S is the number of sequences, so the
+// Bound on this card: R <= 256, C <= 512 and S is the number of sequences, so the
 // work is a few hundred serial iterations of tiny row and column scans; it
 // is bound by latency (barriers and L2 reads), not by bandwidth or FLOPs.
 // Design: one block of 256 threads per problem runs the whole loop, with
 // __syncthreads_or as the loop condition, so nothing returns to the host.
-// Prices, owners and r2c live in shared memory.  The (R, C) weights do not
-// fit (256 KB against the 227 KB a block may have), so the block writes w
-// once, transposed, into a global scratch buffer: thread r then scans
-// row r with its neighbours reading neighbouring addresses, served by L2.
+// Thread r holds row r; in the column step each thread walks two columns
+// (j and j + 256), so a live frame of up to 512 detections fits one block.
+// Prices, owners and r2c live in shared memory (6 KB at 512 columns).  The
+// (R, C) weights do not fit (up to 512 KB against the 227 KB a block may
+// have), so the block writes w once, transposed, into a global scratch
+// buffer: thread r then scans row r with its neighbours reading
+// neighbouring addresses, served by L2.
 // The library is built with -fmad=false; there is no product to contract
 // except eps, which is a single multiply.
 
@@ -36,8 +39,10 @@
 
 namespace {
 
-constexpr int kMaxDim = 256;
+constexpr int kMaxRows = 256;
+constexpr int kMaxCols = 512;
 constexpr int kThreads = 256;
+constexpr int kColsPerThread = kMaxCols / kThreads;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -47,13 +52,13 @@ __device__ __forceinline__ float warp_max(float v) {
 __global__ void __launch_bounds__(kThreads)
 auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__ row_mask,
                const unsigned char* __restrict__ col_mask, float* __restrict__ w_t,
-               int* __restrict__ r2c_out, int* __restrict__ capped, int R, int C,
-               float thresh, int max_iters) {
-  __shared__ float prices[kMaxDim];
-  __shared__ int owner[kMaxDim];
-  __shared__ int r2c[kMaxDim];
-  __shared__ int jstar[kMaxDim];  // column row r bids on, or -1
-  __shared__ float bid[kMaxDim];
+               int* __restrict__ r2c_out, int* __restrict__ capped,
+               const float* __restrict__ thresh, int R, int C, int max_iters) {
+  __shared__ float prices[kMaxCols];
+  __shared__ int owner[kMaxCols];
+  __shared__ int r2c[kMaxRows];
+  __shared__ int jstar[kMaxRows];  // column row r bids on, or -1
+  __shared__ float bid[kMaxRows];
   __shared__ float warp_best[kThreads / 32];
 
   const int s = blockIdx.x;
@@ -62,13 +67,14 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
   const unsigned char* rm = row_mask + (size_t)s * R;
   const unsigned char* cm = col_mask + (size_t)s * C;
   float* ws = w_t + (size_t)s * C * R;  // ws[j * R + r] = w[r, j]
+  const float th = thresh[s];
 
   // w, and the largest finite w (0 when there is none)
   float local_max = 0.0f;
   for (int i = tid; i < R * C; i += kThreads) {
     const int r = i / C;
     const int j = i - r * C;
-    float w = __fsub_rn(thresh, cs[i]);
+    float w = __fsub_rn(th, cs[i]);
     w = (rm[r] && cm[j] && w > 0.0f) ? w : -INFINITY;
     ws[j * R + r] = w;
     if (isfinite(w)) local_max = fmaxf(local_max, w);
@@ -121,24 +127,31 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
     __syncthreads();
 
     // columns: highest bid wins, ties to the lowest row; dethrone the owner
-    int win = -1;
-    float best = -INFINITY;
-    const int j = tid;
-    if (j < C) {
-      for (int r = 0; r < R; ++r) {
-        if (jstar[r] == j && bid[r] > best) {
-          best = bid[r];
-          win = r;
+    int win[kColsPerThread];
+    float best[kColsPerThread];
+    for (int c = 0; c < kColsPerThread; ++c) {
+      const int j = tid + c * kThreads;
+      win[c] = -1;
+      best[c] = -INFINITY;
+      if (j < C) {
+        for (int r = 0; r < R; ++r) {
+          if (jstar[r] == j && bid[r] > best[c]) {
+            best[c] = bid[r];
+            win[c] = r;
+          }
         }
+        if (win[c] >= 0 && owner[j] >= 0) r2c[owner[j]] = -1;
       }
-      if (win >= 0 && owner[j] >= 0) r2c[owner[j]] = -1;
     }
     __syncthreads();
-    // install winners
-    if (win >= 0) {
-      r2c[win] = j;
-      owner[j] = win;
-      prices[j] = best;
+    // install winners (a row bids on one column, so no two columns share one)
+    for (int c = 0; c < kColsPerThread; ++c) {
+      const int j = tid + c * kThreads;
+      if (win[c] >= 0) {
+        r2c[win[c]] = j;
+        owner[j] = win[c];
+        prices[j] = best[c];
+      }
     }
     __syncthreads();
     ++it;
@@ -156,14 +169,15 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
 }  // namespace
 
 extern "C" int bmt_auction(const void* cost, const void* row_mask, const void* col_mask,
-                           void* w_scratch, void* r2c, void* capped, int S, int R, int C,
-                           float thresh, int max_iters, void* stream) {
-  if (R > kMaxDim || C > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+                           void* w_scratch, void* r2c, void* capped, const void* thresh,
+                           int S, int R, int C, int max_iters, void* stream) {
+  if (R > kMaxRows || C > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
   if (S > 0) {
     auction_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(cost), static_cast<const unsigned char*>(row_mask),
         static_cast<const unsigned char*>(col_mask), static_cast<float*>(w_scratch),
-        static_cast<int*>(r2c), static_cast<int*>(capped), R, C, thresh, max_iters);
+        static_cast<int*>(r2c), static_cast<int*>(capped), static_cast<const float*>(thresh),
+        R, C, max_iters);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,20 +21,26 @@ from boxmot_tpu.engine.results import ValidationResult
 from boxmot_tpu_torch.configs import get_tracker_defaults
 from boxmot_tpu_torch.engine.replay import replay_sequences_batched
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
 from boxmot_tpu_torch.trackers.zoo import check_ported
 from boxmot_tpu_torch.utils.device import resolve_device
 
 
-def build_replay_config(tracker_type: str, **params) -> ByteTrackConfig:
+_TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig}
+
+
+def build_replay_config(tracker_type: str, **params):
     """Replay config from the YAML tier + explicit overrides, merged by field
     name as in the JAX package.  The YAML keys that are not config fields
-    (ByteTrack's ``track_buffer`` and ``frame_rate``) are dropped, so the
-    replay keeps the config defaults ``det_thresh`` 0.45 and
-    ``max_time_lost`` 25, which the pinned metrics depend on."""
+    (ByteTrack's ``track_buffer`` and ``frame_rate``, SFSORT's margins) are
+    dropped, so the ByteTrack replay keeps the config defaults
+    ``det_thresh`` 0.45 and ``max_time_lost`` 25, which the pinned metrics
+    depend on."""
     check_ported(tracker_type)
+    cfg_cls = _TRACKER_CONFIGS[tracker_type]
     merged = {**get_tracker_defaults(tracker_type), **params}
-    fields = {f.name for f in dataclasses.fields(ByteTrackConfig)}
-    return ByteTrackConfig(**{k: v for k, v in merged.items() if k in fields})
+    fields = {f.name for f in dataclasses.fields(cfg_cls)}
+    return cfg_cls(**{k: v for k, v in merged.items() if k in fields})
 
 
 def run_eval(

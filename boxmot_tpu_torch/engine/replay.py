@@ -4,9 +4,9 @@ boxmot_tpu/engine/replay.py).
 The JAX package runs one sequence as ``lax.scan`` over the jitted step
 and batches sequences with ``vmap``.  Here the tracker state carries the
 batch axis S and ``batch_replay`` is a Python loop over frames that calls
-the batched step once per frame.  Every output stays on the device until
-the batch has finished; ``_to_host`` then makes the one device-to-host
-copy.  Frame and detection counts are padded to the same static buckets
+the batched step of the config's tracker (``resolve_tracker``) once per
+frame.  Every output stays on the device until the batch has finished;
+``_to_host`` then makes the one device-to-host copy.  Frame and detection counts are padded to the same static buckets
 as in the JAX package; padded outputs are cut off on the host.
 """
 
@@ -16,16 +16,30 @@ import numpy as np
 import torch
 
 from boxmot_tpu.engine.mot_io import convert_to_mot_format
-from boxmot_tpu_torch.trackers.bytetrack import (
-    ByteTrackConfig,
-    ByteTrackState,
-    bytetrack_step,
-    init_state,
-)
+from boxmot_tpu_torch.trackers import bytetrack, sfsort
 from boxmot_tpu_torch.utils.device import resolve_device
 
 FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 DET_BUCKETS = (8, 16, 32, 64, 128, 256)
+
+
+def resolve_tracker(cfg):
+    """(init_state, step) of the tracker a config belongs to.
+
+    ``init_state(cfg, n, device)`` gives n fresh states stacked on the batch
+    axis; ``step(cfg, states, dets, det_valid)`` advances them one frame.
+    """
+    if isinstance(cfg, bytetrack.ByteTrackConfig):
+        return bytetrack.init_state, bytetrack.bytetrack_step
+    if isinstance(cfg, sfsort.SFSortConfig):
+        return sfsort.init_state, sfsort.sfsort_step
+    raise TypeError(f"unknown tracker config type {type(cfg).__name__}")
+
+
+def _det_cols(cfg) -> int:
+    """Detection columns: 7 for oriented [cx, cy, w, h, theta, conf, cls],
+    6 for axis-aligned [x1, y1, x2, y2, conf, cls]."""
+    return 7 if cfg.is_obb else 6
 
 
 def _bucket(n, buckets):
@@ -66,31 +80,29 @@ def _unpack_mot_rows(outs, masks, n_frames, frame_offset: int = 0):
     return np.empty((0, 9), np.float32)
 
 
-def init_states(cfg: ByteTrackConfig, n: int, device) -> ByteTrackState:
+def init_states(cfg, n: int, device):
     """n fresh tracker states stacked along the batch axis."""
-    return init_state(cfg, n, resolve_device(device))
+    return resolve_tracker(cfg)[0](cfg, n, resolve_device(device))
 
 
-def batch_replay(cfg: ByteTrackConfig, states: ByteTrackState, dets_batch: torch.Tensor,
-                 n_frames: int | None = None):
-    """Replay S sequences in lockstep: dets_batch (S, F, D, 7) on the
-    states' device.  Runs the first ``n_frames`` frames (all by default;
+def batch_replay(cfg, states, dets_batch: torch.Tensor, n_frames: int | None = None):
+    """Replay S sequences in lockstep: dets_batch (S, F, D, det_cols + 1) on
+    the states' device.  Runs the first ``n_frames`` frames (all by default;
     later frames cannot change earlier outputs).
 
-    Returns (states, outs (S, n_frames, K, 8), masks (S, n_frames, K)), all
-    on the device; nothing here waits for the device.
+    Returns (states, outs (S, n_frames, K, 8 or 9), masks (S, n_frames, K)),
+    all on the device; nothing here waits for the device.
     """
+    step = resolve_tracker(cfg)[1]
     S, F = dets_batch.shape[0], dets_batch.shape[1]
     n_frames = F if n_frames is None else n_frames
-    K = cfg.capacity
     dev = dets_batch.device
-    outs = torch.empty((S, n_frames, K, 8), dtype=torch.float32, device=dev)
-    masks = torch.empty((S, n_frames, K), dtype=torch.bool, device=dev)
-    det_valid = dets_batch[..., 4] >= 0.0
+    out_cols = _det_cols(cfg) + 2  # box, id, conf, cls, det_ind
+    outs = torch.empty((S, n_frames, cfg.capacity, out_cols), dtype=torch.float32, device=dev)
+    masks = torch.empty((S, n_frames, cfg.capacity), dtype=torch.bool, device=dev)
+    det_valid = dets_batch[..., _det_cols(cfg) - 2] >= 0.0  # the conf column
     for f in range(n_frames):
-        states, outs[:, f], masks[:, f] = bytetrack_step(
-            cfg, states, dets_batch[:, f], det_valid[:, f]
-        )
+        states, outs[:, f], masks[:, f] = step(cfg, states, dets_batch[:, f], det_valid[:, f])
     return states, outs, masks
 
 
@@ -119,13 +131,15 @@ def _to_host(*tensors: torch.Tensor):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def replay_sequences_batched(cfg: ByteTrackConfig, seqs, *, device):
-    """Replay many sequences; return one MOT row array each, in input order.
+def replay_sequences_outputs(cfg, seqs, *, device):
+    """Replay many sequences; return (outs (n_frames, K, 8 or 9), masks
+    (n_frames, K)) on the host for each, in input order.
 
     ``seqs`` is a list of dicts with key ``dets`` (list of per-frame (Ni, 6)
-    arrays).  Sequences that share a (frame, det) bucket run as one batch.
-    Raises if any assignment stopped at the auction's iteration cap, since
-    its matches would then be a truncated solve.
+    or, for an OBB config, (Ni, 7) arrays).  Sequences that share a (frame,
+    det) bucket run as one batch.  Raises if any assignment stopped at the
+    auction's iteration cap, since its matches would then be a truncated
+    solve.
     """
     device = resolve_device(device)
     groups: dict[tuple[int, int], list[int]] = {}
@@ -139,11 +153,11 @@ def replay_sequences_batched(cfg: ByteTrackConfig, seqs, *, device):
     for (F, D), idxs in groups.items():
         packed, n_frames_list = [], []
         for i in idxs:
-            p, n_frames = pack_frames(seqs[i]["dets"], D=D, F=F)
+            p, n_frames = pack_frames(seqs[i]["dets"], D=D, F=F, det_cols=_det_cols(cfg))
             packed.append(p)
             n_frames_list.append(n_frames)
         dets_batch = _to_device(np.stack(packed), device)
-        states = init_state(cfg, len(idxs), device)
+        states = init_states(cfg, len(idxs), device)
         states, outs, masks = batch_replay(cfg, states, dets_batch, max(n_frames_list))
         outs, masks, capped = _to_host(outs, masks, states.lap_capped)
         if capped.any():
@@ -152,10 +166,17 @@ def replay_sequences_batched(cfg: ByteTrackConfig, seqs, *, device):
                 "iteration cap; their matches are not a finished solve"
             )
         for k, i in enumerate(idxs):
-            results[i] = _unpack_mot_rows(outs[k], masks[k], n_frames_list[k])
+            results[i] = (outs[k, :n_frames_list[k]], masks[k, :n_frames_list[k]])
     return results
 
 
-def replay_sequence(cfg: ByteTrackConfig, dets_per_frame, *, device):
+def replay_sequences_batched(cfg, seqs, *, device):
+    """Replay many axis-aligned sequences; return one MOT row array each,
+    in input order (see ``replay_sequences_outputs``)."""
+    return [_unpack_mot_rows(outs, masks, len(outs))
+            for outs, masks in replay_sequences_outputs(cfg, seqs, device=device)]
+
+
+def replay_sequence(cfg, dets_per_frame, *, device):
     """Replay one sequence and return MOT rows (N, 9) on the host."""
     return replay_sequences_batched(cfg, [{"dets": dets_per_frame}], device=device)[0]

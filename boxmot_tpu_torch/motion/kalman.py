@@ -1,21 +1,25 @@
-"""Batched, masked Kalman filter bank, XYAH layout (counterpart of
-boxmot_tpu/motion/kalman.py).
+"""Batched, masked Kalman filter bank, XYAH and XYWH-OBB layouts
+(counterpart of boxmot_tpu/motion/kalman.py).
 
 Track state is ``mean (..., dx)`` and ``cov (..., dx, dx)`` with any
 leading batch axes, here (S, K).  Every small product is written as
 elementwise multiplies and adds in a fixed order, in the style of the JAX
 ``inv_psd_small``, and never as ``einsum``/``bmm``: a CPU ``einsum`` and a
 cuBLAS ``bmm`` sum in different orders, and an ulp of difference in a
-covariance can flip an association near-tie.  Written this way, a CPU run
+covariance can flip an association near-tie.  Written this way, and with
+``sqrt`` and ``log`` correctly rounded (``ops.geometry.exact``), a CPU run
 and a CUDA run of the port give the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
+
+from boxmot_tpu_torch.ops.geometry import exact, wrap_angle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +69,7 @@ def _chol_lower(S: torch.Tensor, eps: float = 1e-9):
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
             if i == j:
-                L[i][j] = torch.sqrt(torch.clamp_min(s, eps))
+                L[i][j] = exact(torch.sqrt, torch.clamp_min(s, eps))
             else:
                 L[i][j] = s / L[j][j]
     return L
@@ -178,8 +182,8 @@ def make_xyah_layout(std_weight_position: float = _SWP,
                      std_weight_velocity: float = _SWV) -> KFLayout:
     """[cx, cy, a=w/h, h] constant-velocity filter (ByteTrack lineage).
 
-    The JAX factory's ``obb`` branch (a fifth, angle, dimension) comes with
-    OBB ByteTrack.
+    The JAX factory's ``obb`` branch is not ported: OBB ByteTrack runs on
+    ``make_xywh_layout(obb=True)``.
     """
     swp, swv = std_weight_position, std_weight_velocity
 
@@ -217,3 +221,86 @@ def make_xyah_layout(std_weight_position: float = _SWP,
         meas_diag=meas_diag,
         enforce=enforce,
     )
+
+
+def make_xywh_layout(obb: bool = False, std_weight_position: float = _SWP,
+                     std_weight_velocity: float = _SWV) -> KFLayout:
+    """[cx, cy, w, h] (+ theta) constant-velocity filter (ByteTrack-OBB)."""
+    dz = 5 if obb else 4
+    swp, swv = std_weight_position, std_weight_velocity
+
+    def init_mean(z):
+        if obb:
+            z = _set(z, 4, wrap_angle(z[..., 4]))
+        return torch.cat([z, torch.zeros_like(z)], dim=-1)
+
+    def _wh_stack(m, kp, kv, theta_p, theta_v):
+        w, h = m[..., 2], m[..., 3]
+        pos = [kp * w, kp * h, kp * w, kp * h]
+        vel = [kv * w, kv * h, kv * w, kv * h]
+        if obb:
+            pos.append(torch.full_like(w, theta_p))
+            vel.append(torch.full_like(w, theta_v))
+        return torch.stack(pos + vel, dim=-1)
+
+    def init_cov_diag(z):
+        return _wh_stack(z, 2 * swp, 10 * swv, 1e-2, 1e-5)
+
+    def process_diag(mean):
+        return _wh_stack(mean, swp, swv, 1e-2, 1e-5)
+
+    def meas_diag(mean):
+        w, h = mean[..., 2], mean[..., 3]
+        std = [swp * w, swp * h, swp * w, swp * h]
+        if obb:
+            std.append(torch.full_like(w, 1e-1))
+        return torch.stack(std, dim=-1)
+
+    def enforce(mean):
+        mean = _set(mean, 2, torch.clamp_min(mean[..., 2], 1e-4))
+        mean = _set(mean, 3, torch.clamp_min(mean[..., 3], 1e-4))
+        if obb:
+            mean = _set(mean, 4, wrap_angle(mean[..., 4]))
+        return mean
+
+    return KFLayout(
+        name="xywh_obb" if obb else "xywh",
+        dx=2 * dz,
+        dz=dz,
+        motion_mat=_cv_motion_mat(dz),
+        init_mean=init_mean,
+        init_cov_diag=init_cov_diag,
+        process_diag=process_diag,
+        meas_diag=meas_diag,
+        enforce=enforce,
+    )
+
+
+def align_obb_to_ref(meas: torch.Tensor, ref: torch.Tensor, size_weight: float = 0.05):
+    """Resolve the 4-way OBB parameterization of meas (..., 5) [cx, cy, w, h,
+    theta] against ref (..., 5): (w, h, th), (w, h, th + pi), (h, w, th + pi/2)
+    and (h, w, th - pi/2) are one rectangle; take the candidate with the
+    least |wrapped angle delta| + size_weight * log-size difference (the
+    first one on a tie, as ``jnp.argmin``)."""
+    eps = 1e-6
+    w = torch.clamp_min(meas[..., 2], eps)
+    h = torch.clamp_min(meas[..., 3], eps)
+    th = meas[..., 4]
+    ref_w = torch.clamp_min(ref[..., 2], eps)
+    ref_h = torch.clamp_min(ref[..., 3], eps)
+    ref_th = ref[..., 4, None]
+
+    cand_w = torch.stack([w, w, h, h], dim=-1)
+    cand_h = torch.stack([h, h, w, w], dim=-1)
+    cand_t = torch.stack([th, th + math.pi, th + math.pi / 2, th - math.pi / 2], dim=-1)
+    aligned_t = ref_th + wrap_angle(cand_t - ref_th)
+    angle_cost = torch.abs(aligned_t - ref_th)
+    size_cost = (torch.abs(exact(torch.log, cand_w / ref_w[..., None]))
+                 + torch.abs(exact(torch.log, cand_h / ref_h[..., None])))
+    best = torch.argmin(angle_cost + size_weight * size_cost, dim=-1, keepdim=True)
+
+    def take(c):
+        return torch.gather(c, -1, best)[..., 0]
+
+    return torch.stack([meas[..., 0], meas[..., 1], take(cand_w), take(cand_h),
+                        take(aligned_t)], dim=-1)

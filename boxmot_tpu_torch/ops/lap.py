@@ -11,7 +11,9 @@ problem does no-op iterations there, as under JAX's batched while_loop.
 
 Both return ``r2c`` (S, R) int32 (matched column or -1) and add 1 to
 ``capped[s]`` for each problem that stopped at ``max_iters`` with rows
-still unassigned, so a caller can refuse a truncated solve.
+still unassigned, so a caller can refuse a truncated solve.  ``thresh`` is
+a float for every problem, or an (S,) float32 tensor of one per problem
+(SFSORT's dynamic first-pass threshold).
 """
 
 from __future__ import annotations
@@ -22,17 +24,18 @@ import torch
 
 from boxmot_tpu_torch.csrc import build
 
-MAX_DIM = 256  # rows and columns one thread block holds in shared memory
+MAX_ROWS = 256  # rows one thread block holds: one thread each
+MAX_COLS = 512  # columns one thread block holds: two per thread
 _P = ctypes.c_void_p
 _NEG = float("-inf")
 
 
-def masked_assignment_plain(cost, row_mask, col_mask, thresh: float, capped,
+def masked_assignment_plain(cost, row_mask, col_mask, thresh, capped,
                             max_iters: int = 4000):
     """Plain PyTorch twin of the kernel; see the module docstring."""
     S, R, C = cost.shape
     valid = row_mask[:, :, None] & col_mask[:, None, :]
-    w = thresh - cost
+    w = (thresh[:, None, None] if torch.is_tensor(thresh) else thresh) - cost
     w = torch.where(valid & (w > 0), w, _NEG)
     col_ids = torch.arange(C, device=cost.device)
     w_max = torch.where(torch.isfinite(w), w, 0.0).amax(dim=(1, 2))
@@ -73,48 +76,53 @@ def masked_assignment_plain(cost, row_mask, col_mask, thresh: float, capped,
     return torch.where(r2c >= 0, r2c, -1).to(torch.int32)
 
 
-def _check(cost, row_mask, col_mask, capped) -> None:
+def _check(cost, row_mask, col_mask, thresh, capped) -> None:
     if cost.dim() != 3 or cost.dtype != torch.float32:
         raise ValueError(f"masked_assignment: cost must be (S, R, C) float32, got "
                          f"{tuple(cost.shape)} {cost.dtype}")
     S, R, C = cost.shape
-    if R > MAX_DIM or C > MAX_DIM:
-        raise ValueError(f"masked_assignment: R={R}, C={C}; at most {MAX_DIM} each")
-    for name, t, shape, dtype in (
+    if R > MAX_ROWS or C > MAX_COLS:
+        raise ValueError(f"masked_assignment: R={R}, C={C}; at most {MAX_ROWS} rows "
+                         f"and {MAX_COLS} columns")
+    tensors = [
         ("row_mask", row_mask, (S, R), torch.bool),
         ("col_mask", col_mask, (S, C), torch.bool),
         ("capped", capped, (S,), torch.int32),
-    ):
+    ]
+    if torch.is_tensor(thresh):
+        tensors.append(("thresh", thresh, (S,), torch.float32))
+    for name, t, shape, dtype in tensors:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"masked_assignment: {name} must be {shape} {dtype}, "
                              f"got {tuple(t.shape)} {t.dtype}")
         if t.device != cost.device:
             raise ValueError(f"masked_assignment: {name} is on {t.device}, cost on {cost.device}")
-    if not all(t.is_contiguous() for t in (cost, row_mask, col_mask, capped)):
+    if not all(t.is_contiguous() for _, t, _, _ in tensors) or not cost.is_contiguous():
         raise ValueError("masked_assignment: inputs must be contiguous")
 
 
-def masked_assignment(cost, row_mask, col_mask, thresh: float, capped,
+def masked_assignment(cost, row_mask, col_mask, thresh, capped,
                       max_iters: int = 4000):
     """Solve S masked assignments: cost (S, R, C), masks (S, R)/(S, C).
 
     Pairs with cost >= thresh never match.  Returns r2c (S, R) int32 and
     adds to ``capped`` (S,) int32 in place; kernel K2 on a CUDA tensor.
     """
-    _check(cost, row_mask, col_mask, capped)
+    _check(cost, row_mask, col_mask, thresh, capped)
     if cost.device.type == "cpu":
         return masked_assignment_plain(cost, row_mask, col_mask, thresh, capped, max_iters)
     if cost.device.type != "cuda":
         raise ValueError(f"masked_assignment: unsupported device {cost.device}")
     S, R, C = cost.shape
-    fn = build.entry("auction", "bmt_auction",
-                     [_P] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P])
+    fn = build.entry("auction", "bmt_auction", [_P] * 7 + [ctypes.c_int] * 4 + [_P])
     with torch.cuda.device(cost.device):
+        if not torch.is_tensor(thresh):
+            thresh = torch.full((S,), thresh, dtype=torch.float32, device=cost.device)
         w_scratch = torch.empty((S, C, R), dtype=torch.float32, device=cost.device)
         r2c = torch.empty((S, R), dtype=torch.int32, device=cost.device)
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         rc = fn(cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), w_scratch.data_ptr(),
-                r2c.data_ptr(), capped.data_ptr(), S, R, C, thresh, max_iters, stream)
+                r2c.data_ptr(), capped.data_ptr(), thresh.data_ptr(), S, R, C, max_iters, stream)
     build.check_launch("auction", "bmt_auction", rc)
     masked_assignment.launches += 1
     return r2c

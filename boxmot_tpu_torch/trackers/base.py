@@ -5,8 +5,11 @@ It keeps what cannot run in the batched step: input unwrapping,
 detection-layout inference, first-frame setup, padding to a static
 detection bucket, per-class states renumbered by the shared
 ``GlobalIdAllocator``, and ``TrackResults`` wrapping.  ``update(dets, img)``
-keeps the JAX tracker's contract: (M, 8) rows
-[x1, y1, x2, y2, id, conf, cls, det_ind].
+keeps the JAX tracker's contract: (N, 6) axis-aligned detections give
+(M, 8) rows [x1, y1, x2, y2, id, conf, cls, det_ind]; (N, 7) oriented
+detections [cx, cy, w, h, theta, conf, cls] switch a tracker that supports
+them to OBB mode on the first frame and give (M, 9) rows
+[cx, cy, w, h, theta, id, conf, cls, det_ind].
 """
 
 from __future__ import annotations
@@ -20,15 +23,9 @@ from boxmot_tpu.trackers.per_class_ids import GlobalIdAllocator
 from boxmot_tpu.trackers.track_results import TrackResults
 from boxmot_tpu_torch.utils.device import resolve_device
 
-# the JAX shell's buckets up to 256: the auction kernel holds at most 256
-# detection columns (ops.lap.MAX_DIM)
-_DET_BUCKETS = (16, 32, 64, 128, 256)
-OBB_NOT_PORTED = (
-    "OBB ByteTrack is not ported yet: it arrives with ROADMAP Queue A, Slice 2 "
-    "(the is_obb branch and the rotated-IoU kernel B2)"
-)
-AABB_DET_COLS = 6  # x1, y1, x2, y2, conf, cls
-AABB_OUT_COLS = 8
+# the JAX shell's buckets; the auction kernel holds up to 512 detection
+# columns (ops.lap.MAX_COLS)
+_DET_BUCKETS = (16, 32, 64, 128, 256, 512)
 
 
 def det_bucket(n: int) -> int:
@@ -39,23 +36,49 @@ def det_bucket(n: int) -> int:
     raise ValueError(f"too many detections for one frame: {n} (at most {_DET_BUCKETS[-1]})")
 
 
-class BaseTracker:
-    """Shared host shell; subclasses provide ``_init_state`` and ``_step``.
+class DetectionLayout:
+    """Column schema of AABB vs OBB detections (mirror of the JAX class)."""
 
-    Only axis-aligned (N, 6) detections are accepted: (N, 7) oriented
-    boxes raise ``NotImplementedError`` until OBB ByteTrack is ported.
-    """
+    def __init__(self, is_obb: bool):
+        self.is_obb = is_obb
+        self.det_cols = 7 if is_obb else 6
+        self.box_cols = 5 if is_obb else 4
+        self.conf_idx = self.box_cols
+        self.cls_idx = self.box_cols + 1
+        self.output_cols = 9 if is_obb else 8
+
+
+AABB_LAYOUT = DetectionLayout(False)
+OBB_LAYOUT = DetectionLayout(True)
+
+
+def infer_detection_layout(dets):
+    """The layout of a (N, 6) or (N, 7) array; None for anything else."""
+    if dets is None or not isinstance(dets, np.ndarray) or dets.ndim != 2:
+        return None
+    if dets.shape[1] == 6:
+        return AABB_LAYOUT
+    if dets.shape[1] == 7:
+        return OBB_LAYOUT
+    return None
+
+
+class BaseTracker:
+    """Shared host shell; subclasses provide ``_init_state`` and ``_step``,
+    and set ``supports_obb`` when their step has an OBB branch."""
+
+    supports_obb = False
 
     def __init__(self, device, per_class: bool = False, nr_classes: int = 80,
                  is_obb: bool = False, **kwargs):
-        if is_obb:
-            raise NotImplementedError(OBB_NOT_PORTED)
         # the JAX shell's association/age options are accepted and unused
-        # by ByteTrack, as there
+        # by the motion-only trackers, as there
         self.device = resolve_device(device)
         self.per_class = per_class
         self.nr_classes = nr_classes
-        self.is_obb = False
+        self.is_obb = is_obb
+        self.layout = OBB_LAYOUT if is_obb else AABB_LAYOUT
+        self._first_dets_processed = False
         self.frame_count = 0
         self.h = None
         self.w = None
@@ -67,20 +90,31 @@ class BaseTracker:
         raise NotImplementedError
 
     def _step(self, state, dets_padded, det_valid):
-        """Advance one frame: (state, out (K, 8), out_mask (K,))."""
+        """Advance one frame: (state, out (K, output_cols), out_mask (K,))."""
         raise NotImplementedError
 
     def update(self, dets, img=None, embs=None) -> TrackResults:
-        """Track one frame of (N, 6) detections; ``embs`` is ignored by
-        motion-only trackers."""
+        """Track one frame of (N, 6) or (N, 7) detections; ``embs`` is
+        ignored by motion-only trackers."""
         if hasattr(dets, "data"):
             dets = dets.data
         dets = np.asarray(dets, dtype=np.float32) if dets is not None else None
-        if dets is not None and dets.ndim == 2 and dets.shape[1] == 7:
-            raise NotImplementedError(OBB_NOT_PORTED)
+        if not self._first_dets_processed and dets is not None:
+            layout = infer_detection_layout(dets)
+            if layout is not None:
+                if layout.is_obb and not self.supports_obb:
+                    raise AssertionError(f"{type(self).__name__} does not support OBB detections.")
+                self._set_detection_mode(layout.is_obb)
+                self._first_dets_processed = True
         if self.h is None and img is not None:
             self.h, self.w = img.shape[0:2]
         return TrackResults(self._do_update(dets))
+
+    def _set_detection_mode(self, is_obb: bool):
+        if is_obb != self.is_obb:
+            self.is_obb = is_obb
+            self.layout = OBB_LAYOUT if is_obb else AABB_LAYOUT
+            self._state = None  # the state's shape depends on the mode
 
     def reset(self):
         self._state = None
@@ -93,26 +127,28 @@ class BaseTracker:
         # AssertionError, as the JAX shell and the reference raise
         if dets.ndim != 2:
             raise AssertionError("Unsupported 'dets' dimensions, valid number of dimensions is two")
-        if dets.shape[1] != AABB_DET_COLS:
+        if dets.shape[1] != self.layout.det_cols:
             raise AssertionError(
-                f"Unsupported 'dets' 2nd dimension length, valid length is {AABB_DET_COLS}"
+                f"Unsupported 'dets' 2nd dimension length, valid length is {self.layout.det_cols}"
             )
 
     def _pad_dets(self, dets):
         """Append det indices and pad to a static bucket: padding rows carry
-        conf = -1 and unit boxes, so no geometry produces NaN."""
+        conf = -1 and unit boxes (x2, y2 or w, h = 1), so no geometry
+        produces NaN."""
         n = len(dets)
-        padded = np.zeros((det_bucket(max(n, 1)), AABB_DET_COLS + 1), np.float32)
+        cols = self.layout.det_cols
+        padded = np.zeros((det_bucket(max(n, 1)), cols + 1), np.float32)
         padded[:, 2:4] = 1.0
-        padded[:, 4] = -1.0
+        padded[:, self.layout.conf_idx] = -1.0
         if n:
-            padded[:n, :AABB_DET_COLS] = dets
+            padded[:n, :cols] = dets
             padded[:n, -1] = np.arange(n, dtype=np.float32)
         return padded
 
     def _do_update(self, dets):
         if dets is None or len(dets) == 0:
-            dets = np.empty((0, AABB_DET_COLS), np.float32)
+            dets = np.empty((0, self.layout.det_cols), np.float32)
         self._validate(dets)
         if not self.per_class:
             return self._run_class(None, dets)
@@ -121,13 +157,13 @@ class BaseTracker:
         frame_count = self.frame_count
         for cls_id in range(self.nr_classes):
             self.frame_count = frame_count
-            out = self._run_class(cls_id, dets[dets[:, 5] == cls_id])
+            out = self._run_class(cls_id, dets[dets[:, self.layout.cls_idx] == cls_id])
             if out.size > 0:
                 outputs.append(out)
         self.frame_count = frame_count + 1
         if outputs:
             return np.vstack(outputs)
-        return np.empty((0, AABB_OUT_COLS), np.float32)
+        return np.empty((0, self.layout.output_cols), np.float32)
 
     def _run_class(self, cls_id, dets):
         if cls_id is None:
@@ -142,7 +178,7 @@ class BaseTracker:
             prev_next = int(state.next_id[0])
 
         padded = torch.from_numpy(self._pad_dets(dets)).to(self.device)
-        state, out, out_mask = self._step(state, padded, padded[:, 4] >= 0.0)
+        state, out, out_mask = self._step(state, padded, padded[:, self.layout.conf_idx] >= 0.0)
 
         if cls_id is None:
             self._state = state
@@ -155,5 +191,6 @@ class BaseTracker:
             self._pc_ids.observe_created(prev_next, int(state.next_id[0]))
             if out_np.size:
                 out_np = out_np.copy()
-                out_np[:, 4] = self._pc_ids.remap(out_np[:, 4])
+                id_col = self.layout.box_cols
+                out_np[:, id_col] = self._pc_ids.remap(out_np[:, id_col])
         return out_np

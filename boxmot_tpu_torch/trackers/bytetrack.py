@@ -1,4 +1,4 @@
-"""ByteTrack (AABB) as a fixed-capacity slot bank, batched over S sequences.
+"""ByteTrack (AABB and OBB) as a fixed-capacity slot bank, batched over S sequences.
 
 Counterpart of ``boxmot_tpu/trackers/bytetrack.py``.  The JAX step runs
 one sequence and ``vmap`` batches it; here every state tensor carries an
@@ -6,18 +6,22 @@ explicit leading axis S and one ``bytetrack_step`` call advances S
 independent sequences by one frame.  The association semantics are those
 of the JAX step (see its module docstring); per frame the step runs:
 
-* the XYAH Kalman predict over the tracked + lost pool;
-* kernel K1 (``ops.fused_iou_cost``) for the shared IoU matrix and the
-  fused-score cost ``1 - iou * conf``;
+* the Kalman predict over the tracked + lost pool (XYAH; XYWH + angle for
+  oriented boxes);
+* the shared IoU matrix and the fused-score cost ``1 - iou * conf``: kernel
+  K1 (``ops.fused_iou_cost``) for axis-aligned boxes, kernel K3
+  (``ops.rotated_iou``) and an elementwise cost for oriented ones;
 * kernel K2 (``ops.lap.masked_assignment``) for the three passes;
-* one masked Joseph-form update for every matched slot;
+* one masked Joseph-form update for every matched slot (oriented
+  measurements first aligned to the track's angle, and the angular
+  velocity damped x0.8 after it);
 * lifecycle changes, slot allocation for new tracks, duplicate
-  suppression between tracked and lost (K1's IoU output) and emission.
+  suppression between tracked and lost (K1's or K3's IoU) and emission.
 
 The step uses masks and ``torch.where`` only: no ``.item()``, no branch on
 a tensor, no boolean-mask indexing and no ``nonzero``, so on a CUDA device
-a whole replay runs without a host sync.  Scatters that JAX writes with
-``mode="drop"`` write into one spare slot that is then cut off.
+a whole replay runs without a host sync (``trackers/slots.py`` has the
+scatters and the slot allocation).
 
 Slot states: 0 = empty, 1 = tracked, 2 = lost.
 """
@@ -31,9 +35,11 @@ import torch
 
 from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost
-from boxmot_tpu_torch.ops.geometry import xyah2xyxy, xyxy2xyah
+from boxmot_tpu_torch.ops.geometry import obb_corners, xyah2xyxy, xyxy2xyah
 from boxmot_tpu_torch.ops.lap import masked_assignment
-from boxmot_tpu_torch.trackers.base import OBB_NOT_PORTED, BaseTracker
+from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
+from boxmot_tpu_torch.trackers.base import BaseTracker
+from boxmot_tpu_torch.trackers.slots import allocate, scatter_det_flags, take
 
 EMPTY, TRACKED, LOST = 0, 1, 2
 
@@ -47,7 +53,7 @@ class ByteTrackConfig:
     min_conf: float = 0.1
     det_thresh: float = 0.45  # the reference sets det_thresh = track_thresh
     max_time_lost: int = 25
-    is_obb: bool = False  # oriented boxes: ROADMAP Slice 2
+    is_obb: bool = False  # oriented boxes: XYWH-5 filter + rotated IoU
     std_weight_position: float = 1.0 / 20
     std_weight_velocity: float = 1.0 / 160
     capacity: int = 256
@@ -58,8 +64,8 @@ class ByteTrackState:
     """S slot banks of capacity K.  The fields up to ``next_id`` are the JAX
     ``ByteTrackState`` fields with a leading S axis."""
 
-    mean: torch.Tensor  # (S, K, 8) xyah + velocities
-    cov: torch.Tensor  # (S, K, 8, 8)
+    mean: torch.Tensor  # (S, K, 8) xyah + velocities; (S, K, 10) xywh + angle (OBB)
+    cov: torch.Tensor  # (S, K, 8, 8); (S, K, 10, 10) (OBB)
     status: torch.Tensor  # (S, K) int32: EMPTY/TRACKED/LOST
     activated: torch.Tensor  # (S, K) bool
     tid: torch.Tensor  # (S, K) int32 track id
@@ -79,16 +85,15 @@ JAX_FIELDS = tuple(f.name for f in dataclasses.fields(ByteTrackState))[:-1]
 
 def init_state(cfg: ByteTrackConfig, n: int, device) -> ByteTrackState:
     """n fresh slot banks on ``device``."""
-    if cfg.is_obb:
-        raise NotImplementedError(OBB_NOT_PORTED)
     K = cfg.capacity
+    dx = 10 if cfg.is_obb else 8
 
     def zeros(*shape, dtype=torch.int32):
         return torch.zeros((n, *shape), dtype=dtype, device=device)
 
     return ByteTrackState(
-        mean=zeros(K, 8, dtype=torch.float32),
-        cov=zeros(K, 8, 8, dtype=torch.float32),
+        mean=zeros(K, dx, dtype=torch.float32),
+        cov=zeros(K, dx, dx, dtype=torch.float32),
         status=zeros(K),
         activated=zeros(K, dtype=torch.bool),
         tid=zeros(K),
@@ -119,37 +124,26 @@ def state_to_numpy(state: ByteTrackState) -> dict:
     return {name: getattr(state, name).cpu().numpy() for name in JAX_FIELDS}
 
 
-def _scatter_det_flags(r2c, matched, D):
-    """(S, D) flags of the detection columns taken by matched rows."""
-    S = r2c.shape[0]
-    idx = torch.where(matched, r2c.long(), D)
-    flags = torch.zeros((S, D + 1), dtype=torch.bool, device=r2c.device)
-    return flags.scatter(1, idx, True)[:, :D]
-
-
-def _take(x, idx):
-    """x (S, D, ...) gathered along D at idx (S, K) -> (S, K, ...)."""
-    idx = idx.long()
-    if x.dim() == 2:
-        return torch.gather(x, 1, idx)
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
-
-
 def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tensor,
                    det_valid: torch.Tensor):
     """One frame of S sequences.
 
-    dets: (S, D, 7) [x1, y1, x2, y2, conf, cls, det_ind], padding rows with
-    conf = -1; det_valid: (S, D) bool.  Returns (state, out (S, K, 8),
-    out_mask (S, K)).
+    dets: (S, D, 7) [x1, y1, x2, y2, conf, cls, det_ind], or (S, D, 8)
+    [cx, cy, w, h, theta, conf, cls, det_ind] when ``cfg.is_obb``; padding
+    rows with conf = -1; det_valid: (S, D) bool.  Returns (state, out
+    (S, K, 8) or (S, K, 9), out_mask (S, K)).
     """
-    if cfg.is_obb:
-        raise NotImplementedError(OBB_NOT_PORTED)
-    layout = kalman.make_xyah_layout(cfg.std_weight_position, cfg.std_weight_velocity)
-    S, D = dets.shape[0], dets.shape[1]
+    obb = cfg.is_obb
+    if obb:
+        layout = kalman.make_xywh_layout(True, cfg.std_weight_position, cfg.std_weight_velocity)
+        conf_i, cls_i, ind_i = 5, 6, 7
+    else:
+        layout = kalman.make_xyah_layout(cfg.std_weight_position, cfg.std_weight_velocity)
+        conf_i, cls_i, ind_i = 4, 5, 6
+    D = dets.shape[1]
     frame = (state.frame_count + 1)[:, None]  # (S, 1)
 
-    conf = dets[..., 4].contiguous()
+    conf = dets[..., conf_i].contiguous()
     first = det_valid & (conf > cfg.track_thresh)
     second = det_valid & (conf > cfg.min_conf) & (conf < cfg.track_thresh)
 
@@ -159,23 +153,28 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
     lost = status0 == LOST
     pool = tracked_act | lost
 
-    # KF predict over the pool; lost tracks get their height velocity zeroed
+    # KF predict over the pool; lost tracks get their size (and angle)
+    # velocities zeroed
     mean = torch.cat([state.mean[..., :7],
-                      torch.where(lost, 0.0, state.mean[..., 7])[..., None]], -1)
+                      torch.where(lost[..., None], 0.0, state.mean[..., 7:])], -1)
     pmean, pcov = kalman.predict(layout, mean, state.cov, pool)
 
-    det_xyxy = dets[..., :4].contiguous()
-    det_meas = xyxy2xyah(det_xyxy)
-    trk_xyxy = xyah2xyxy(pmean[..., :4])
     # rows not updated between passes keep their predicted means, so one
     # IoU matrix serves all three passes
-    iou, cost1 = fused_iou_cost(trk_xyxy, det_xyxy, conf)
+    if obb:
+        det_meas = dets[..., :5].contiguous()
+        iou = rotated_iou(pmean[..., :5].contiguous(), det_meas)
+        cost1 = 1.0 - iou * conf[:, None, :]
+    else:
+        det_xyxy = dets[..., :4].contiguous()
+        det_meas = xyxy2xyah(det_xyxy)
+        iou, cost1 = fused_iou_cost(xyah2xyxy(pmean[..., :4]), det_xyxy, conf)
     capped = state.lap_capped.clone()
 
     # pass 1: high-conf dets vs pool, fused-score cost
     r2c1 = masked_assignment(cost1, pool, first, cfg.match_thresh, capped)
     m1 = r2c1 >= 0
-    dm1 = _scatter_det_flags(r2c1, m1, D)
+    dm1 = scatter_det_flags(r2c1, m1, D)
 
     # pass 2: low-conf dets vs unmatched TRACKED slots, plain IoU
     r_tracked = pool & ~m1 & (status0 == TRACKED)
@@ -186,14 +185,21 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
     u_first = first & ~dm1
     r2c3 = masked_assignment(cost1, unconf, u_first, 0.7, capped)
     m3 = r2c3 >= 0
-    dm3 = _scatter_det_flags(r2c3, m3, D)
+    dm3 = scatter_det_flags(r2c3, m3, D)
 
     # one KF update for every matched slot
     matched = m1 | m2 | m3
     det_col = torch.where(m1, r2c1, torch.where(m2, r2c2, r2c3))
     c = torch.clamp(det_col, 0, D - 1)
-    meas = _take(det_meas, c)
+    meas = take(det_meas, c)
+    if obb:
+        # resolve the rotated-rect parameterization against the state
+        meas = kalman.align_obb_to_ref(meas, pmean[..., :5])
     new_mean, new_cov = kalman.update(layout, pmean, pcov, meas, matched)
+    if obb:
+        # angular velocity damped x0.8 after every observed update
+        theta_v = torch.where(matched, new_mean[..., 9] * 0.8, new_mean[..., 9])
+        new_mean = torch.cat([new_mean[..., :9], theta_v[..., None]], -1)
 
     # bookkeeping for matched slots
     was_tracked = status0 == TRACKED  # update() vs re_activate()
@@ -202,11 +208,11 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
     )
     status = torch.where(matched, TRACKED, status0)
     activated = state.activated | matched
-    det_cls = dets[..., 5].contiguous()
-    det_ind = dets[..., 6].contiguous()
-    conf_s = torch.where(matched, _take(conf, c), state.conf)
-    cls_s = torch.where(matched, _take(det_cls, c), state.cls)
-    det_ind_s = torch.where(matched, _take(det_ind, c), state.det_ind)
+    det_cls = dets[..., cls_i].contiguous()
+    det_ind = dets[..., ind_i].contiguous()
+    conf_s = torch.where(matched, take(conf, c), state.conf)
+    cls_s = torch.where(matched, take(det_cls, c), state.cls)
+    det_ind_s = torch.where(matched, take(det_ind, c), state.det_ind)
     frame_id = torch.where(matched, frame, state.frame_id)
 
     # drop aged-out lost tracks (before this frame's new lost)
@@ -219,33 +225,31 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
 
     # new tracks from the remaining high-conf dets, into free slots in order
     new_det = u_first & ~dm3 & (conf >= cfg.det_thresh)
-    n_new = new_det.sum(dim=1, dtype=torch.int32)  # (S,)
-    det_rank = torch.cumsum(new_det, dim=1) - 1
-    det_ids = torch.arange(D, device=dets.device).expand(S, D)
-    det_by_rank = torch.full((S, D + 1), D, dtype=torch.int64, device=dets.device)
-    det_by_rank = det_by_rank.scatter(1, torch.where(new_det, det_rank, D), det_ids)[:, :D]
-    free = status == EMPTY
-    free_rank = (torch.cumsum(free, dim=1) - 1).to(torch.int32)
-    takes = free & (free_rank < n_new[:, None])
-    slot_det = torch.clamp(_take(det_by_rank, torch.clamp(free_rank, 0, D - 1)), 0, D - 1)
+    n_new, free_rank, takes, slot_det = allocate(new_det, status == EMPTY)
 
-    init_mean_v, init_cov_v = kalman.initiate(layout, _take(det_meas, slot_det))
+    init_mean_v, init_cov_v = kalman.initiate(layout, take(det_meas, slot_det))
     new_mean = torch.where(takes[..., None], init_mean_v, new_mean)
     new_cov = torch.where(takes[..., None, None], init_cov_v, new_cov)
     status = torch.where(takes, TRACKED, status)
     activated = torch.where(takes, frame == 1, activated)
     tid = torch.where(takes, state.next_id[:, None] + free_rank, state.tid)
-    conf_s = torch.where(takes, _take(conf, slot_det), conf_s)
-    cls_s = torch.where(takes, _take(det_cls, slot_det), cls_s)
-    det_ind_s = torch.where(takes, _take(det_ind, slot_det), det_ind_s)
+    conf_s = torch.where(takes, take(conf, slot_det), conf_s)
+    cls_s = torch.where(takes, take(det_cls, slot_det), cls_s)
+    det_ind_s = torch.where(takes, take(det_ind, slot_det), det_ind_s)
     frame_id = torch.where(takes, frame, frame_id)
     start_frame = torch.where(takes, frame, state.start_frame)
     tracklet_len = torch.where(takes, 0, tracklet_len)
 
     # duplicate suppression between tracked and lost: pairs closer than IoU
     # distance 0.15 keep the longer-lived track
-    out_box = xyah2xyxy(new_mean[..., :4])
-    pair_iou, _ = fused_iou_cost(out_box, out_box, torch.zeros_like(status0, dtype=torch.float32))
+    if obb:
+        out_box = new_mean[..., :5].contiguous()
+        corners = obb_corners(out_box).contiguous()
+        pair_iou = rotated_iou(out_box, out_box, corners, corners)
+    else:
+        out_box = xyah2xyxy(new_mean[..., :4])
+        pair_iou, _ = fused_iou_cost(out_box, out_box,
+                                     torch.zeros_like(status0, dtype=torch.float32))
     a_mask = status == TRACKED
     b_mask = status == LOST
     close = (1.0 - pair_iou) < 0.15
@@ -286,6 +290,8 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
 class ByteTrack(BaseTracker):
     """Live tracker with the JAX ``ByteTrack`` constructor surface."""
 
+    supports_obb = True
+
     def __init__(
         self,
         device,
@@ -308,10 +314,15 @@ class ByteTrack(BaseTracker):
             min_conf=min_conf,
             det_thresh=track_thresh,
             max_time_lost=int(frame_rate / 30.0 * track_buffer),
+            is_obb=self.is_obb,
             std_weight_position=std_weight_position,
             std_weight_velocity=std_weight_velocity,
             capacity=capacity,
         )
+
+    def _set_detection_mode(self, is_obb: bool):
+        super()._set_detection_mode(is_obb)
+        self.cfg = dataclasses.replace(self.cfg, is_obb=is_obb)
 
     def _init_state(self):
         return init_state(self.cfg, 1, self.device)

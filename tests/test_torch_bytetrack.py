@@ -168,9 +168,40 @@ def test_unported_paths_raise():
         create_tracker("occluboost", device="cpu")
     with pytest.raises(ValueError, match="Unknown tracker"):
         create_tracker("nosuch", device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        create_tracker("bytetrack", device="cpu").update(np.zeros((1, 7), np.float32))
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        tbt.init_state(tbt.ByteTrackConfig(is_obb=True), 1, "cpu")
     with pytest.raises(AssertionError):
         create_tracker("bytetrack", device="cpu").update(np.zeros((1, 5), np.float32))
+    obb = create_tracker("bytetrack", device="cpu")
+    obb.update(np.zeros((0, 7), np.float32))  # an (N, 7) first frame: OBB mode
+    with pytest.raises(AssertionError):  # and (N, 6) frames are refused after it
+        obb.update(np.zeros((1, 6), np.float32))
+
+
+def test_live_frames_of_300_detections_equal_jax():
+    """Frames of 257-512 detections pad to the 512 bucket, as in the JAX
+    shell; the auction takes up to 512 detection columns."""
+    from boxmot_tpu_torch.trackers.base import det_bucket
+
+    assert det_bucket(300) == 512 and det_bucket(512) == 512
+    with pytest.raises(ValueError, match="too many"):
+        det_bucket(513)
+    rng = np.random.default_rng(0)
+    n = 300
+    pos = rng.uniform(0, [1800, 1000], (n, 2))
+    vel = rng.uniform(-3, 3, (n, 2))
+    size = rng.uniform(20, 60, (n, 2))
+    img = np.zeros((1080, 1920, 3), np.uint8)
+    jt = boxmot_tpu.create_tracker("bytetrack")
+    tt = create_tracker("bytetrack", device="cpu")
+    rows = 0
+    for f in range(3):
+        p = pos + vel * f
+        conf = rng.uniform(0.3, 0.99, n)
+        dets = np.concatenate([p, p + size, conf[:, None], rng.integers(0, 3, (n, 1))],
+                              axis=1).astype(np.float32)
+        want = np.asarray(jt.update(dets, img))
+        got = np.asarray(tt.update(dets, img))
+        assert got.shape == want.shape, f
+        np.testing.assert_array_equal(got[:, 4:], want[:, 4:], err_msg=f"frame {f}")
+        np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
+        rows += len(got)
+    assert rows > 300 and got[:, 7].max() >= 256  # det_ind beyond the old 256 columns

@@ -99,7 +99,10 @@ def test_replay_rows_equal_jax_replay():
 
 
 def test_chip_smoke_pins_equal_the_suite_pins():
-    assert chip_smoke.PINNED == {k: v for k, v in PINNED.items() if k[1] == "bytetrack"}
+    from tests.test_torch_obb import JAX_OBB_EVAL
+
+    assert chip_smoke.PINNED == {k: v for k, v in PINNED.items() if k[1] in ("bytetrack", "sfsort")}
+    assert chip_smoke.OBB_EVAL == JAX_OBB_EVAL
     assert chip_smoke.ATOL == ATOL
 
 
@@ -177,6 +180,8 @@ def test_port_import_and_eval_leave_jax_out():
         "import boxmot_tpu_torch\n"
         "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'bytetrack', device='cpu')\n"
         "assert abs(res['combined']['HOTA'] - 0.649859) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval_obb('assets/mmot-mini/train', 'sfsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.898815) <= 1e-4\n"
         "bad = [m for m in ('jax', 'jaxlib', 'flax', 'yaml', 'click') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost, fused_iou_cost_plain
+from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain
+from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +69,7 @@ def _problem(rng, kind, S, R, C):
 
 
 @pytest.mark.parametrize("kind", ["dense", "ties", "sparse", "masked"])
-@pytest.mark.parametrize("R, C", [(256, 128), (256, 256), (7, 3)])
+@pytest.mark.parametrize("R, C", [(256, 128), (256, 256), (7, 3), (256, 512), (100, 300)])
 def test_auction_kernel_r2c_identical_to_twin(card, kind, R, C):
     rng = np.random.default_rng(R * C)
     cost, rm, cm = (torch.from_numpy(a).to(card) for a in _problem(rng, kind, 4, R, C))
@@ -86,3 +88,44 @@ def test_auction_kernel_counts_the_iteration_cap(card):
     capped = torch.ones(2, dtype=torch.int32, device=card)
     masked_assignment(cost, rm, cm, 0.8, capped, max_iters=3)
     assert capped.tolist() == [2, 2]
+
+
+def test_auction_kernel_per_problem_thresholds(card):
+    rng = np.random.default_rng(2)
+    cost, rm, cm = (torch.from_numpy(a).to(card) for a in _problem(rng, "sparse", 3, 64, 40))
+    thresh = torch.tensor([0.3, 0.67, 0.9], device=card)
+    caps = [torch.zeros(3, dtype=torch.int32, device=card) for _ in range(2)]
+    got = masked_assignment(cost, rm, cm, thresh, caps[0])
+    want = masked_assignment_plain(cost, rm, cm, thresh, caps[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _obbs(rng, S, n):
+    """Rotated boxes near each other, with zero-area, padding, identical,
+    sliver and quarter-turned boxes mixed in."""
+    b = np.zeros((S, n, 5), np.float32)
+    b[..., :2] = rng.uniform(0, 600, (S, n, 2))
+    b[..., 2:4] = rng.uniform(2, 200, (S, n, 2))
+    b[..., 4] = rng.uniform(-np.pi, np.pi, (S, n))
+    b[:, 0::9] = 0.0  # empty slot
+    b[:, 1::9] = [0.0, 0.0, 1.0, 1.0, 0.0]  # padding detection
+    b[:, 2::9, 2] = 1e-3  # sliver
+    b[:, 3::9, 4] = np.pi / 2
+    return b
+
+
+@pytest.mark.parametrize("S, N, M", [(8, 256, 128), (1, 1, 3), (2, 200, 77), (1, 130, 513)])
+def test_rotated_iou_kernel_bit_equal_to_twin(card, S, N, M):
+    rng = np.random.default_rng(N + M)
+    a, b = _obbs(rng, S, N), _obbs(rng, S, M)
+    k = min(N, M) // 2
+    b[:, :k] = a[:, :k] + rng.normal(0, 3, (S, k, 5)).astype(np.float32)
+    a, b = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    c1, c2 = obb_corners(a).contiguous(), obb_corners(b).contiguous()
+    before = rotated_iou.launches
+    got = rotated_iou(a, b, c1, c2)
+    want = rotated_iou_plain(a, b, c1, c2)
+    torch.cuda.synchronize()
+    assert rotated_iou.launches == before + 1
+    assert torch.equal(got, want)

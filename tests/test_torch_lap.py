@@ -16,7 +16,7 @@ import torch
 
 from boxmot_tpu.ops.lap import linear_assignment_np
 from boxmot_tpu.ops.lap import masked_assignment as jax_masked_assignment
-from boxmot_tpu_torch.ops.lap import MAX_DIM, masked_assignment, masked_assignment_plain
+from boxmot_tpu_torch.ops.lap import MAX_COLS, MAX_ROWS, masked_assignment, masked_assignment_plain
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,10 +106,15 @@ def test_wrapper_guards():
     before = masked_assignment.launches
     masked_assignment(thresh=0.5, **ok)
     assert masked_assignment.launches == before  # a CPU tensor never reaches the kernel
-    too_big = dict(ok, cost=torch.zeros(S, MAX_DIM + 1, C),
-                   row_mask=torch.ones(S, MAX_DIM + 1, dtype=torch.bool))
-    with pytest.raises(ValueError, match="at most"):
-        masked_assignment(thresh=0.5, **too_big)
+    too_many_rows = dict(ok, cost=torch.zeros(S, MAX_ROWS + 1, C),
+                         row_mask=torch.ones(S, MAX_ROWS + 1, dtype=torch.bool))
+    too_many_cols = dict(ok, cost=torch.zeros(S, R, MAX_COLS + 1),
+                         col_mask=torch.ones(S, MAX_COLS + 1, dtype=torch.bool))
+    for too_big in (too_many_rows, too_many_cols):
+        with pytest.raises(ValueError, match="at most"):
+            masked_assignment(thresh=0.5, **too_big)
+    masked_assignment(thresh=0.5, **dict(ok, cost=torch.zeros(S, R, MAX_COLS),
+                                         col_mask=torch.ones(S, MAX_COLS, dtype=torch.bool)))
     with pytest.raises(ValueError, match="capped"):
         masked_assignment(thresh=0.5, **dict(ok, capped=torch.zeros(S, dtype=torch.int64)))
     with pytest.raises(ValueError, match="float32"):
