@@ -4,14 +4,16 @@ It runs ByteTrack and SFSORT replay, eval and live tracking, for
 axis-aligned and oriented boxes, on one NVIDIA H100, or on the CPU through
 each kernel's plain PyTorch twin.  The hot ops of the tracker steps are
 kernels written by hand for Hopper (``csrc/``), built with nvcc on first
-use.  The package imports torch, numpy and scipy, and the JAX package's
-host-only modules; never JAX.
+use.  The package imports torch, numpy, scipy and cv2 (the OBB metric),
+and nothing of JAX or of the JAX package: it keeps its own copies of the
+host modules it needs (``data``, ``engine.metrics``, ``engine.mot_io``,
+``engine.results``, ``trackers.per_class_ids``, ``trackers.track_results``).
 
-Entry points::
+Entry points, on the card unless ``device="cpu"`` is given::
 
-    boxmot_tpu_torch.run_eval(root, "bytetrack", device="cuda")
-    boxmot_tpu_torch.run_eval_obb(mmot_root, "sfsort", device="cuda")
-    tracker = boxmot_tpu_torch.create_tracker("sfsort", device="cuda")
+    boxmot_tpu_torch.run_eval(root, "bytetrack")
+    boxmot_tpu_torch.run_eval_obb(mmot_root, "sfsort")
+    tracker = boxmot_tpu_torch.create_tracker("sfsort")
     tracker.update(dets, img)  # (N, 6) xyxy or (N, 7) xywha detections
 """
 

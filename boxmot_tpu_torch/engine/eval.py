@@ -2,8 +2,9 @@
 (counterpart of the device branch of boxmot_tpu/engine/eval.py::run_eval).
 
 Detections, ground truth and the HOTA/CLEAR/Identity metric stack are the
-JAX package's host modules, which import no JAX; only the replay runs in
-the port.
+port's own copies of the JAX package's host modules (``data``,
+``engine.metrics``, ``engine.mot_io``, ``engine.results``); the replay runs
+on ``device``, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -13,13 +14,13 @@ from pathlib import Path
 
 import numpy as np
 
-from boxmot_tpu.data.cache import det_cache_path, load_cached_dets_per_frame
-from boxmot_tpu.data.mot import MOTDataset
-from boxmot_tpu.engine.metrics.mot_metrics import evaluate_sequences, preprocess_sequence
-from boxmot_tpu.engine.mot_io import write_mot_results
-from boxmot_tpu.engine.results import ValidationResult
 from boxmot_tpu_torch.configs import get_tracker_defaults
+from boxmot_tpu_torch.data.cache import det_cache_path, load_cached_dets_per_frame
+from boxmot_tpu_torch.data.mot import MOTDataset
+from boxmot_tpu_torch.engine.metrics.mot_metrics import evaluate_sequences, preprocess_sequence
+from boxmot_tpu_torch.engine.mot_io import write_mot_results
 from boxmot_tpu_torch.engine.replay import replay_sequences_batched
+from boxmot_tpu_torch.engine.results import ValidationResult
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
 from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
 from boxmot_tpu_torch.trackers.zoo import check_ported
@@ -47,7 +48,7 @@ def run_eval(
     data_root: Path,
     tracker_type: str = "bytetrack",
     *,
-    device,
+    device="cuda",
     tracker_params: dict | None = None,
     output_dir: Path | None = None,
     min_det_conf: float | None = None,

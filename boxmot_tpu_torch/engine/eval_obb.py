@@ -3,9 +3,10 @@ branch of boxmot_tpu/engine/eval_obb.py).
 
 OBB detections (the ground truth as detections) are replayed on the device
 through an oriented tracker; the corner-format rows and the class-averaged
-HOTA/CLEAR/Identity with rotated-IoU matching come from the JAX package's
-host modules (``boxmot_tpu.data.mmot``, ``mot_metrics``), which import no
-JAX.  The native ``:cpp`` backend of the JAX function is not ported.
+HOTA/CLEAR/Identity with rotated-IoU matching come from the port's own
+copies of the JAX package's host modules (``data.mmot``,
+``engine.metrics.mot_metrics``).  The native ``:cpp`` backend of the JAX
+function is not ported.
 """
 
 from __future__ import annotations
@@ -15,11 +16,11 @@ from pathlib import Path
 
 import numpy as np
 
-from boxmot_tpu.data.mmot import MmotDataset
-from boxmot_tpu.engine.metrics.mot_metrics import evaluate_obb_results, obb_to_corners
-from boxmot_tpu.engine.results import ValidationResult
+from boxmot_tpu_torch.data.mmot import MmotDataset
 from boxmot_tpu_torch.engine.eval import build_replay_config
+from boxmot_tpu_torch.engine.metrics.mot_metrics import evaluate_obb_results, obb_to_corners
 from boxmot_tpu_torch.engine.replay import replay_sequences_outputs
+from boxmot_tpu_torch.engine.results import ValidationResult
 from boxmot_tpu_torch.utils.device import resolve_device
 
 
@@ -55,7 +56,7 @@ def run_eval_obb(
     data_root: Path,
     tracker_type: str = "bytetrack",
     *,
-    device,
+    device="cuda",
     tracker_params: dict | None = None,
     output_dir: Path | None = None,
     per_class: bool = True,

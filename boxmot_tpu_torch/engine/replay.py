@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from boxmot_tpu.engine.mot_io import convert_to_mot_format
+from boxmot_tpu_torch.engine.mot_io import convert_to_mot_format
 from boxmot_tpu_torch.trackers import bytetrack, sfsort
 from boxmot_tpu_torch.utils.device import resolve_device
 
@@ -131,7 +131,7 @@ def _to_host(*tensors: torch.Tensor):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def replay_sequences_outputs(cfg, seqs, *, device):
+def replay_sequences_outputs(cfg, seqs, *, device="cuda"):
     """Replay many sequences; return (outs (n_frames, K, 8 or 9), masks
     (n_frames, K)) on the host for each, in input order.
 
@@ -170,13 +170,13 @@ def replay_sequences_outputs(cfg, seqs, *, device):
     return results
 
 
-def replay_sequences_batched(cfg, seqs, *, device):
+def replay_sequences_batched(cfg, seqs, *, device="cuda"):
     """Replay many axis-aligned sequences; return one MOT row array each,
     in input order (see ``replay_sequences_outputs``)."""
     return [_unpack_mot_rows(outs, masks, len(outs))
             for outs, masks in replay_sequences_outputs(cfg, seqs, device=device)]
 
 
-def replay_sequence(cfg, dets_per_frame, *, device):
+def replay_sequence(cfg, dets_per_frame, *, device="cuda"):
     """Replay one sequence and return MOT rows (N, 9) on the host."""
     return replay_sequences_batched(cfg, [{"dets": dets_per_frame}], device=device)[0]

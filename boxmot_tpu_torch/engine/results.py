@@ -1,0 +1,49 @@
+"""Typed eval result.
+
+The port's own copy of ``ValidationResult`` and its base from
+``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
+that index the raw mapping keep working, with attribute accessors and a
+summary (role mirror of the reference's
+boxmot/engine/workflows/results.py:136).
+"""
+
+from __future__ import annotations
+
+
+class WorkflowResult(dict):
+    """dict-compatible base: result["key"] and result.key both work."""
+
+    _fields: tuple[str, ...] = ()
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def summary(self) -> str:
+        return ", ".join(f"{k}={self[k]}" for k in self._fields if k in self)
+
+
+class ValidationResult(WorkflowResult):
+    """Eval output: per_seq + combined metric dicts (results.py:136)."""
+
+    _fields = ("combined",)
+
+    @property
+    def hota(self) -> float:
+        return float(self["combined"]["HOTA"])
+
+    @property
+    def mota(self) -> float:
+        return float(self["combined"]["MOTA"])
+
+    @property
+    def idf1(self) -> float:
+        return float(self["combined"]["IDF1"])
+
+    def summary(self) -> str:
+        return (
+            f"HOTA {100 * self.hota:.2f}  MOTA {100 * self.mota:.2f}  "
+            f"IDF1 {100 * self.idf1:.2f}"
+        )

@@ -13,7 +13,10 @@ Both return ``r2c`` (S, R) int32 (matched column or -1) and add 1 to
 ``capped[s]`` for each problem that stopped at ``max_iters`` with rows
 still unassigned, so a caller can refuse a truncated solve.  ``thresh`` is
 a float for every problem, or an (S,) float32 tensor of one per problem
-(SFSORT's dynamic first-pass threshold).
+(SFSORT's dynamic first-pass threshold).  An optional ``work`` (S, 2)
+int32 tensor receives each problem's iterations and pending rows scanned
+(summed over its iterations): the work these inputs needed, from which a
+caller counts the kernel's bound.
 """
 
 from __future__ import annotations
@@ -25,13 +28,15 @@ import torch
 from boxmot_tpu_torch.csrc import build
 
 MAX_ROWS = 256  # rows one thread block holds: one thread each
-MAX_COLS = 512  # columns one thread block holds: two per thread
+MAX_COLS = 512  # columns one thread block holds
+# dynamic shared memory the kernel gives the weights (csrc/auction.cu kMaxSharedW)
+SHARED_W_BYTES = 200 * 1024
 _P = ctypes.c_void_p
 _NEG = float("-inf")
 
 
 def masked_assignment_plain(cost, row_mask, col_mask, thresh, capped,
-                            max_iters: int = 4000):
+                            max_iters: int = 4000, work=None):
     """Plain PyTorch twin of the kernel; see the module docstring."""
     S, R, C = cost.shape
     valid = row_mask[:, :, None] & col_mask[:, None, :]
@@ -48,6 +53,9 @@ def masked_assignment_plain(cost, row_mask, col_mask, thresh, capped,
     it = 0
     while it < max_iters and bool((r2c == -1).any()):
         unassigned = r2c == -1
+        if work is not None:
+            work[:, 0] += unassigned.any(dim=1).to(work.dtype)
+            work[:, 1] += unassigned.sum(dim=1).to(work.dtype)
         v = w - prices[:, None, :]
         b1 = v.amax(dim=2)
         jstar = v.argmax(dim=2)
@@ -76,7 +84,7 @@ def masked_assignment_plain(cost, row_mask, col_mask, thresh, capped,
     return torch.where(r2c >= 0, r2c, -1).to(torch.int32)
 
 
-def _check(cost, row_mask, col_mask, thresh, capped) -> None:
+def _check(cost, row_mask, col_mask, thresh, capped, work) -> None:
     if cost.dim() != 3 or cost.dtype != torch.float32:
         raise ValueError(f"masked_assignment: cost must be (S, R, C) float32, got "
                          f"{tuple(cost.shape)} {cost.dtype}")
@@ -91,6 +99,8 @@ def _check(cost, row_mask, col_mask, thresh, capped) -> None:
     ]
     if torch.is_tensor(thresh):
         tensors.append(("thresh", thresh, (S,), torch.float32))
+    if work is not None:
+        tensors.append(("work", work, (S, 2), torch.int32))
     for name, t, shape, dtype in tensors:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"masked_assignment: {name} must be {shape} {dtype}, "
@@ -102,30 +112,40 @@ def _check(cost, row_mask, col_mask, thresh, capped) -> None:
 
 
 def masked_assignment(cost, row_mask, col_mask, thresh, capped,
-                      max_iters: int = 4000):
+                      max_iters: int = 4000, work=None):
     """Solve S masked assignments: cost (S, R, C), masks (S, R)/(S, C).
 
     Pairs with cost >= thresh never match.  Returns r2c (S, R) int32 and
     adds to ``capped`` (S,) int32 in place; kernel K2 on a CUDA tensor.
+    ``work``, when given, is zeroed and filled as the module docstring says.
     """
-    _check(cost, row_mask, col_mask, thresh, capped)
+    _check(cost, row_mask, col_mask, thresh, capped, work)
+    if work is not None:
+        work.zero_()
     if cost.device.type == "cpu":
-        return masked_assignment_plain(cost, row_mask, col_mask, thresh, capped, max_iters)
+        return masked_assignment_plain(cost, row_mask, col_mask, thresh, capped, max_iters, work)
     if cost.device.type != "cuda":
         raise ValueError(f"masked_assignment: unsupported device {cost.device}")
     S, R, C = cost.shape
-    fn = build.entry("auction", "bmt_auction", [_P] * 7 + [ctypes.c_int] * 4 + [_P])
+    fn = build.entry("auction", "bmt_auction",
+                     [_P] * 6 + [ctypes.c_float, _P] + [ctypes.c_int] * 4 + [_P])
+    per_problem = torch.is_tensor(thresh)
     with torch.cuda.device(cost.device):
-        if not torch.is_tensor(thresh):
-            thresh = torch.full((S,), thresh, dtype=torch.float32, device=cost.device)
-        w_scratch = torch.empty((S, C, R), dtype=torch.float32, device=cost.device)
         r2c = torch.empty((S, R), dtype=torch.int32, device=cost.device)
         stream = torch.cuda.current_stream(cost.device).cuda_stream
-        rc = fn(cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), w_scratch.data_ptr(),
-                r2c.data_ptr(), capped.data_ptr(), thresh.data_ptr(), S, R, C, max_iters, stream)
+        rc = fn(cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), r2c.data_ptr(),
+                capped.data_ptr(), thresh.data_ptr() if per_problem else None,
+                0.0 if per_problem else float(thresh),
+                None if work is None else work.data_ptr(), S, R, C, max_iters, stream)
     build.check_launch("auction", "bmt_auction", rc)
     masked_assignment.launches += 1
     return r2c
+
+
+def uses_shared_weights(R: int, C: int) -> bool:
+    """Whether kernel K2 keeps the (R, C) weights in shared memory for a
+    problem of this shape (else it reads the cost from global memory)."""
+    return R * C * 4 <= SHARED_W_BYTES
 
 
 masked_assignment.launches = 0

@@ -128,6 +128,27 @@ def _check(obbs1, obbs2, c1, c2) -> None:
                              f"got {tuple(c.shape)}")
 
 
+def _launch(obbs1, obbs2, c1, c2, ops=None, slow=None):
+    S, N, _ = obbs1.shape
+    M = obbs2.shape[1]
+    fn = build.entry("rotated_iou", "bmt_rotated_iou", [_P] * 7 + [ctypes.c_int] * 3 + [_P])
+    with torch.cuda.device(obbs1.device):
+        out = torch.empty((S, N, M), dtype=torch.float32, device=obbs1.device)
+        stream = torch.cuda.current_stream(obbs1.device).cuda_stream
+        rc = fn(obbs1.data_ptr(), c1.data_ptr(), obbs2.data_ptr(), c2.data_ptr(), out.data_ptr(),
+                None if ops is None else ops.data_ptr(), None if slow is None else slow.data_ptr(),
+                S, N, M, stream)
+    build.check_launch("rotated_iou", "bmt_rotated_iou", rc)
+    return out
+
+
+def _check_card(obbs1, c1, c2) -> None:
+    if obbs1.device.type != "cuda":
+        raise ValueError(f"rotated_iou: unsupported device {obbs1.device}")
+    if any(t.data_ptr() % 16 for t in (c1, c2)):
+        raise ValueError("rotated_iou: corner tensors must be 16-byte aligned")
+
+
 def rotated_iou(obbs1, obbs2, c1=None, c2=None):
     """(S, N, M) IoU as ``rotated_iou_plain``; kernel K3 on a CUDA tensor."""
     _check_boxes(obbs1, obbs2)
@@ -136,21 +157,26 @@ def rotated_iou(obbs1, obbs2, c1=None, c2=None):
     _check(obbs1, obbs2, c1, c2)
     if obbs1.device.type == "cpu":
         return rotated_iou_plain(obbs1, obbs2, c1, c2)
-    if obbs1.device.type != "cuda":
-        raise ValueError(f"rotated_iou: unsupported device {obbs1.device}")
-    if any(t.data_ptr() % 16 for t in (c1, c2)):
-        raise ValueError("rotated_iou: corner tensors must be 16-byte aligned")
-    S, N, _ = obbs1.shape
-    M = obbs2.shape[1]
-    fn = build.entry("rotated_iou", "bmt_rotated_iou", [_P] * 5 + [ctypes.c_int] * 3 + [_P])
-    with torch.cuda.device(obbs1.device):
-        out = torch.empty((S, N, M), dtype=torch.float32, device=obbs1.device)
-        stream = torch.cuda.current_stream(obbs1.device).cuda_stream
-        rc = fn(obbs1.data_ptr(), c1.data_ptr(), obbs2.data_ptr(), c2.data_ptr(),
-                out.data_ptr(), S, N, M, stream)
-    build.check_launch("rotated_iou", "bmt_rotated_iou", rc)
+    _check_card(obbs1, c1, c2)
+    out = _launch(obbs1, obbs2, c1, c2)
     rotated_iou.launches += 1
     return out
+
+
+def rotated_iou_counted(obbs1, obbs2, c1, c2):
+    """K3's counting instantiation, for measurement only (CUDA tensors):
+    (iou, ops, slow) with each pair's arithmetic operations ops (S, N, M)
+    int32 and the number of pairs that overflowed the fast path (8 vertices)
+    and took the slow path.  The iou equals ``rotated_iou``'s; the tracker
+    steps never call this, so it does not count launches."""
+    _check_boxes(obbs1, obbs2)
+    _check(obbs1, obbs2, c1, c2)
+    _check_card(obbs1, c1, c2)
+    S, N, _ = obbs1.shape
+    ops = torch.empty((S, N, obbs2.shape[1]), dtype=torch.int32, device=obbs1.device)
+    slow = torch.zeros(1, dtype=torch.int32, device=obbs1.device)
+    out = _launch(obbs1, obbs2, c1, c2, ops, slow)
+    return out, ops, int(slow)
 
 
 rotated_iou.launches = 0

@@ -19,8 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from boxmot_tpu.trackers.per_class_ids import GlobalIdAllocator
-from boxmot_tpu.trackers.track_results import TrackResults
+from boxmot_tpu_torch.trackers.per_class_ids import GlobalIdAllocator
+from boxmot_tpu_torch.trackers.track_results import TrackResults
 from boxmot_tpu_torch.utils.device import resolve_device
 
 # the JAX shell's buckets; the auction kernel holds up to 512 detection

@@ -38,9 +38,10 @@ def check_ported(name: str) -> None:
     raise ValueError(f"Unknown tracker {name!r}; available: {list(PORTED)}")
 
 
-def create_tracker(tracker_type: str, *, device, tracker_config: dict | None = None,
+def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | None = None,
                    per_class: bool = False, evolve_param_dict: dict | None = None, **kwargs):
-    """Build a live tracker by name on ``device`` ("cpu", "cuda", "cuda:N")."""
+    """Build a live tracker by name on ``device`` ("cpu", "cuda", "cuda:N");
+    the card unless the caller asks for the CPU."""
     check_ported(tracker_type)
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrack
     from boxmot_tpu_torch.trackers.sfsort import SFSORT

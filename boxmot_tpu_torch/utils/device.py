@@ -2,8 +2,9 @@
 
 Counterpart of ``boxmot_tpu/utils/misc.py::select_device`` and
 ``boxmot_tpu/ops/precision.py``.  Every public entry point of the port
-takes a ``device`` argument and resolves it here; nothing falls back from
-a requested CUDA device to the CPU, and there is no global default device.
+takes a ``device`` argument, ``"cuda"`` unless the caller asks for the
+CPU, and resolves it here; nothing falls back from a requested CUDA device
+to the CPU, so without a card the default raises.
 """
 
 from __future__ import annotations

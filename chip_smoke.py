@@ -8,9 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the three hand-written kernels from csrc/, one nvcc each, in
      parallel;
   3. each kernel against its plain PyTorch twin on the card, at the main
-     paths' shapes and at ragged / tie-heavy / masked / degenerate ones, and
-     the median time of each (CUDA events); the OBB Kalman bank's bits on the
-     card against the CPU;
+     paths' shapes and at ragged / tie-heavy / masked / degenerate ones: K2
+     on both of its paths (w in shared memory, cost read from global memory),
+     K3 also on crossed quadrilaterals that overflow its fast path;
+     then each kernel timed on the inputs of one recorded bench step: its
+     device time per launch (torch.profiler), its wrapper's time (CUDA
+     events around one call), its twin's, and its bound counted from the
+     work those inputs need; the OBB Kalman bank's bits on the card against
+     the CPU;
   4. AABB evals: run_eval for ByteTrack and SFSORT on MOT17-mini and
      synth-long, held to the pinned HOTA/MOTA/IDF1, with their MOT rows
      held against the same evals on the CPU;
@@ -60,9 +65,11 @@ from boxmot_tpu_torch.engine.replay import (
 from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.geometry import obb_corners
-from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain
-from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_plain
+from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
+from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
+from boxmot_tpu_torch.trackers import bytetrack
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+from boxmot_tpu_torch.utils import measure
 
 ROOT = Path(__file__).resolve().parent
 ASSETS = ROOT / "assets"
@@ -83,9 +90,6 @@ OBB_EVAL = {
 }
 ATOL = 1e-4
 K1_ATOL = 1e-6
-# K3 runs the twin's rounded operations in the twin's order, so it should be
-# bit-equal; 1e-6 is the twin's own distance to the JAX jnp clip
-K3_ATOL = 1e-6
 # the port evaluates cos/sin/log/sqrt in float64 and rounds once, so a cuda
 # run and a CPU run agree to the bit unless a float64 result lands within an
 # ulp of a float32 rounding boundary; OBB boxes are held within 1e-2 px
@@ -137,21 +141,6 @@ def synthetic_obb_frames(n_frames, n_dets, seed=0, miss=0.05):
     return frames
 
 
-def cuda_ms(fn, reps=50, warmup=5):
-    """Median milliseconds of one call, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def _boxes(rng, S, n):
     """Track/detection-like xyxy boxes with the step's edge cases mixed in."""
     b = np.zeros((S, n, 4), np.float32)
@@ -163,7 +152,13 @@ def _boxes(rng, S, n):
     return b
 
 
-def check_k1(rng):
+def k1_bound(S, K, D):
+    """K1's least time: boxes and confidences read once, two (S, K, D)
+    outputs written once; 15 operations a pair and 3 a box (its area)."""
+    return measure.bound_ms(S * (16 * K + 20 * D) + 8 * S * K * D, 15 * S * K * D + 3 * S * (K + D))
+
+
+def check_k1(rng, step_calls):
     worst = 0.0
     for S, K, D in ((8, 256, 128), (1, 1, 3), (2, 200, 77)):
         trk = _boxes(rng, S, K)
@@ -180,12 +175,27 @@ def check_k1(rng):
         worst = max(worst, err)
         print(f"K1 S={S} K={K} D={D}: max abs err {err:.3g}, bit-equal "
               f"{torch.equal(iou, ref_iou) and torch.equal(cost, ref_cost)}")
-    # time at the bench shape: S = 8 sequences, K = 256 slots, D = 128
-    main = [torch.from_numpy(a).cuda() for a in
-            (_boxes(rng, 8, 256), _boxes(rng, 8, 128), rng.uniform(0.05, 1, (8, 128)).astype(np.float32))]
-    ms = cuda_ms(lambda: fused_iou_cost(*main))
-    plain_ms = cuda_ms(lambda: fused_iou_cost_plain(*main))
-    return worst, ms, plain_ms
+    # times on the AABB bench step's own inputs (its two launches)
+    rows = []
+    for args, _ in step_calls["aabb"]["fused_iou_cost"]:
+        S, K, D = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+        row = (measure.device_ms(lambda: fused_iou_cost(*args), "iou_cost_kernel"),
+               measure.event_ms(lambda: fused_iou_cost(*args)),
+               measure.event_ms(lambda: fused_iou_cost_plain(*args)), *k1_bound(S, K, D))
+        print(f"K1 bench step (S, K, D) = {(S, K, D)}: device {row[0]:.5f} ms a launch, wrapper "
+              f"{row[1]:.5f} ms, plain {row[2]:.5f} ms, bound {row[3]:.5f} ms ({row[4]})")
+        rows.append(row)
+    return timing(worst, rows)
+
+
+def timing(worst, rows):
+    """A kernel's entry of the kernels line, from its rows of (device ms,
+    wrapper ms, plain ms, bound ms, bound_by) at the main path's launches:
+    the mean per launch."""
+    mean = [statistics.fmean(r[k] for r in rows) for k in range(4)]
+    by = max(set(r[4] for r in rows), key=[r[4] for r in rows].count)
+    return {"max_abs_err": worst, "ms": mean[0], "wrapper_ms": mean[1], "plain_ms": mean[2],
+            "bound_ms": mean[3], "bound_by": by}
 
 
 def _problem(rng, kind, S=8, R=256, C=128):
@@ -198,52 +208,65 @@ def _problem(rng, kind, S=8, R=256, C=128):
     row_mask = rng.uniform(size=(S, R)) < 0.8
     col_mask = rng.uniform(size=(S, C)) < 0.8
     if kind == "masked":
-        row_mask[:4] = False  # all-masked problems
-        col_mask[4:, 1:] = False  # single-column problems
+        row_mask[: S // 2] = False  # all-masked problems
+        col_mask[S // 2:, 1:] = False  # single-column problems
     return [torch.from_numpy(a).cuda() for a in (cost.astype(np.float32), row_mask, col_mask)]
 
 
-def check_k2(rng):
-    worst = 0
-    for kind in ("dense", "ties", "masked", "iou-like"):
-        cost, rm, cm = _problem(rng, kind)
-        caps = [torch.zeros(8, dtype=torch.int32, device="cuda") for _ in range(2)]
-        got = masked_assignment(cost, rm, cm, 0.8, caps[0])
-        want = masked_assignment_plain(cost, rm, cm, 0.8, caps[1])
-        torch.cuda.synchronize()
-        worst = max(worst, int((got - want).abs().max()))
-        if not (torch.equal(got, want) and torch.equal(caps[0], caps[1])):
-            bad = int((got != want).sum())
-            raise AssertionError(f"K2 {kind}: r2c differs from the twin in {bad} rows")
-        print(f"K2 S=8 256x128 {kind}: r2c identical, {int((got >= 0).sum())} matches, "
-              f"capped {caps[0].tolist()}")
-    # a live frame of up to 512 detections: one problem, 256 slots x 512 columns
-    for kind in ("iou-like", "dense"):
-        cost, rm, cm = _problem(rng, kind, S=1, R=256, C=512)
-        caps = [torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(2)]
-        got = masked_assignment(cost, rm, cm, 0.8, caps[0])
-        want = masked_assignment_plain(cost, rm, cm, 0.8, caps[1])
-        torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(caps[0], caps[1])):
-            raise AssertionError(f"K2 S=1 256x512 {kind}: r2c differs from the twin in "
-                                 f"{int((got != want).sum())} rows")
-        print(f"K2 S=1 256x512 {kind}: r2c identical, {int((got >= 0).sum())} matches, "
-              f"capped {caps[0].tolist()}")
-    # per-problem thresholds (SFSORT's dynamic first pass)
-    cost, rm, cm = _problem(rng, "iou-like")
-    thresh = torch.linspace(0.3, 0.9, 8, device="cuda")
-    caps = [torch.zeros(8, dtype=torch.int32, device="cuda") for _ in range(2)]
-    got = masked_assignment(cost, rm, cm, thresh, caps[0])
-    want = masked_assignment_plain(cost, rm, cm, thresh, caps[1])
+def k2_bound(cost, work):
+    """K2's least time for these inputs: cost and masks read once, r2c
+    written once; 3 operations a pair to form w and its maximum, and for
+    every pending row of every iteration (``work``, counted by the kernel)
+    3 a column (the net value and the two compares) and 4 for the bid."""
+    S, R, C = cost.shape
+    scanned = int(work[:, 1].sum())
+    return measure.bound_ms(S * (4 * R * C + 5 * R + C), 3 * S * R * C + scanned * (3 * C + 4))
+
+
+def _k2_same(label, cost, rm, cm, thresh):
+    S = cost.shape[0]
+    caps = [torch.zeros(S, dtype=torch.int32, device="cuda") for _ in range(2)]
+    works = [torch.zeros((S, 2), dtype=torch.int32, device="cuda") for _ in range(2)]
+    got = masked_assignment(cost, rm, cm, thresh, caps[0], work=works[0])
+    want = masked_assignment_plain(cost, rm, cm, thresh, caps[1], work=works[1])
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K2 with per-problem thresholds: r2c differs from the twin")
-    print("K2 S=8 256x128 per-problem thresholds: r2c identical")
-    cost, rm, cm = _problem(rng, "iou-like")
-    cap = torch.zeros(8, dtype=torch.int32, device="cuda")
-    ms = cuda_ms(lambda: masked_assignment(cost, rm, cm, 0.8, cap))
-    plain_ms = cuda_ms(lambda: masked_assignment_plain(cost, rm, cm, 0.8, cap), reps=10, warmup=1)
-    return float(worst), ms, plain_ms
+    if not (torch.equal(got, want) and torch.equal(caps[0], caps[1])
+            and torch.equal(works[0], works[1])):
+        raise AssertionError(f"K2 {label}: r2c, capped or work differs from the twin in "
+                             f"{int((got != want).sum())} rows")
+    path = "shared" if uses_shared_weights(*cost.shape[1:]) else "global"
+    print(f"K2 {label} ({path} w): r2c and capped identical, {int((got >= 0).sum())} matches, "
+          f"capped {caps[0].tolist()}, iterations {works[0][:, 0].tolist()}")
+
+
+def check_k2(rng, step_calls):
+    """r2c and capped against the twin on both paths: w in shared memory
+    (256 x 128, the bench's) and the cost read from global memory (256 x 512,
+    a live frame of up to 512 detections)."""
+    for S, R, C in ((8, 256, 128), (2, 256, 512)):
+        for kind in ("dense", "ties", "masked", "iou-like"):
+            _k2_same(f"S={S} {R}x{C} {kind}", *_problem(rng, kind, S=S, R=R, C=C), 0.8)
+        # per-problem thresholds (SFSORT's dynamic first pass)
+        thresh = torch.linspace(0.3, 0.9, S, device="cuda")
+        _k2_same(f"S={S} {R}x{C} per-problem thresholds",
+                 *_problem(rng, "iou-like", S=S, R=R, C=C), thresh)
+    rows = []
+    for label in ("aabb", "obb"):
+        for args, kwargs in step_calls[label]["masked_assignment"]:
+            cost = args[0]
+            work = torch.zeros((cost.shape[0], 2), dtype=torch.int32, device="cuda")
+            masked_assignment(*args, **kwargs, work=work)
+            row = (measure.device_ms(lambda: masked_assignment(*args, **kwargs), "auction_kernel"),
+                   measure.event_ms(lambda: masked_assignment(*args, **kwargs)),
+                   measure.event_ms(lambda: masked_assignment_plain(*args, **kwargs), reps=5,
+                                    warmup=1), *k2_bound(cost, work))
+            print(f"K2 {label} bench step {tuple(cost.shape)}: device {row[0]:.5f} ms a launch, "
+                  f"wrapper {row[1]:.5f} ms, plain {row[2]:.5f} ms, bound {row[3]:.6f} ms "
+                  f"({row[4]}); iterations {work[:, 0].tolist()}, rows scanned "
+                  f"{work[:, 1].tolist()}")
+            if label == "aabb":
+                rows.append(row)
+    return timing(0.0, rows)
 
 
 def _obbs(rng, S, n, span=(1920, 1080), wmax=200.0):
@@ -295,50 +318,113 @@ def _degenerate(rng):
     return a, b
 
 
+def crossed_quads(rng, n, size=4.0):
+    """Boxes (n, 5) whose corners (n, 4, 2) are drawn at random around the
+    centre, so that most quadrilaterals cross themselves, as rounding can bend
+    a near-collinear sliver's corners across each other.  A half-plane then
+    cuts such a list in more than two places, and now and then a stage emits
+    more than K3's fast path holds (8 vertices): the slow path's set."""
+    b = np.zeros((n, 5), np.float32)
+    b[:, :2] = rng.normal(0, 1, (n, 2))
+    b[:, 2:4] = size
+    b[:, 4] = rng.uniform(-np.pi, np.pi, n)
+    c = b[:, None, :2] + rng.normal(0, 1, (n, 4, 2))
+    return b, c.astype(np.float32)
+
+
 def _twin_in_row_chunks(a, b, c1, c2, rows=256):
     """The twin over row chunks, so its (rows, M, 64) slot temporaries fit."""
     return torch.cat([rotated_iou_plain(a[:, i:i + rows], b, c1[:, i:i + rows], c2)
                       for i in range(0, a.shape[1], rows)], dim=1)
 
 
-def check_k3(rng):
+def k3_bound(a, b, ops):
+    """K3's least time for these inputs: 13 floats read once per box, one IoU
+    written once per pair; the operations are those the counting
+    instantiation added up for each pair, plus 1 a box (its area) and 17 a
+    clip box (its winding)."""
+    S, N, M = ops.shape
+    return measure.bound_ms(52 * S * (N + M) + 4 * S * N * M,
+                            int(ops.sum(dtype=torch.int64)) + S * (N + 18 * M))
+
+
+def check_k3(rng, step_calls):
     """K3 against its twin, both given the same corners (computed once on the
-    card), so the comparison tests the clip and not the trig."""
-    worst = 0.0
+    card), so the comparison tests the clip and not the trig; bit-equal on
+    every set, the crossed quadrilaterals' slow path included."""
     cases = [("tracker", *_track_like(rng, 8, 256, 128)), ("ragged", *_track_like(rng, 1, 1, 3)),
-             ("ragged", *_track_like(rng, 2, 200, 77)), ("degenerate", *_degenerate(rng))]
-    a4k, b4k = _obbs(rng, 1, 4096), _obbs(rng, 1, 4096)
-    cases.append(("4096^2", a4k, b4k))
+             ("ragged", *_track_like(rng, 2, 200, 77)), ("degenerate", *_degenerate(rng)),
+             ("4096^2", _obbs(rng, 1, 4096), _obbs(rng, 1, 4096))]
+    (qa, ca), (qb, cb) = crossed_quads(rng, 256), crossed_quads(rng, 256)
+    cases.append(("crossed (overflow)", qa[None], qb[None], ca[None], cb[None]))
     timed = {}
-    for kind, a, b in cases:
+    for kind, a, b, *corners in cases:
         a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
-        c1, c2 = obb_corners(a).contiguous(), obb_corners(b).contiguous()
+        c1, c2 = ([torch.from_numpy(c).cuda() for c in corners] if corners
+                  else [obb_corners(x).contiguous() for x in (a, b)])
         got = rotated_iou(a, b, c1, c2)
+        counted, ops, slow = rotated_iou_counted(a, b, c1, c2)
         big = a.shape[1] * b.shape[1] > 1 << 20
         want = (_twin_in_row_chunks if big else rotated_iou_plain)(a, b, c1, c2)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not (err <= K3_ATOL and torch.isfinite(got).all()):
-            raise AssertionError(f"K3 {kind} {tuple(got.shape)}: max abs err {err} > {K3_ATOL}")
-        worst = max(worst, err)
-        print(f"K3 {kind} S,N,M={tuple(got.shape)}: max abs err {err:.3g}, bit-equal "
-              f"{torch.equal(got, want)}, pairs with IoU > 0.05: {int((got > 0.05).sum())}")
+        if not (torch.equal(got, want) and torch.equal(counted, want)):
+            err = float((got - want).abs().max())
+            raise AssertionError(f"K3 {kind} {tuple(got.shape)}: not bit-equal to the twin "
+                                 f"(max abs err {err})")
+        print(f"K3 {kind} S,N,M={tuple(got.shape)}: bit-equal to the twin, pairs on the slow "
+              f"path: {slow}, pairs with IoU > 0.05: {int((got > 0.05).sum())}")
+        if kind.startswith("crossed") and slow == 0:
+            raise AssertionError("K3: the crossed quadrilaterals never took the slow path")
         if kind == "degenerate":
             self_iou = torch.diagonal(rotated_iou(a, a, c1, c1)[0])
-            ok = (self_iou[:44] > 0.999).all() and float(got[0, 0, 54]) == 0.0
-            if not ok:
+            if not ((self_iou[:44] > 0.999).all() and float(got[0, 0, 54]) == 0.0):
                 raise AssertionError("K3: self-IoU <= 0.999 or a disjoint pair > 0")
-        if kind in ("tracker", "4096^2"):
-            timed[kind] = (a, b, c1, c2, big)
-    times = {}
-    for kind, (a, b, c1, c2, big) in timed.items():
-        reps = 5 if big else 50
-        times[kind] = (cuda_ms(lambda: rotated_iou(a, b, c1, c2), reps=reps, warmup=2),
-                       cuda_ms(lambda: (_twin_in_row_chunks if big else rotated_iou_plain)(
-                           a, b, c1, c2), reps=3 if big else 20, warmup=1))
-        print(f"K3 {kind} {tuple(a.shape[:2])} x {b.shape[1]}: kernel {times[kind][0]:.4f} ms, "
-              f"twin {times[kind][1]:.4f} ms (CUDA events, median)")
-    return worst, times
+        if kind == "4096^2":
+            timed[kind] = (a, b, c1, c2, ops)
+    # the OBB bench step's own inputs (its two launches), with their corners
+    for args, _ in step_calls["obb"]["rotated_iou"]:
+        a, b = args[0], args[1]
+        c1, c2 = (obb_corners(x).contiguous() for x in (a, b))
+        timed[f"bench step {tuple(a.shape[:2])} x {b.shape[1]}"] = (
+            a, b, c1, c2, rotated_iou_counted(a, b, c1, c2)[1])
+    rows = []
+    for kind, (a, b, c1, c2, ops) in timed.items():
+        big = kind == "4096^2"
+        twin = _twin_in_row_chunks if big else rotated_iou_plain
+        row = (measure.device_ms(lambda: rotated_iou(a, b, c1, c2), "rotated_iou_kernel",
+                                 reps=5 if big else 20),
+               measure.event_ms(lambda: rotated_iou(a, b, c1, c2), reps=5 if big else 50),
+               measure.event_ms(lambda: twin(a, b, c1, c2), reps=3 if big else 20, warmup=1),
+               *k3_bound(a, b, ops))
+        print(f"K3 {kind}: device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
+              f"{row[2]:.4f} ms, bound {row[3]:.5f} ms ({row[4]}), "
+              f"{int(ops.sum(dtype=torch.int64))} operations counted")
+        if not big:
+            rows.append(row)
+    return timing(0.0, rows)
+
+
+def bench_step_calls():
+    """The arguments of every kernel launch of one steady bench step (frame
+    64 of 256), AABB and OBB ByteTrack at the bench shape, recorded so that
+    phase 3 times each kernel on the inputs the main path gives it."""
+    calls = {}
+    for label, cfg, frames_fn, cols, names in (
+            ("aabb", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6,
+             ("fused_iou_cost", "masked_assignment")),
+            ("obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
+             lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7,
+             ("rotated_iou", "masked_assignment"))):
+        packed = [pack_frames(frames_fn(65, N_DETS, seed=100 + s), D=D_BENCH, F=65,
+                              det_cols=cols)[0] for s in range(N_SEQS)]
+        batch = torch.from_numpy(np.stack(packed)).cuda()
+        states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64])
+        with measure.record_calls(bytetrack, names) as rec:
+            batch_replay(cfg, states, batch[:, 64:])
+        calls[label] = rec
+        print(f"bench step {label}: " + ", ".join(
+            f"{n} x {len(v)} {[tuple(a[0].shape) for a, _ in v]}" for n, v in rec.items()))
+    return calls
 
 
 def check_kalman_obb(rng):
@@ -625,9 +711,11 @@ def main() -> int:
     build_kernels()
 
     rng = np.random.default_rng(0)
-    checks = {"fused_iou_cost": check_k1(rng), "masked_assignment": check_k2(rng)}
-    k3_err, k3_times = check_k3(rng)
-    checks["rotated_iou"] = (k3_err, *k3_times["tracker"])
+    step_calls = bench_step_calls()
+    checks = {"fused_iou_cost": check_k1(rng, step_calls),
+              "masked_assignment": check_k2(rng, step_calls),
+              "rotated_iou": check_k3(rng, step_calls)}
+    del step_calls
     check_kalman_obb(rng)
 
     check_sync_mode_is_live()
@@ -644,10 +732,15 @@ def main() -> int:
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
+    for name, c in checks.items():
+        print(f"wrapper ms {name}: {c['wrapper_ms']:.5f} (CUDA events around one call of the "
+              f"wrapper, host work included)")
+    # library_ms: no single PyTorch call computes any of the three functions
     kernels = [
         {"name": name, "route": "cuda", "source": f"boxmot_tpu_torch/csrc/{src}.cu",
-         "replaces": replaces, "launches": LAUNCHES[name], "max_abs_err": checks[name][0],
-         "ms": checks[name][1], "plain_ms": checks[name][2]}
+         "replaces": replaces, "launches": LAUNCHES[name],
+         **{k: checks[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None}
         for name, (_, src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

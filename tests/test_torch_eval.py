@@ -174,15 +174,24 @@ def test_unpack_mot_rows_equals_jax():
 
 
 def test_port_import_and_eval_leave_jax_out():
+    """The port, driven through its evals and its live API, loads neither JAX
+    nor any module of the JAX package."""
     code = (
         "import sys, torch\n"
+        "import numpy as np\n"
         "torch.set_num_threads(1)\n"
         "import boxmot_tpu_torch\n"
         "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'bytetrack', device='cpu')\n"
         "assert abs(res['combined']['HOTA'] - 0.649859) <= 1e-4\n"
         "res = boxmot_tpu_torch.run_eval_obb('assets/mmot-mini/train', 'sfsort', device='cpu')\n"
         "assert abs(res['combined']['HOTA'] - 0.898815) <= 1e-4\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'flax', 'yaml', 'click') if m in sys.modules]\n"
+        "trk = boxmot_tpu_torch.create_tracker('bytetrack', device='cpu', per_class=True)\n"
+        "dets = np.array([[10, 10, 50, 90, 0.9, 0], [200, 40, 260, 160, 0.8, 2]], np.float32)\n"
+        "for _ in range(3):\n"
+        "    out = trk.update(dets, np.zeros((480, 640, 3), np.uint8))\n"
+        "assert out.shape == (2, 8) and sorted(out.id) == [1, 2], out\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
+        "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -190,6 +199,28 @@ def test_port_import_and_eval_leave_jax_out():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["run_eval", "run_eval_obb", "create_tracker", "replay_sequence",
+                                   "replay_sequences_batched", "replay_sequences_outputs"])
+def test_entry_points_default_to_the_card(entry):
+    """``device`` defaults to "cuda"; without a card the default raises and
+    never falls back to the CPU."""
+    import inspect
+
+    import boxmot_tpu_torch
+
+    fn = getattr(boxmot_tpu_torch, entry, None) or getattr(treplay, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    cfg = build_replay_config("bytetrack")
+    dets = [np.array([[10, 10, 50, 90, 0.9, 0]], np.float32)]
+    args = {"run_eval": (ROOTS["mot17_mini"],), "run_eval_obb": (REPO / "assets/mmot-mini/train",),
+            "create_tracker": ("bytetrack",), "replay_sequence": (cfg, dets)}.get(
+                entry, (cfg, [{"dets": dets}]))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        fn(*args)
 
 
 def test_replay_refuses_a_capped_auction(monkeypatch):

@@ -15,8 +15,9 @@ import torch
 
 from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.geometry import obb_corners
-from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain
-from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_plain
+from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
+from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
+from chip_smoke import crossed_quads
 
 pytestmark = pytest.mark.cuda
 
@@ -68,18 +69,30 @@ def _problem(rng, kind, S, R, C):
     return cost.astype(np.float32), row_mask, col_mask
 
 
+# (256, 128) and (100, 300) keep w in shared memory; (256, 256) and (256, 512)
+# read the cost from global memory
+AUCTION_SHAPES = [(256, 128), (256, 256), (7, 3), (256, 512), (100, 300)]
+
+
+def test_auction_shapes_cover_both_paths():
+    assert {uses_shared_weights(R, C) for R, C in AUCTION_SHAPES} == {True, False}
+    assert uses_shared_weights(256, 128) and not uses_shared_weights(256, 512)
+
+
 @pytest.mark.parametrize("kind", ["dense", "ties", "sparse", "masked"])
-@pytest.mark.parametrize("R, C", [(256, 128), (256, 256), (7, 3), (256, 512), (100, 300)])
+@pytest.mark.parametrize("R, C", AUCTION_SHAPES)
 def test_auction_kernel_r2c_identical_to_twin(card, kind, R, C):
     rng = np.random.default_rng(R * C)
     cost, rm, cm = (torch.from_numpy(a).to(card) for a in _problem(rng, kind, 4, R, C))
     caps = [torch.zeros(4, dtype=torch.int32, device=card) for _ in range(2)]
+    work = [torch.full((4, 2), 7, dtype=torch.int32, device=card) for _ in range(2)]
     before = masked_assignment.launches
-    got = masked_assignment(cost, rm, cm, 0.8, caps[0])
-    want = masked_assignment_plain(cost, rm, cm, 0.8, caps[1])
+    got = masked_assignment(cost, rm, cm, 0.8, caps[0], work=work[0])
+    want = masked_assignment_plain(cost, rm, cm, 0.8, caps[1], work=work[1].zero_())
     torch.cuda.synchronize()
     assert masked_assignment.launches == before + 1
     assert torch.equal(got, want) and torch.equal(caps[0], caps[1])
+    assert torch.equal(work[0], work[1]) and int(work[0][:, 0].max()) > 0
 
 
 def test_auction_kernel_counts_the_iteration_cap(card):
@@ -129,3 +142,18 @@ def test_rotated_iou_kernel_bit_equal_to_twin(card, S, N, M):
     torch.cuda.synchronize()
     assert rotated_iou.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_rotated_iou_kernel_slow_path_bit_equal_to_twin(card):
+    """Crossed quadrilaterals overflow the register fast path; the pairs the
+    kernel recomputes on its slow path keep the twin's bits, and the counting
+    instantiation gives the timed kernel's output."""
+    rng = np.random.default_rng(23)
+    (a, c1), (b, c2) = crossed_quads(rng, 200), crossed_quads(rng, 300)
+    a, b, c1, c2 = (torch.from_numpy(x)[None].to(card) for x in (a, b, c1, c2))
+    got = rotated_iou(a, b, c1, c2)
+    counted, ops, slow = rotated_iou_counted(a, b, c1, c2)
+    want = rotated_iou_plain(a, b, c1, c2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(counted, want)
+    assert slow > 0 and int(ops.min()) > 0

@@ -41,7 +41,7 @@ from boxmot_tpu_torch.motion import kalman as tk
 from boxmot_tpu_torch.ops import geometry as tgeo
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_plain
 from boxmot_tpu_torch.trackers import bytetrack as tbt
-from chip_smoke import synthetic_obb_frames
+from chip_smoke import crossed_quads, synthetic_obb_frames
 
 MMOT = Path(__file__).resolve().parent.parent / "assets" / "mmot-mini" / "train"
 # the JAX package's run_eval_obb on mmot-mini, class-averaged, on the CPU
@@ -150,9 +150,15 @@ def test_twin_self_iou_and_degenerate_values():
     np.testing.assert_array_equal(_twin(far_and_empty, box), [[0.0], [0.0]])
 
 
+K3_FAST = 8  # vertices the kernel's fast path holds (csrc/rotated_iou.cu kFast)
+
+
 def _k3_emulated(o1, c1, o2, c2):
     """Kernel K3's clip for one pair (csrc/rotated_iou.cu), in float32
-    scalars: a compact vertex list, walked in the padded list's order."""
+    scalars: a compact vertex list, walked in the padded list's order.
+    Returns (iou, slow): ``slow`` when a stage emitted more than K3_FAST
+    vertices, so that the kernel recomputes the pair on its slow path, which
+    runs the same operations over 64-slot lists."""
     ox = (F32(o1[0]) + F32(o2[0])) / F32(2)
     oy = (F32(o1[1]) + F32(o2[1])) / F32(2)
     bx, by = [F32(v) for v in c2[:, 0]], [F32(v) for v in c2[:, 1]]
@@ -163,7 +169,8 @@ def _k3_emulated(o1, c1, o2, c2):
     orient = F32(1) if F32(0.5) * wind >= 0 else F32(-1)
     ex, ey = [v - ox for v in bx], [v - oy for v in by]
     xs, ys = [F32(v) - ox for v in c1[:, 0]], [F32(v) - oy for v in c1[:, 1]]
-    lead, split = False, True
+    rejected = _k3_clipped_away(xs, ys, ex, ey, orient)
+    lead, split, slow = False, True, False
     for k in range(4):
         kn = (k + 1) % 4
         dx, dy = ex[kn] - ex[k], ey[kn] - ey[k]
@@ -185,9 +192,18 @@ def _k3_emulated(o1, c1, o2, c2):
                 ny.append(ys[b])
             if q == 0:
                 s0, s1 = split and in_a != in_b, in_b if split else in_a
+        # the kernel's shortcuts for a stage whose vertices are all outside
+        # (the list empties) or all inside (the list as it is, or rotated left
+        # by one unless `lead`; then `lead` holds and `split` stays)
+        if not any(s >= 0 for s in side):
+            assert not nx
+        elif all(s >= 0 for s in side):
+            keep = (xs, ys) if lead else (xs[1:] + xs[:1], ys[1:] + ys[:1])
+            assert (nx, ny, not s0, s1 if s0 else s1 and split) == (*keep, True, split)
         lead, split = not s0, (s1 if s0 else s1 and split)
         xs, ys = nx, ny
-        assert len(xs) <= 4 << (k + 1)  # the kernel's list bound
+        assert len(xs) <= 4 << (k + 1)  # the slow path's list bound
+        slow |= len(xs) > K3_FAST
         if not xs:
             break
     inter = F32(0)
@@ -199,7 +215,25 @@ def _k3_emulated(o1, c1, o2, c2):
             acc = acc + (xs[a] * ys[b] - xs[b] * ys[a])
         inter = F32(0.5) * abs(acc)
     union = F32(o1[2]) * F32(o1[3]) + F32(o2[2]) * F32(o2[3]) - inter
-    return inter / max(union, F32(1e-12)) if union > 0 else F32(0)
+    iou = inter / max(union, F32(1e-12)) if union > 0 else F32(0)
+    if rejected:  # the kernel writes 0 without clipping: the clip must agree
+        assert not xs and iou == 0
+    return iou, slow, rejected
+
+
+def _k3_clipped_away(xs, ys, ex, ey, orient):
+    """The kernel's reject test (csrc/rotated_iou.cu clipped_away): all four
+    subject corners outside one clip edge by (|dx| + |dy|) 1e-4 A, with A the
+    largest centred coordinate."""
+    big = max(abs(v) for v in xs + ys + ex + ey)
+    for k in range(4):
+        kn = (k + 1) % 4
+        dx, dy = ex[kn] - ex[k], ey[kn] - ey[k]
+        margin = (abs(dx) + abs(dy)) * big * F32(1e-4)
+        if all((dx * (y - ey[k]) - dy * (x - ex[k])) * orient < -margin for x, y in zip(xs, ys)):
+            return True
+    return False
+
 
 
 def test_k3_compact_clip_is_bit_equal_to_twin():
@@ -214,10 +248,37 @@ def test_k3_compact_clip_is_bit_equal_to_twin():
     c1, c2 = tgeo.obb_corners(A), tgeo.obb_corners(B)
     twin = rotated_iou_plain(A, B, c1, c2)[0].numpy()
     c1, c2 = c1[0].numpy(), c2[0].numpy()
-    got = np.array([[_k3_emulated(a[i], c1[i], b[j], c2[j]) for j in range(len(b))]
+    got = np.array([[_k3_emulated(a[i], c1[i], b[j], c2[j])[0] for j in range(len(b))]
                     for i in range(len(a))], F32)
     np.testing.assert_array_equal(got.view(np.int32), twin.view(np.int32))
     assert (twin > 0.05).sum() > 40
+
+
+@pytest.mark.parametrize("kind", ["random", "degenerate", "crossed"])
+def test_k3_fast_path_and_overflow_bit_equal_to_twin(kind):
+    """The kernel's fast path holds K3_FAST vertices; a pair whose list
+    outgrows it takes the slow path.  Either way the bits are the twin's, and
+    every pair the reject test skips has the twin's exact 0.  Real boxes are
+    convex, so their lists hold at most 8 vertices and never overflow; the
+    crossed quadrilaterals do."""
+    rng = np.random.default_rng({"random": 21, "degenerate": 22, "crossed": 23}[kind])
+    if kind == "crossed":
+        (a, c1), (b, c2) = crossed_quads(rng, 40), crossed_quads(rng, 48)
+    else:
+        a, b = (_degenerate_pair(rng, 40, 48) if kind == "degenerate"
+                else (_obbs(rng, 40, span=(300, 300)), _obbs(rng, 48, span=(300, 300))))
+        c1, c2 = (tgeo.obb_corners(torch.from_numpy(x)).numpy() for x in (a, b))
+    twin = rotated_iou_plain(*(torch.from_numpy(x)[None] for x in (a, b, c1, c2)))[0].numpy()
+    got = [[_k3_emulated(a[i], c1[i], b[j], c2[j]) for j in range(len(b))] for i in range(len(a))]
+    iou = np.array([[g[0] for g in row] for row in got], F32)
+    slow = sum(g[1] for row in got for g in row)
+    rejected = sum(g[2] for row in got for g in row)
+    np.testing.assert_array_equal(iou.view(np.int32), twin.view(np.int32))
+    assert 0 < rejected < (twin == 0).sum()  # the reject test holds back near pairs
+    if kind == "crossed":
+        assert slow > 0 and (twin > 0).sum() > 100
+    else:
+        assert slow == 0 and (twin > 0.05).sum() > 20
 
 
 def test_rotated_iou_wrapper_on_cpu():
