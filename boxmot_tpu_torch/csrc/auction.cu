@@ -28,11 +28,12 @@
 //   * One block of 32 warps per problem.  w is formed a warp a row, its lanes
 //     on neighbouring columns, so every warp has several rows' loads in flight.
 //   * w lives in shared memory for the whole loop when R * C * 4 bytes fit
-//     (kMaxSharedW; the bench's 256 x 128 takes 128 KB of the 227 KB a block
-//     may have).  Wider problems (live frames of up to 512 detections) read
-//     the cost from global memory, L2-resident after the first pass, and
-//     recompute w with the same rounded operations; no scratch buffer, no
-//     allocation per launch.  The host picks the path from the static shape.
+//     (the bench's 256 x 128 takes 128 KB of the 227 KB a block may have).
+//     Wider problems (live frames of up to 512 detections) read the cost
+//     from global memory, L2-resident after the first pass, and recompute w
+//     with the same rounded operations; no scratch buffer, no allocation per
+//     launch.  The caller picks the path from the static shape and passes it
+//     (ops/lap.py uses_shared_weights holds the limit).
 //   * Pending rows are compacted into a list each iteration (a ballot and
 //     one shared atomic per warp), and each pending row is scanned by a whole
 //     warp: a lane keeps (b1, arg, b2) of its strided columns, scanned in
@@ -62,7 +63,6 @@ constexpr int kMaxRows = 256;
 constexpr int kMaxCols = 512;
 constexpr int kThreads = 1024;  // 32 warps: a pending row each, R <= 256 rows
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSharedW = 200 * 1024;  // bytes of dynamic shared memory for w
 constexpr int kNoArg = 0x7fffffff;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -235,10 +235,12 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
 }  // namespace
 
 // thresh: (S,) per-problem thresholds, or null for thresh_all everywhere;
-// work: null, or (S, 2) int32 for each problem's iterations and rows scanned
+// work: null, or (S, 2) int32 for each problem's iterations and rows scanned;
+// shared_w: nonzero to keep w (R * C floats) in dynamic shared memory
 extern "C" int bmt_auction(const void* cost, const void* row_mask, const void* col_mask,
                            void* r2c, void* capped, const void* thresh, float thresh_all,
-                           void* work, int S, int R, int C, int max_iters, void* stream) {
+                           void* work, int S, int R, int C, int max_iters, int shared_w,
+                           void* stream) {
   if (R > kMaxRows || C > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
   if (S <= 0) return static_cast<int>(cudaGetLastError());
   const size_t w_bytes = static_cast<size_t>(R) * C * sizeof(float);
@@ -247,13 +249,14 @@ extern "C" int bmt_auction(const void* cost, const void* row_mask, const void* c
   const auto* rm = static_cast<const unsigned char*>(row_mask);
   const auto* cm = static_cast<const unsigned char*>(col_mask);
   const auto* th = static_cast<const float*>(thresh);
-  if (w_bytes <= kMaxSharedW) {
-    static bool attr_set = false;  // once per process: the limit does not change
-    if (!attr_set) {
+  if (shared_w) {
+    static size_t attr_bytes = 0;  // the most dynamic shared memory allowed so far
+    if (w_bytes > attr_bytes) {
       const cudaError_t err = cudaFuncSetAttribute(
-          auction_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedW);
+          auction_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(w_bytes));
       if (err != cudaSuccess) return static_cast<int>(err);
-      attr_set = true;
+      attr_bytes = w_bytes;
     }
     auction_kernel<true><<<S, kThreads, w_bytes, st>>>(
         c, rm, cm, static_cast<int*>(r2c), static_cast<int*>(capped), th, thresh_all,

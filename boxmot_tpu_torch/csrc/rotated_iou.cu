@@ -59,9 +59,11 @@
 //     recomputes a winding.  The host picks the rows per block from the
 //     shape and the card's SM count, so a tracker-sized problem still spreads
 //     over the SMs.
-// A counting instantiation (kCount) adds each pair's arithmetic operations to
-// an output and counts the pairs that took the slow path; the timed one does
-// neither.
+// A counting instantiation (kCount) writes each pair's arithmetic operations:
+// those of the function itself (centring, the walk, the quotient), so it
+// also walks the pairs that pass 1 rejects and leaves the reject test
+// uncounted.  It counts the queued pairs that took the slow path; the timed
+// instantiation does neither.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -247,9 +249,9 @@ __device__ __forceinline__ bool clipped_away(const float* ax, const float* ay, c
   return away;
 }
 
-// the test's operations a pair: 8 subtractions and 16 sides of 6, plus the
-// margins (4 x 4) and the magnitude (16 x 2)
-constexpr int kRejectOps = 8 + 16 * 6 + 16 + 32;
+// a pair's operations besides its walk: centring (4 for the centre, 16
+// corner subtractions), the union (2) and the quotient (1)
+constexpr int kPairOps = 4 + 16 + 3;
 
 template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
@@ -321,6 +323,23 @@ rotated_iou_kernel(const float* __restrict__ b1, const float4* __restrict__ c1,
     }
   };
 
+  // the intersection area of a centred pair, by the fast path or, when its
+  // list outgrows kFast slots, by the slow path (then *slow is set); the
+  // thread's own shared-memory lists
+  auto intersect = [&](const float* ax, const float* ay, const float* ex, const float* ey,
+                       float orient, int* ops, bool* slow) {
+    float inter;
+    *slow = !clip<kFast, kThreads, kCount>(ax, ay, ex, ey, orient, &list_x[0][0][tx],
+                                           &list_y[0][0][tx], &list_x[1][0][tx],
+                                           &list_y[1][0][tx], &list_side[0][tx], &inter, ops);
+    if (*slow) inter = clip_slow<kCount>(ax, ay, ex, ey, orient, ops);
+    return inter;
+  };
+  auto iou = [&](int r, int c, float inter) {
+    const float uni = __fsub_rn(__fadd_rn(row_area[r], col_area[c]), inter);
+    return uni > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
+  };
+
   // pass 1: write the provable zeros, queue the rest (warp-aggregated)
   for (int r = 0; r < rows; ++r) {
     bool keep = false;
@@ -331,7 +350,15 @@ rotated_iou_kernel(const float* __restrict__ b1, const float4* __restrict__ c1,
       if (!keep) {
         const size_t o = ((size_t)s * N + i0 + r) * M + j;
         out[o] = 0.0f;
-        if (kCount) ops_out[o] = 4 + kRejectOps;
+        if (kCount) {
+          // the function's work for this pair is its walk, not the reject
+          // test: count the walk, and write its IoU, the test's exact 0, so
+          // that holding this output against the twin checks the test too
+          int ops = 0;
+          bool slow;
+          out[o] = iou(r, tx, intersect(ax, ay, ex, ey, col_orient[tx], &ops, &slow));
+          ops_out[o] = kPairOps + ops;
+        }
       }
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, keep);
@@ -349,21 +376,15 @@ rotated_iou_kernel(const float* __restrict__ b1, const float4* __restrict__ c1,
     const int c = queue[qi] - r * kThreads;
     float ax[4], ay[4], ex[4], ey[4];
     centre(r, c, ax, ay, ex, ey);
-    const float orient = col_orient[c];
     int ops = 0;
-    float inter;
-    if (!clip<kFast, kThreads, kCount>(ax, ay, ex, ey, orient, &list_x[0][0][tx],
-                                       &list_y[0][0][tx], &list_x[1][0][tx], &list_y[1][0][tx],
-                                       &list_side[0][tx], &inter, &ops)) {
-      ops = 0;
-      inter = clip_slow<kCount>(ax, ay, ex, ey, orient, &ops);
-      if (kCount) atomicAdd(slow_pairs, 1u);
-    }
-    const float uni = __fsub_rn(__fadd_rn(row_area[r], col_area[c]), inter);
+    bool slow;
+    const float inter = intersect(ax, ay, ex, ey, col_orient[c], &ops, &slow);
     const size_t o = ((size_t)s * N + i0 + r) * M + blockIdx.x * kThreads + c;
-    out[o] = uni > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
-    // the test, then centring again 4 + 16, union and quotient 3
-    if (kCount) ops_out[o] = 4 + kRejectOps + ops + 23;
+    out[o] = iou(r, c, inter);
+    if (kCount) {
+      ops_out[o] = kPairOps + ops;
+      if (slow) atomicAdd(slow_pairs, 1u);
+    }
   }
 }
 

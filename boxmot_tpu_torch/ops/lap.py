@@ -29,7 +29,8 @@ from boxmot_tpu_torch.csrc import build
 
 MAX_ROWS = 256  # rows one thread block holds: one thread each
 MAX_COLS = 512  # columns one thread block holds
-# dynamic shared memory the kernel gives the weights (csrc/auction.cu kMaxSharedW)
+# the most dynamic shared memory the kernel is given for the weights; the
+# wrapper picks its path by this (uses_shared_weights) and passes the choice
 SHARED_W_BYTES = 200 * 1024
 _P = ctypes.c_void_p
 _NEG = float("-inf")
@@ -128,7 +129,7 @@ def masked_assignment(cost, row_mask, col_mask, thresh, capped,
         raise ValueError(f"masked_assignment: unsupported device {cost.device}")
     S, R, C = cost.shape
     fn = build.entry("auction", "bmt_auction",
-                     [_P] * 6 + [ctypes.c_float, _P] + [ctypes.c_int] * 4 + [_P])
+                     [_P] * 6 + [ctypes.c_float, _P] + [ctypes.c_int] * 5 + [_P])
     per_problem = torch.is_tensor(thresh)
     with torch.cuda.device(cost.device):
         r2c = torch.empty((S, R), dtype=torch.int32, device=cost.device)
@@ -136,7 +137,8 @@ def masked_assignment(cost, row_mask, col_mask, thresh, capped,
         rc = fn(cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), r2c.data_ptr(),
                 capped.data_ptr(), thresh.data_ptr() if per_problem else None,
                 0.0 if per_problem else float(thresh),
-                None if work is None else work.data_ptr(), S, R, C, max_iters, stream)
+                None if work is None else work.data_ptr(), S, R, C, max_iters,
+                int(uses_shared_weights(R, C)), stream)
     build.check_launch("auction", "bmt_auction", rc)
     masked_assignment.launches += 1
     return r2c

@@ -166,9 +166,11 @@ def rotated_iou(obbs1, obbs2, c1=None, c2=None):
 def rotated_iou_counted(obbs1, obbs2, c1, c2):
     """K3's counting instantiation, for measurement only (CUDA tensors):
     (iou, ops, slow) with each pair's arithmetic operations ops (S, N, M)
-    int32 and the number of pairs that overflowed the fast path (8 vertices)
-    and took the slow path.  The iou equals ``rotated_iou``'s; the tracker
-    steps never call this, so it does not count launches."""
+    int32, those of the clip walk and its centring and quotient (the reject
+    test left out), and the number of pairs that overflowed the fast path
+    (8 vertices) and took the slow path.  It walks every pair, the rejected
+    ones too, so its iou equalling ``rotated_iou``'s also checks the reject
+    test; the tracker steps never call this, so it does not count launches."""
     _check_boxes(obbs1, obbs2)
     _check(obbs1, obbs2, c1, c2)
     _check_card(obbs1, c1, c2)

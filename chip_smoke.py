@@ -213,14 +213,21 @@ def _problem(rng, kind, S=8, R=256, C=128):
     return [torch.from_numpy(a).cuda() for a in (cost.astype(np.float32), row_mask, col_mask)]
 
 
-def k2_bound(cost, work):
-    """K2's least time for these inputs: cost and masks read once, r2c
-    written once; 3 operations a pair to form w and its maximum, and for
-    every pending row of every iteration (``work``, counted by the kernel)
-    3 a column (the net value and the two compares) and 4 for the bid."""
+def k2_bound(cost, row_mask, work):
+    """K2's least time for these inputs.  The answer depends on the cost only
+    in rows the row mask keeps (a problem with none is all -1 from the mask
+    alone), so the bytes are the row masks read and r2c written once, and,
+    for a problem with a valid row, its column mask and the cost of its
+    valid rows read once; 3 operations a valid row's pair to form w and its
+    maximum, and for every pending row of every iteration (``work``,
+    counted by the kernel) 3 a column (the net value and the two compares)
+    and 4 for the bid."""
     S, R, C = cost.shape
+    rows = int(row_mask.sum())
+    active = int(row_mask.any(dim=1).sum())
     scanned = int(work[:, 1].sum())
-    return measure.bound_ms(S * (4 * R * C + 5 * R + C), 3 * S * R * C + scanned * (3 * C + 4))
+    return measure.bound_ms(5 * S * R + active * C + 4 * rows * C,
+                            3 * rows * C + scanned * (3 * C + 4))
 
 
 def _k2_same(label, cost, rm, cm, thresh):
@@ -259,7 +266,7 @@ def check_k2(rng, step_calls):
             row = (measure.device_ms(lambda: masked_assignment(*args, **kwargs), "auction_kernel"),
                    measure.event_ms(lambda: masked_assignment(*args, **kwargs)),
                    measure.event_ms(lambda: masked_assignment_plain(*args, **kwargs), reps=5,
-                                    warmup=1), *k2_bound(cost, work))
+                                    warmup=1), *k2_bound(cost, args[1], work))
             print(f"K2 {label} bench step {tuple(cost.shape)}: device {row[0]:.5f} ms a launch, "
                   f"wrapper {row[1]:.5f} ms, plain {row[2]:.5f} ms, bound {row[3]:.6f} ms "
                   f"({row[4]}); iterations {work[:, 0].tolist()}, rows scanned "
@@ -341,8 +348,9 @@ def _twin_in_row_chunks(a, b, c1, c2, rows=256):
 def k3_bound(a, b, ops):
     """K3's least time for these inputs: 13 floats read once per box, one IoU
     written once per pair; the operations are those the counting
-    instantiation added up for each pair, plus 1 a box (its area) and 17 a
-    clip box (its winding)."""
+    instantiation added up for each pair (its centring, clip walk and
+    quotient, not the kernel's reject test), plus 1 a box (its area) and 17
+    a clip box (its winding)."""
     S, N, M = ops.shape
     return measure.bound_ms(52 * S * (N + M) + 4 * S * N * M,
                             int(ops.sum(dtype=torch.int64)) + S * (N + 18 * M))
