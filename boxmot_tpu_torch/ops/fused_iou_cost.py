@@ -4,23 +4,70 @@
 ``boxmot_tpu/ops/pallas_kernels.py::_fused_iou_cost_pallas`` (B1).  On a
 CUDA tensor it launches the hand-written kernel ``csrc/iou_cost.cu``; on a
 CPU tensor it runs ``fused_iou_cost_plain``, the same arithmetic in plain
-PyTorch.  The tracker step calls it for the association IoU and cost and
-for the duplicate-suppression IoU.
+PyTorch.  The tracker step calls it for the association IoU and cost, and
+in its IoU-only mode (no ``conf``) for the duplicate-suppression IoU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from boxmot_tpu_torch.csrc import build
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+THREADS = 512  # the most threads a block of K1 has
+# the store variant: False stores float4s from registers, True stages the
+# tile in shared memory and writes it with one bulk copy per output
+BULK_STORE = False
+# the prologue: False loads a thread's boxes into registers, True stages the
+# block's boxes and areas in shared memory first
+STAGE_BOXES = False
+_BULK_TILE_BYTES = 96 * 1024  # the bulk variant's staged tiles, at most
 
 
-def fused_iou_cost_plain(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor):
-    """(S, K, 4), (S, D, 4) xyxy and (S, D) conf -> (iou, 1 - iou*conf), both (S, K, D).
+class Launch(NamedTuple):
+    """K1's launch: grid (row_blocks, S), block (quads, lanes)."""
+
+    rows: int  # TK, the track rows of one problem a block covers
+    row_blocks: int  # ceil(K / TK)
+    quads: int  # threads across a row, each owning 4 consecutive detections
+    lanes: int  # rows in flight: a thread walks rows lane, lane + lanes, ...
+    vec: bool  # float4 stores: every row starts 16-byte aligned (D % 4 == 0)
+    bulk: bool  # the bulk-copy store variant
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(S: int, K: int, D: int, sms: int, bulk: bool = False,
+                    outputs: int = 2) -> Launch:
+    """K1's launch for S problems of K x D on a card with ``sms`` SMs.
+
+    Each problem gets about sms // S blocks of whole rows, so the S * ceil(K
+    / TK) blocks fill the card about once; a block has ceil(D / 4) threads
+    across a row (at most ``THREADS``) and as many rows in flight as keep it
+    within ``THREADS`` threads.
+    """
+    rows = -(-K // max(1, min(K, sms // S)))
+    vec = D % 4 == 0
+    bulk = bulk and vec
+    if bulk:  # the staged tiles must fit in shared memory
+        rows = min(rows, max(1, _BULK_TILE_BYTES // (4 * D * outputs)))
+    quads = min(-(-D // 4), THREADS)
+    return Launch(rows, -(-K // rows), quads, max(1, min(rows, THREADS // quads)), vec, bulk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fused_iou_cost_plain(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None = None):
+    """(S, K, 4), (S, D, 4) xyxy and (S, D) conf -> (iou, 1 - iou*conf), both
+    (S, K, D); (iou, None) without conf.
 
     Same operation order as the TPU kernel, union clamped at 1e-9.
     """
@@ -34,47 +81,64 @@ def fused_iou_cost_plain(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tenso
     area_t = (trk[..., 2] - trk[..., 0]) * (trk[..., 3] - trk[..., 1])
     area_d = (det[..., 2] - det[..., 0]) * (det[..., 3] - det[..., 1])
     iou = inter / torch.clamp_min(area_t[:, :, None] + area_d[:, None, :] - inter, 1e-9)
-    return iou, 1.0 - iou * conf[:, None, :]
+    return iou, None if conf is None else 1.0 - iou * conf[:, None, :]
 
 
-def _check(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor) -> None:
+def _check(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None):
+    """One pass over the arguments; returns (S, K, D)."""
+    if trk.dim() != 3 or trk.shape[2] != 4:
+        raise ValueError(f"fused_iou_cost: trk must be (S, K, 4), got {tuple(trk.shape)}")
+    S, K, _ = trk.shape
+    if det.dim() != 3 or det.shape[0] != S or det.shape[2] != 4:
+        raise ValueError(f"fused_iou_cost: det must be (S, D, 4), got {tuple(det.shape)}")
+    D = det.shape[1]
+    if conf is not None and tuple(conf.shape) != (S, D):
+        raise ValueError(f"fused_iou_cost: conf must be (S, D), got {tuple(conf.shape)}")
     for name, t in (("trk", trk), ("det", det), ("conf", conf)):
+        if t is None:
+            continue
         if t.dtype != torch.float32:
             raise TypeError(f"fused_iou_cost: {name} must be float32, got {t.dtype}")
         if t.device != trk.device:
             raise ValueError(f"fused_iou_cost: {name} is on {t.device}, trk on {trk.device}")
         if not t.is_contiguous():
             raise ValueError(f"fused_iou_cost: {name} must be contiguous")
-    if trk.dim() != 3 or trk.shape[2] != 4:
-        raise ValueError(f"fused_iou_cost: trk must be (S, K, 4), got {tuple(trk.shape)}")
-    S, _, _ = trk.shape
-    if det.dim() != 3 or det.shape[0] != S or det.shape[2] != 4:
-        raise ValueError(f"fused_iou_cost: det must be (S, D, 4), got {tuple(det.shape)}")
-    if tuple(conf.shape) != tuple(det.shape[:2]):
-        raise ValueError(f"fused_iou_cost: conf must be (S, D), got {tuple(conf.shape)}")
+    return S, K, D
 
 
-def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor):
-    """(iou, cost) as ``fused_iou_cost_plain``; kernel K1 on a CUDA tensor."""
-    _check(trk, det, conf)
-    if trk.device.type == "cpu":
+def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None = None):
+    """(iou, cost) as ``fused_iou_cost_plain``, (iou, None) without conf;
+    kernel K1 on a CUDA tensor."""
+    S, K, D = _check(trk, det, conf)
+    dev = trk.device
+    if dev.type == "cpu":
         return fused_iou_cost_plain(trk, det, conf)
-    if trk.device.type != "cuda":
-        raise ValueError(f"fused_iou_cost: unsupported device {trk.device}")
-    if any(t.data_ptr() % 16 for t in (trk, det)):
+    if dev.type != "cuda":
+        raise ValueError(f"fused_iou_cost: unsupported device {dev}")
+    if trk.data_ptr() % 16 or det.data_ptr() % 16:
         raise ValueError("fused_iou_cost: box tensors must be 16-byte aligned")
-    S, K, _ = trk.shape
-    D = det.shape[1]
-    fn = build.entry("iou_cost", "bmt_iou_cost", [_P] * 5 + [ctypes.c_int] * 3 + [_P])
-    with torch.cuda.device(trk.device):
-        iou = torch.empty((S, K, D), dtype=torch.float32, device=trk.device)
-        cost = torch.empty_like(iou)
-        stream = torch.cuda.current_stream(trk.device).cuda_stream
-        rc = fn(trk.data_ptr(), det.data_ptr(), conf.data_ptr(), iou.data_ptr(),
-                cost.data_ptr(), S, K, D, stream)
+    iou = torch.empty((S, K, D), dtype=torch.float32, device=dev)
+    cost = None if conf is None else torch.empty_like(iou)
+    if iou.numel() == 0:
+        return iou, cost
+    g = launch_geometry(S, K, D, _sm_count(dev.index), BULK_STORE, 1 if conf is None else 2)
+    fn = build.entry("iou_cost", "bmt_iou_cost", [_P] * 5 + [_I] * 10 + [_P])
+    with torch.cuda.device(dev):
+        rc = fn(trk.data_ptr(), det.data_ptr(), None if conf is None else conf.data_ptr(),
+                iou.data_ptr(), None if cost is None else cost.data_ptr(), S, K, D, *g,
+                STAGE_BOXES, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("iou_cost", "bmt_iou_cost", rc)
     fused_iou_cost.launches += 1
     return iou, cost
 
 
 fused_iou_cost.launches = 0
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel of K1's library through the same ctypes path,
+    on ``device``'s current stream: for measuring the card's launch floor."""
+    fn = build.entry("iou_cost", "bmt_empty", [_P])
+    with torch.cuda.device(device):
+        rc = fn(torch.cuda.current_stream(device).cuda_stream)
+    build.check_launch("iou_cost", "bmt_empty", rc)

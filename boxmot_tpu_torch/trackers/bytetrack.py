@@ -16,7 +16,8 @@ of the JAX step (see its module docstring); per frame the step runs:
   measurements first aligned to the track's angle, and the angular
   velocity damped x0.8 after it);
 * lifecycle changes, slot allocation for new tracks, duplicate
-  suppression between tracked and lost (K1's or K3's IoU) and emission.
+  suppression between tracked and lost (K1's IoU-only mode, or K3) and
+  emission.
 
 The step uses masks and ``torch.where`` only: no ``.item()``, no branch on
 a tensor, no boolean-mask indexing and no ``nonzero``, so on a CUDA device
@@ -248,8 +249,7 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
         pair_iou = rotated_iou(out_box, out_box, corners, corners)
     else:
         out_box = xyah2xyxy(new_mean[..., :4])
-        pair_iou, _ = fused_iou_cost(out_box, out_box,
-                                     torch.zeros_like(status0, dtype=torch.float32))
+        pair_iou, _ = fused_iou_cost(out_box, out_box)
     a_mask = status == TRACKED
     b_mask = status == LOST
     close = (1.0 - pair_iou) < 0.15

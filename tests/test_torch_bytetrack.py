@@ -205,3 +205,22 @@ def test_live_frames_of_300_detections_equal_jax():
         np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=0, atol=1e-3)
         rows += len(got)
     assert rows > 300 and got[:, 7].max() >= 256  # det_ind beyond the old 256 columns
+
+
+def test_aabb_step_runs_k1_in_full_then_iou_only_mode():
+    """The AABB step calls K1 twice: the association with the confidences
+    (IoU and cost), the duplicate suppression in the IoU-only mode."""
+    from boxmot_tpu_torch.utils.measure import record_calls
+
+    frames = _public_frames(ASSETS / "MOT17-mini/train/MOT17-04-FRCNN", 2)
+    packed = torch.from_numpy(np.stack([pack_frames(frames, D=64, F=2)[0]]))
+    cfg = tbt.ByteTrackConfig(capacity=32)
+    state = tbt.init_state(cfg, 1, "cpu")
+    for f in range(2):
+        dets = packed[:, f]
+        with record_calls(tbt, ["fused_iou_cost"]) as rec:
+            state, _, _ = tbt.bytetrack_step(cfg, state, dets, dets[..., 4] >= 0)
+        (assoc, kw_a), (dup, kw_d) = rec["fused_iou_cost"]
+        assert not kw_a and not kw_d
+        assert [tuple(a.shape) for a in assoc] == [(1, 32, 4), (1, 64, 4), (1, 64)]
+        assert len(dup) == 2 and torch.equal(dup[0], dup[1])

@@ -39,19 +39,25 @@ def _boxes(rng, S, n):
     return b
 
 
-@pytest.mark.parametrize("S, K, D", [(8, 256, 128), (1, 1, 3), (3, 200, 77), (2, 256, 256)])
-def test_fused_iou_cost_kernel_bit_equal_to_twin(card, S, K, D):
+# (1, 1, 3) and (3, 200, 77) take the scalar stores (D % 4 != 0)
+@pytest.mark.parametrize("iou_only", [False, True], ids=["iou+cost", "iou-only"])
+@pytest.mark.parametrize("S, K, D", [(8, 256, 128), (1, 1, 3), (3, 200, 77), (2, 256, 256),
+                                     (2, 256, 512)])
+def test_fused_iou_cost_kernel_bit_equal_to_twin(card, S, K, D, iou_only):
     rng = np.random.default_rng(K + D)
     trk, det = _boxes(rng, S, K), _boxes(rng, S, D)
     det[:, : D // 2] = trk[:, :1] + rng.uniform(-30, 30, (S, D // 2, 4))
     conf = rng.uniform(0.05, 1.0, (S, D)).astype(np.float32)
     args = [torch.from_numpy(a).to(card) for a in (trk, det, conf)]
+    if iou_only:
+        args[2] = None
     before = fused_iou_cost.launches
     iou, cost = fused_iou_cost(*args)
     ref_iou, ref_cost = fused_iou_cost_plain(*args)
     torch.cuda.synchronize()
     assert fused_iou_cost.launches == before + 1
-    assert torch.equal(iou, ref_iou) and torch.equal(cost, ref_cost)
+    assert torch.equal(iou, ref_iou)
+    assert (cost is None) if iou_only else torch.equal(cost, ref_cost)
 
 
 def _problem(rng, kind, S, R, C):

@@ -2,8 +2,10 @@
 
 The same numpy inputs, made from a seed, go through the JAX function and
 its PyTorch counterpart.  Geometry and IoU are the same operations in the
-same order, so they must be bit-equal; the fused IoU + cost twin is held
-to the TPU kernel (in interpret mode) and its jnp twin at atol 1e-6.
+same order, so they must be bit-equal; the fused IoU + cost twin is held,
+in both of its modes, to the TPU kernel (in interpret mode) and its jnp
+twin at atol 1e-6.  K1's launch geometry, which the kernel cannot show
+here, is held to cover every pair once.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ from boxmot_tpu.ops.iou import iou_batch as j_iou_batch
 from boxmot_tpu.ops.pallas_kernels import _fused_iou_cost_jnp, _fused_iou_cost_pallas
 from boxmot_tpu_torch.csrc import build
 from boxmot_tpu_torch.ops import geometry as tgeo
-from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost, fused_iou_cost_plain
+from boxmot_tpu_torch.ops.fused_iou_cost import (
+    THREADS,
+    fused_iou_cost,
+    fused_iou_cost_plain,
+    launch_geometry,
+)
 from boxmot_tpu_torch.ops.iou import iou_batch
 from boxmot_tpu_torch.utils.device import resolve_device
 
@@ -75,9 +82,10 @@ def test_iou_batch_bit_equal(make):
     np.testing.assert_array_equal(got, np.asarray(j_iou_batch(jnp.asarray(a), jnp.asarray(b))))
 
 
+@pytest.mark.parametrize("iou_only", [False, True], ids=["iou+cost", "iou-only"])
 @pytest.mark.parametrize("make", [_boxes, _degenerate], ids=["random", "degenerate"])
 @pytest.mark.parametrize("K, D", [(64, 32), (1, 3), (200, 77)])
-def test_fused_iou_cost_twin_matches_tpu_kernel(make, K, D):
+def test_fused_iou_cost_twin_matches_tpu_kernel(make, K, D, iou_only):
     rng = np.random.default_rng(K * 1000 + D)
     S = 2
     trk = np.stack([make(rng, K) for _ in range(S)])
@@ -85,14 +93,17 @@ def test_fused_iou_cost_twin_matches_tpu_kernel(make, K, D):
     det[:, :D // 2] = trk[:, :1] + rng.uniform(-30, 30, (S, D // 2, 4)).astype(np.float32)
     conf = rng.uniform(0.05, 1.0, (S, D)).astype(np.float32)
     iou, cost = fused_iou_cost_plain(torch.from_numpy(trk), torch.from_numpy(det),
-                                     torch.from_numpy(conf))
+                                     None if iou_only else torch.from_numpy(conf))
+    assert (cost is None) == iou_only
     for s in range(S):
         t, d, c = jnp.asarray(trk[s]), jnp.asarray(det[s]), jnp.asarray(conf[s])
         iou_p, cost_p = _fused_iou_cost_pallas(t, d.T, c[None, :], interpret=True)
         iou_j, cost_j = _fused_iou_cost_jnp(t, d, c)
         for ref_iou, ref_cost in ((iou_p, cost_p), (iou_j, cost_j)):
             np.testing.assert_allclose(iou[s].numpy(), np.asarray(ref_iou), rtol=0, atol=1e-6)
-            np.testing.assert_allclose(cost[s].numpy(), np.asarray(ref_cost), rtol=0, atol=1e-6)
+            if not iou_only:
+                np.testing.assert_allclose(cost[s].numpy(), np.asarray(ref_cost), rtol=0,
+                                           atol=1e-6)
 
 
 def test_fused_iou_equals_step_iou_on_degenerate_boxes():
@@ -123,6 +134,53 @@ def test_fused_iou_cost_wrapper_dispatch_and_checks():
         fused_iou_cost(trk, det.transpose(1, 2).contiguous(), conf)
     with pytest.raises(ValueError):
         fused_iou_cost(trk, det[:, ::2], conf[:, ::2])
+
+
+def test_fused_iou_cost_iou_only_on_cpu():
+    """Without conf the wrapper returns (iou, None), the twin's IoU, and
+    launches nothing on a CPU tensor; its checks still raise."""
+    rng = np.random.default_rng(4)
+    trk = torch.from_numpy(np.stack([_degenerate(rng, 9)]))
+    det = torch.from_numpy(np.stack([_degenerate(rng, 6)]))
+    before = fused_iou_cost.launches
+    iou, cost = fused_iou_cost(trk, det)
+    assert cost is None and fused_iou_cost.launches == before
+    assert torch.equal(iou, fused_iou_cost_plain(trk, det, torch.rand(1, 6))[0])
+    with pytest.raises(TypeError):
+        fused_iou_cost(trk, det.double())
+    with pytest.raises(ValueError):
+        fused_iou_cost(trk, det[:, ::2])
+
+
+def _k1_coverage(S, K, D, g):
+    """How often K1 at launch g writes each (s, k, d): the kernel's index
+    walk (csrc/iou_cost.cu) over its grid (row_blocks, S) and blocks (quads,
+    lanes), counted per row and per detection (the walk is their product)."""
+    per_row = np.zeros(K, np.int64)
+    for bx in range(g.row_blocks):
+        k0 = bx * g.rows
+        for ty in range(g.lanes):
+            np.add.at(per_row, np.arange(k0 + ty, k0 + min(g.rows, K - k0), g.lanes), 1)
+    per_det = np.zeros(D, np.int64)
+    quads = -(-D // 4)
+    for tx in range(g.quads):
+        for c in range(tx, quads, g.quads):
+            per_det[4 * c:min(4 * c + 4, D)] += 1
+    return S * g.row_blocks, np.multiply.outer(per_row, per_det)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("K", [1, 200, 256])
+@pytest.mark.parametrize("S", [1, 8])
+def test_k1_launch_geometry_covers_every_pair_once(S, K, sms):
+    for D in (1, 3, 77, 128, 256, 512):
+        g = launch_geometry(S, K, D, sms)
+        blocks, count = _k1_coverage(S, K, D, g)
+        assert count.shape == (K, D) and (count == 1).all(), (S, K, D, sms, g)
+        assert g.rows * (g.row_blocks - 1) < K <= g.rows * g.row_blocks  # no empty block
+        assert blocks <= sms  # about one wave
+        assert 1 <= g.quads * g.lanes <= THREADS
+        assert g.vec == (D % 4 == 0)
 
 
 def test_resolve_device_cuda_raises_without_a_card():

@@ -15,7 +15,11 @@ measured the same way.  On one CUDA card it:
 2. records the kernel launches of one steady bench step (frame 64 of the
    bench's 8 sequences x 100 detections, D = 128, capacity 256), AABB and
    OBB ByteTrack, and times each kernel's device time per launch on those
-   inputs (torch.profiler), and K3 at 4096 x 4096;
+   inputs (torch.profiler), and K3 at 4096 x 4096; K1's wrapper time per
+   launch (CUDA events around one call) and, where the checkout has them,
+   K1's store (float4 or bulk copy) and prologue (registers or shared
+   memory) variants and the launch floor (an empty kernel through K1's
+   ctypes path);
 3. profiles 16 bench steps of each: kernels and device busy ms per step,
    the auction's and rotated IoU's device ms per step, and host ms per step
    without the profiler;
@@ -66,6 +70,7 @@ def main() -> int:
     import chip_smoke as cs
     from boxmot_tpu_torch.csrc import build
     from boxmot_tpu_torch.engine.replay import batch_replay, init_states, pack_frames
+    from boxmot_tpu_torch.ops import fused_iou_cost as fic
     from boxmot_tpu_torch.ops.geometry import obb_corners
     from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
     from boxmot_tpu_torch.trackers import bytetrack
@@ -101,9 +106,31 @@ def main() -> int:
             for a, kw in calls:
                 if name == "rotated_iou":  # the kernel alone, corners made beforehand
                     a = [a[0], a[1]] + [obb_corners(x).contiguous() for x in (a[0], a[1])]
+                if name == "fused_iou_cost" and len(a) == 2 and torch.equal(*a):
+                    a = [a[0], a[0]]  # the step passes one box tensor twice
                 times.append(measure.device_ms(lambda: getattr(bytetrack, name)(*a, **kw),
                                                kernels[name]))
             result[f"{label}_{name}_device_ms_per_launch"] = times
+        if label == "aabb":
+            k1_calls = [a if len(a) == 3 or not torch.equal(*a) else [a[0], a[0]]
+                        for a, _ in rec["fused_iou_cost"]]
+            result["aabb_fused_iou_cost_wrapper_ms_per_launch"] = [
+                measure.event_ms(lambda: fic.fused_iou_cost(*a)) for a in k1_calls]
+            if hasattr(fic, "BULK_STORE"):  # K1's store and prologue variants, checked, timed
+                for bulk, stage in ((False, False), (True, False), (False, True), (True, True)):
+                    fic.BULK_STORE, fic.STAGE_BOXES = bulk, stage
+                    try:
+                        for a in k1_calls:
+                            got, want = fic.fused_iou_cost(*a), fic.fused_iou_cost_plain(*a)
+                            if not all(g is w or torch.equal(g, w) for g, w in zip(got, want)):
+                                raise AssertionError(f"K1 (bulk {bulk}, staged {stage}) differs "
+                                                     "from the twin")
+                        key = f"{'bulk' if bulk else 'vec'}_{'staged' if stage else 'registers'}"
+                        result[f"aabb_fused_iou_cost_{key}_device_ms_per_launch"] = [
+                            measure.device_ms(lambda: fic.fused_iou_cost(*a), "iou_cost_kernel")
+                            for a in k1_calls]
+                    finally:
+                        fic.BULK_STORE, fic.STAGE_BOXES = False, False
 
         # 16 steps under the profiler, and without it on the host clock
         s16, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64])
@@ -134,6 +161,9 @@ def main() -> int:
                 ms.append(start.elapsed_time(end))
         result[f"{label}_replay_fps"] = cs.N_SEQS * cs.N_FRAMES / (statistics.median(ms) / 1e3)
 
+    if hasattr(fic, "empty_launch"):
+        result["launch_floor_ms"] = measure.device_ms(
+            lambda: fic.empty_launch(torch.device("cuda")), "empty_kernel")
     rng = np.random.default_rng(0)
     a, b = (torch.from_numpy(cs._obbs(rng, 1, 4096)).cuda() for _ in range(2))
     c1, c2 = (obb_corners(x).contiguous() for x in (a, b))
