@@ -7,7 +7,7 @@
 // intermediate in device memory.  In the IoU-only mode (conf and cost null,
 // the tracker step's duplicate suppression) it writes iou alone.  The TPU
 // kernel took detections transposed as (4, D) for its lane layout; here a
-// block stages the boxes in shared memory, so the natural (D, 4) layout is
+// thread reads its detections' 16-byte boxes, so the natural (D, 4) layout is
 // kept.
 //
 // The union is clamped at 1e-9, as in the TPU kernel.  The JAX tracker step
@@ -17,34 +17,38 @@
 // intersection, are below 1e-9: a zero intersection gives IoU 0 under
 // either clamp.
 //
-// Bound on this card.  K, D <= 512 on the tracker's paths, so a call reads a
-// few KB of boxes and writes S*K*D floats per output: 1 MB a output at the
-// bench step's (8, 256, 128), 2.1 MB for its (8, 256, 256) IoU-only launch,
-// well under a microsecond of HBM traffic each.  The rest of a launch's time
-// is fixed cost: the launch itself, each block's scheduling and its first
-// loads, and a last wave that is only partly full.  The first design (one
-// thread a pair, 256-thread blocks, 1024-2048 blocks) paid for both: every
-// thread divided by D, reloaded both boxes, recomputed both areas and stored
-// two scalars.  This design:
+// Bound on this card.  On the tracker's paths K <= 256 and D <= 512: a call
+// reads a few KB of boxes and writes S*K*D floats per output, 2.1 MB for
+// the bench step's (8, 256, 128) IoU and cost and for its (8, 256, 256)
+// IoU-only launch, 0.64 us of HBM traffic each.  An empty kernel already
+// takes about 0.9 us on the card, so a launch's time is mostly fixed cost:
+// the launch, the grid's scheduling and one chain of dependent latencies
+// (load the boxes, compute, store).  The first design (one thread a pair,
+// 256-thread blocks) paid for a grid of 1024-2048 blocks (an empty kernel of
+// 2048 x 256 threads takes about 2 us), an integer division a pair, two
+// scalar stores a pair, and two reloads and two area computations a pair.
+// This design:
 //   * one wave: the host (ops/fused_iou_cost.py::launch_geometry) gives each
 //     block TK whole track rows of one problem, with TK chosen from (S, K)
-//     and the card's SM count so that S * ceil(K / TK) blocks fill the SMs
-//     about once;
-//   * a block prologue: the block's D detection boxes, their areas and
-//     confidences and its TK track boxes and their areas go to shared
-//     memory once, so no pair reloads a box or recomputes an area;
+//     and the card's SM count so that the S * ceil(K / TK) blocks fill the
+//     SMs about once;
 //   * 16-byte stores: a thread owns 4 consecutive detections of a row
-//     (blockDim.x threads across a row, blockDim.y rows in flight), keeps
-//     their boxes in registers and walks the tile's rows, storing one float4
-//     of IoU and one of cost a row; neighbouring threads write neighbouring
-//     16-byte chunks.  A row with D % 4 != 0 takes scalar stores in the same
-//     kernel (the last quad is partial and rows start unaligned);
-//   * no index division in the body: the block and thread indices give the
-//     row and the detections directly.
-// A second store variant stages the tile in shared memory and writes each
-// output with one bulk asynchronous copy (cp.async.bulk, Hopper's TMA without
-// a tensor map): a tile of TK whole rows is one contiguous span of TK*D*4
-// bytes in each output.
+//     (blockDim.x threads across a row, blockDim.y rows in flight), loads
+//     their boxes and confidences once into registers, computes their areas
+//     once and walks the tile's rows, storing one float4 of IoU and one of
+//     cost a row; neighbouring threads write neighbouring 16-byte chunks.
+//     A row with D % 4 != 0, or confidences that are not 16-byte aligned,
+//     take scalar loads and stores in the same kernel;
+//   * no index division: the block and thread indices give the rows and the
+//     detections directly;
+//   * no division for a zero intersection (most pairs): the quotient is the
+//     intersection itself, and an IEEE division of 0 takes its slow path.
+// Two variants were measured against this one at the bench step and are not
+// kept (PERF.md, PR 4): staging the block's boxes and areas in shared memory
+// (the prologue's extra store, barrier and reload cost more than the areas
+// it saves), and staging the tile in shared memory for one bulk asynchronous
+// copy (cp.async.bulk) per output (the staging and the copy's completion wait
+// cost more than the float4 stores).
 //
 // Arithmetic must equal the plain PyTorch twin bit for bit (the cost decides
 // near-ties in the auction): every operation is written with an
@@ -53,30 +57,9 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 namespace {
 
 constexpr int kThreads = 512;  // the most threads a block has (quads * lanes)
-constexpr size_t kDefaultSmem = 48 * 1024;
-
-// Byte offsets of the shared-memory layout, for the kernel and the launch:
-// detection boxes (D float4), track boxes (TK float4), detection areas (D),
-// track areas (TK), confidences (D, with a cost), then, for the bulk
-// variant, the staged iou and cost tiles (TK * D floats each, 16-aligned).
-struct Layout {
-  size_t trk, det_area, trk_area, conf, iou_tile, cost_tile, total;
-  __host__ __device__ Layout(int D, int TK, bool cost, bool bulk, bool stage) {
-    const size_t d = stage ? D : 0, tk = stage ? TK : 0;
-    trk = 16 * d;
-    det_area = trk + 16 * tk;
-    trk_area = det_area + 4 * d;
-    conf = trk_area + 4 * tk;
-    iou_tile = (conf + (cost ? 4 * d : 0) + 15) & ~static_cast<size_t>(15);
-    cost_tile = iou_tile + (bulk ? 4 * static_cast<size_t>(TK) * D : 0);
-    total = cost_tile + (bulk && cost ? 4 * static_cast<size_t>(TK) * D : 0);
-  }
-};
 
 __device__ __forceinline__ float box_area(const float4 b) {
   return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
@@ -90,11 +73,10 @@ __device__ __forceinline__ float pair_iou(const float4 t, const float area_t, co
   const float yy2 = fminf(t.w, b.w);
   const float inter = __fmul_rn(fmaxf(__fsub_rn(xx2, xx1), 0.0f),
                                 fmaxf(__fsub_rn(yy2, yy1), 0.0f));
-  const float uni = __fsub_rn(__fadd_rn(area_t, area_d), inter);
-  // a zero intersection is the quotient itself (the clamped union is at
-  // least 1e-9 and never NaN), and it skips the division's slow path, which
-  // a zero dividend takes
+  // a zero intersection is the quotient itself: the clamped union is at
+  // least 1e-9 and never NaN
   if (inter == 0.0f) return inter;
+  const float uni = __fsub_rn(__fadd_rn(area_t, area_d), inter);
   return __fdiv_rn(inter, fmaxf(uni, 1e-9f));
 }
 
@@ -112,162 +94,91 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4], const int 
   }
 }
 
-// shared -> global bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned), in the current bulk group
-__device__ __forceinline__ void bulk_store(float* dst, const float* src, const uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))), "r"(bytes)
-               : "memory");
-}
-
 // grid (row_blocks, S); block (quads, lanes); block bx covers track rows
 // [bx * TK, min(K, (bx + 1) * TK)) of problem blockIdx.y; thread (x, y)
 // covers detections 4c .. 4c + 3 for c = x, x + quads, ... < ceil(D / 4)
-// and the tile's rows y, y + lanes, ...
-template <bool kCost, bool kVec, bool kBulk, bool kStage>
+// and the block's rows y, y + lanes, ...
+template <bool kCost, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     iou_cost_kernel(const float4* __restrict__ trk, const float4* __restrict__ det,
                     const float* __restrict__ conf, float* __restrict__ iou_out,
                     float* __restrict__ cost_out, int K, int D, int TK) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(D, TK, kCost, kBulk, kStage);
-  float4* s_det = reinterpret_cast<float4*>(smem);
-  float4* s_trk = reinterpret_cast<float4*>(smem + lay.trk);
-  float* s_det_area = reinterpret_cast<float*>(smem + lay.det_area);
-  float* s_trk_area = reinterpret_cast<float*>(smem + lay.trk_area);
-  float* s_conf = reinterpret_cast<float*>(smem + lay.conf);
-
   const int s = blockIdx.y;
   const int k0 = blockIdx.x * TK;
   const int rows = min(TK, K - k0);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-
-  // staged prologue: every box and area once per block, detections and
-  // tracks in one loop, so that a thread's loads are all in flight at once
-  const float4* det_s = det + static_cast<size_t>(s) * D;
   const float4* trk_s = trk + static_cast<size_t>(s) * K + k0;
-  for (int j = tid; kStage && j < D + rows; j += nthreads) {
-    if (j < D) {
-      const float4 b = det_s[j];
-      s_det[j] = b;
-      s_det_area[j] = box_area(b);
-      if (kCost) s_conf[j] = conf[static_cast<size_t>(s) * D + j];
-    } else {
-      const float4 t = trk_s[j - D];
-      s_trk[j - D] = t;
-      s_trk_area[j - D] = box_area(t);
-    }
-  }
-  if (kStage) __syncthreads();
-
+  const float4* det_s = det + static_cast<size_t>(s) * D;
+  const float* conf_s = kCost ? conf + static_cast<size_t>(s) * D : nullptr;
   // the block's rows are one contiguous span of rows * D floats per output
   const size_t tile = (static_cast<size_t>(s) * K + k0) * D;
-  float* iou_dst = kBulk ? reinterpret_cast<float*>(smem + lay.iou_tile) : iou_out + tile;
-  float* cost_dst = !kCost ? nullptr
-                    : kBulk ? reinterpret_cast<float*>(smem + lay.cost_tile)
-                            : cost_out + tile;
+  float* iou_tile = iou_out + tile;
+  float* cost_tile = kCost ? cost_out + tile : nullptr;
+
   const int quads = (D + 3) >> 2;
   for (int c = threadIdx.x; c < quads; c += blockDim.x) {
     const int d0 = 4 * c;
     const int n = min(4, D - d0);
     float4 b[4];
-    float area_d[4], cf[4];
+    float area_d[4], cf[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int j = min(d0 + i, D - 1);  // a partial quad repeats its last box
-      b[i] = kStage ? s_det[j] : det_s[j];
-      area_d[i] = kStage ? s_det_area[j] : box_area(b[i]);
-      cf[i] = !kCost ? 0.0f : kStage ? s_conf[j] : conf[static_cast<size_t>(s) * D + j];
+      b[i] = det_s[j];
+      area_d[i] = box_area(b[i]);
+      if (kCost && !kVec) cf[i] = conf_s[j];
+    }
+    if (kCost && kVec) {
+      const float4 c4 = *reinterpret_cast<const float4*>(conf_s + d0);
+      cf[0] = c4.x;
+      cf[1] = c4.y;
+      cf[2] = c4.z;
+      cf[3] = c4.w;
     }
     for (int r = threadIdx.y; r < rows; r += blockDim.y) {
-      const float4 t = kStage ? s_trk[r] : trk_s[r];
-      const float area_t = kStage ? s_trk_area[r] : box_area(t);
+      const float4 t = trk_s[r];
+      const float area_t = box_area(t);
       float v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[i] = pair_iou(t, area_t, b[i], area_d[i]);
       const size_t at = static_cast<size_t>(r) * D + d0;
-      store4<kVec>(iou_dst + at, v, n);
+      store4<kVec>(iou_tile + at, v, n);
       if (kCost) {
         float w[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) w[i] = __fsub_rn(1.0f, __fmul_rn(v[i], cf[i]));
-        store4<kVec>(cost_dst + at, w, n);
+        store4<kVec>(cost_tile + at, w, n);
       }
     }
   }
-
-  if (kBulk) {
-    // make the generic-proxy tile writes visible to the bulk copy, then one
-    // thread writes each output tile and holds the block until the copies
-    // have read shared memory
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (tid == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(rows) * D * 4;
-      bulk_store(iou_out + tile, iou_dst, bytes);
-      if (kCost) bulk_store(cost_out + tile, cost_dst, bytes);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    }
-  }
-}
-
-template <bool kCost, bool kVec, bool kBulk, bool kStage>
-cudaError_t launch(const dim3 grid, const dim3 block, const float4* trk, const float4* det,
-                   const float* conf, float* iou, float* cost, int K, int D, int TK,
-                   cudaStream_t st) {
-  const size_t smem = Layout(D, TK, kCost, kBulk, kStage).total;
-  static size_t attr_bytes = kDefaultSmem;  // the most dynamic shared memory allowed so far
-  if (smem > attr_bytes) {
-    const cudaError_t err = cudaFuncSetAttribute(iou_cost_kernel<kCost, kVec, kBulk, kStage>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    attr_bytes = smem;
-  }
-  iou_cost_kernel<kCost, kVec, kBulk, kStage><<<grid, block, smem, st>>>(trk, det, conf, iou,
-                                                                         cost, K, D, TK);
-  return cudaGetLastError();
-}
-
-template <bool kCost, bool kStage>
-cudaError_t launch_stores(int vec, int bulk, const dim3 grid, const dim3 block,
-                          const float4* trk, const float4* det, const float* conf, float* iou,
-                          float* cost, int K, int D, int TK, cudaStream_t st) {
-  if (bulk)
-    return launch<kCost, true, true, kStage>(grid, block, trk, det, conf, iou, cost, K, D, TK, st);
-  if (vec)
-    return launch<kCost, true, false, kStage>(grid, block, trk, det, conf, iou, cost, K, D, TK, st);
-  return launch<kCost, false, false, kStage>(grid, block, trk, det, conf, iou, cost, K, D, TK, st);
 }
 
 template <bool kCost>
-cudaError_t launch_variant(int vec, int bulk, int stage, const dim3 grid, const dim3 block,
-                           const float4* trk, const float4* det, const float* conf, float* iou,
-                           float* cost, int K, int D, int TK, cudaStream_t st) {
-  return stage ? launch_stores<kCost, true>(vec, bulk, grid, block, trk, det, conf, iou, cost, K,
-                                            D, TK, st)
-               : launch_stores<kCost, false>(vec, bulk, grid, block, trk, det, conf, iou, cost, K,
-                                             D, TK, st);
+cudaError_t launch(int vec, const dim3 grid, const dim3 block, const float4* trk,
+                   const float4* det, const float* conf, float* iou, float* cost, int K, int D,
+                   int TK, cudaStream_t st) {
+  if (vec) {
+    iou_cost_kernel<kCost, true><<<grid, block, 0, st>>>(trk, det, conf, iou, cost, K, D, TK);
+  } else {
+    iou_cost_kernel<kCost, false><<<grid, block, 0, st>>>(trk, det, conf, iou, cost, K, D, TK);
+  }
+  return cudaGetLastError();
 }
 
 __global__ void empty_kernel() {}
 
 }  // namespace
 
-// The launch geometry comes from ops/fused_iou_cost.py::launch_geometry:
-// rows (TK) track rows per block, row_blocks = ceil(K / TK), quads x lanes
-// threads, vec: float4 stores (D % 4 == 0, 16-byte aligned outputs), bulk:
-// stage the tiles and store them by bulk copy (needs vec).  conf and cost
-// both null: the IoU-only mode.
+// The launch comes from ops/fused_iou_cost.py::launch_geometry: rows (TK)
+// track rows per block, row_blocks = ceil(K / TK), quads x lanes threads,
+// vec: float4 loads of the confidences and float4 stores (D % 4 == 0 and
+// every pointer 16-byte aligned).  conf and cost both null: the IoU-only
+// mode.
 extern "C" int bmt_iou_cost(const void* trk, const void* det, const void* conf, void* iou,
                             void* cost, int S, int K, int D, int rows, int row_blocks, int quads,
-                            int lanes, int vec, int bulk, int stage, void* stream) {
+                            int lanes, int vec, void* stream) {
   if (S <= 0 || K <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  if (rows <= 0 || row_blocks <= 0 || static_cast<long>(rows) * row_blocks < K ||
-      quads <= 0 || lanes <= 0 || quads * lanes > kThreads || S > 65535 ||
-      (conf == nullptr) != (cost == nullptr) || (bulk && !vec))
+  if (rows <= 0 || row_blocks <= 0 || static_cast<long>(rows) * row_blocks < K || quads <= 0 ||
+      lanes <= 0 || quads * lanes > kThreads || S > 65535 || (conf == nullptr) != (cost == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(row_blocks, S);
   const dim3 block(quads, lanes);
@@ -275,18 +186,18 @@ extern "C" int bmt_iou_cost(const void* trk, const void* det, const void* conf, 
   const auto* d = static_cast<const float4*>(det);
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      conf ? launch_variant<true>(vec, bulk, stage, grid, block, t, d,
-                                  static_cast<const float*>(conf), static_cast<float*>(iou),
-                                  static_cast<float*>(cost), K, D, rows, st)
-           : launch_variant<false>(vec, bulk, stage, grid, block, t, d, nullptr,
-                                   static_cast<float*>(iou), nullptr, K, D, rows, st);
+      conf ? launch<true>(vec, grid, block, t, d, static_cast<const float*>(conf),
+                          static_cast<float*>(iou), static_cast<float*>(cost), K, D, rows, st)
+           : launch<false>(vec, grid, block, t, d, nullptr, static_cast<float*>(iou), nullptr, K,
+                           D, rows, st);
   return static_cast<int>(err);
 }
 
-// An empty kernel, launched through the same ctypes path as bmt_iou_cost:
-// its device time is the card's floor for any launch.
-extern "C" int bmt_empty(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+// An empty kernel of `blocks` x `threads`, launched through the same ctypes
+// path as bmt_iou_cost: its device time is the card's floor for a launch of
+// that grid.
+extern "C" int bmt_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

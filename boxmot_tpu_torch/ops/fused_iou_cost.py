@@ -21,13 +21,6 @@ from boxmot_tpu_torch.csrc import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 THREADS = 512  # the most threads a block of K1 has
-# the store variant: False stores float4s from registers, True stages the
-# tile in shared memory and writes it with one bulk copy per output
-BULK_STORE = False
-# the prologue: False loads a thread's boxes into registers, True stages the
-# block's boxes and areas in shared memory first
-STAGE_BOXES = False
-_BULK_TILE_BYTES = 96 * 1024  # the bulk variant's staged tiles, at most
 
 
 class Launch(NamedTuple):
@@ -37,13 +30,11 @@ class Launch(NamedTuple):
     row_blocks: int  # ceil(K / TK)
     quads: int  # threads across a row, each owning 4 consecutive detections
     lanes: int  # rows in flight: a thread walks rows lane, lane + lanes, ...
-    vec: bool  # float4 stores: every row starts 16-byte aligned (D % 4 == 0)
-    bulk: bool  # the bulk-copy store variant
+    vec: bool  # float4 loads and stores: every row starts 16-byte aligned (D % 4 == 0)
 
 
 @functools.lru_cache(maxsize=256)
-def launch_geometry(S: int, K: int, D: int, sms: int, bulk: bool = False,
-                    outputs: int = 2) -> Launch:
+def launch_geometry(S: int, K: int, D: int, sms: int) -> Launch:
     """K1's launch for S problems of K x D on a card with ``sms`` SMs.
 
     Each problem gets about sms // S blocks of whole rows, so the S * ceil(K
@@ -52,12 +43,8 @@ def launch_geometry(S: int, K: int, D: int, sms: int, bulk: bool = False,
     within ``THREADS`` threads.
     """
     rows = -(-K // max(1, min(K, sms // S)))
-    vec = D % 4 == 0
-    bulk = bulk and vec
-    if bulk:  # the staged tiles must fit in shared memory
-        rows = min(rows, max(1, _BULK_TILE_BYTES // (4 * D * outputs)))
     quads = min(-(-D // 4), THREADS)
-    return Launch(rows, -(-K // rows), quads, max(1, min(rows, THREADS // quads)), vec, bulk)
+    return Launch(rows, -(-K // rows), quads, max(1, min(rows, THREADS // quads)), D % 4 == 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,12 +108,13 @@ def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | No
     cost = None if conf is None else torch.empty_like(iou)
     if iou.numel() == 0:
         return iou, cost
-    g = launch_geometry(S, K, D, _sm_count(dev.index), BULK_STORE, 1 if conf is None else 2)
-    fn = build.entry("iou_cost", "bmt_iou_cost", [_P] * 5 + [_I] * 10 + [_P])
+    g = launch_geometry(S, K, D, _sm_count(dev.index))
+    vec = g.vec and (conf is None or conf.data_ptr() % 16 == 0)
+    fn = build.entry("iou_cost", "bmt_iou_cost", [_P] * 5 + [_I] * 8 + [_P])
     with torch.cuda.device(dev):
         rc = fn(trk.data_ptr(), det.data_ptr(), None if conf is None else conf.data_ptr(),
-                iou.data_ptr(), None if cost is None else cost.data_ptr(), S, K, D, *g,
-                STAGE_BOXES, torch.cuda.current_stream(dev).cuda_stream)
+                iou.data_ptr(), None if cost is None else cost.data_ptr(), S, K, D, *g[:4], vec,
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("iou_cost", "bmt_iou_cost", rc)
     fused_iou_cost.launches += 1
     return iou, cost
@@ -135,10 +123,11 @@ def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | No
 fused_iou_cost.launches = 0
 
 
-def empty_launch(device: torch.device) -> None:
-    """Launch an empty kernel of K1's library through the same ctypes path,
-    on ``device``'s current stream: for measuring the card's launch floor."""
-    fn = build.entry("iou_cost", "bmt_empty", [_P])
+def empty_launch(device: torch.device, blocks: int = 1, threads: int = 32) -> None:
+    """Launch an empty kernel of ``blocks`` x ``threads`` from K1's library,
+    through the same ctypes path, on ``device``'s current stream: for
+    measuring the card's launch floor."""
+    fn = build.entry("iou_cost", "bmt_empty", [_I, _I, _P])
     with torch.cuda.device(device):
-        rc = fn(torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(blocks, threads, torch.cuda.current_stream(device).cuda_stream)
     build.check_launch("iou_cost", "bmt_empty", rc)

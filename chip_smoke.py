@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      in both of its modes (IoU + cost, IoU only), K2 on both of its paths (w
      in shared memory, cost read from global memory), K3 also on crossed
      quadrilaterals that overflow its fast path; the launch floor, an empty
-     kernel's device time through K1's ctypes path, on a line of its own;
+     kernel's device time through K1's ctypes path on one block and on K1's
+     grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
      device time per launch (torch.profiler), its wrapper's time (CUDA
      events around one call), its twin's, and its bound counted from the
@@ -65,7 +66,12 @@ from boxmot_tpu_torch.engine.replay import (
     replay_sequences_outputs,
 )
 from boxmot_tpu_torch.motion import kalman
-from boxmot_tpu_torch.ops.fused_iou_cost import empty_launch, fused_iou_cost, fused_iou_cost_plain
+from boxmot_tpu_torch.ops.fused_iou_cost import (
+    empty_launch,
+    fused_iou_cost,
+    fused_iou_cost_plain,
+    launch_geometry,
+)
 from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
@@ -169,19 +175,27 @@ def k1_bound(trk, det, conf):
                             (11 + 2 * outputs) * S * K * D + 3 * S * boxes)
 
 
+def _offset_copy(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
 def check_k1(rng, step_calls):
     """K1 bit-equal to its twin in both modes (with conf: IoU and cost;
     without: the IoU alone) at the step's shapes, a live frame's 512
-    detections and two shapes that take the scalar stores; then each of the
-    bench step's two launches timed in its own mode, beside the launch
-    floor (an empty kernel through the same ctypes path)."""
+    detections and two shapes that take the scalar path (D % 4 != 0), and
+    with confidences that are not 16-byte aligned; the launch floor (an
+    empty kernel through the same ctypes path, on one block and on K1's
+    grids); then each of the bench step's two launches timed in its own
+    mode."""
     for S, K, D in K1_SHAPES:
         trk = _boxes(rng, S, K)
         det = _boxes(rng, S, D)
         det[:, : D // 2] = trk[:, :1] + rng.uniform(-30, 30, (S, D // 2, 4))
         conf = rng.uniform(0.05, 1.0, (S, D)).astype(np.float32)
         full = [torch.from_numpy(a).cuda() for a in (trk, det, conf)]
-        for mode, args in (("iou+cost", full), ("iou-only", full[:2])):
+        for mode, args in (("iou+cost", full), ("iou-only", full[:2]),
+                           ("iou+cost, conf 4 bytes off", full[:2] + [_offset_copy(full[2])])):
             got, want = fused_iou_cost(*args), fused_iou_cost_plain(*args)
             torch.cuda.synchronize()
             same = [g is w or torch.equal(g, w) for g, w in zip(got, want)]
@@ -189,23 +203,32 @@ def check_k1(rng, step_calls):
                 raise AssertionError(f"K1 {mode} at S={S} K={K} D={D}: not bit-equal to the "
                                      f"twin (iou {same[0]}, cost {same[1]})")
             print(f"K1 {mode} S={S} K={K} D={D}: bit-equal to the twin")
-    floor = measure.device_ms(lambda: empty_launch(torch.device("cuda")), "empty_kernel")
-    print(f"launch floor: an empty kernel through K1's ctypes path takes {floor:.5f} ms of "
-          f"device time a launch")
-    # times on the AABB bench step's own inputs (its two launches, each in its mode)
-    rows = []
+    # the AABB bench step's own inputs (its two launches, each in its mode)
+    calls = []
     for args, _ in step_calls["aabb"]["fused_iou_cost"]:
         if len(args) == 2 and torch.equal(*args):
             args = [args[0], args[0]]  # the step passes one box tensor twice
-        trk, det, conf = (list(args) + [None])[:3]
+        calls.append((list(args) + [None])[:3])
+    card = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    floors = {(1, 32): 0.0}
+    for trk, det, _ in calls:
+        g = launch_geometry(trk.shape[0], trk.shape[1], det.shape[1], sms)
+        floors[(trk.shape[0] * g.row_blocks, g.quads * g.lanes)] = 0.0
+    for b, t in floors:
+        floors[b, t] = measure.device_ms(lambda: empty_launch(card, b, t), "empty_kernel")
+    print("launch floor (an empty kernel through K1's ctypes path, device ms a launch): " +
+          ", ".join(f"{b} x {t} threads {ms:.5f}" for (b, t), ms in floors.items()))
+    rows = []
+    for trk, det, conf in calls:
+        args = [trk, det] if conf is None else [trk, det, conf]
         S, K, D = trk.shape[0], trk.shape[1], det.shape[1]
-        mode = "iou-only" if conf is None else "iou+cost"
         row = (measure.device_ms(lambda: fused_iou_cost(*args), "iou_cost_kernel"),
                measure.event_ms(lambda: fused_iou_cost(*args)),
                measure.event_ms(lambda: fused_iou_cost_plain(*args)), *k1_bound(trk, det, conf))
-        print(f"K1 bench step {mode} (S, K, D) = {(S, K, D)}: device {row[0]:.5f} ms a launch, "
-              f"wrapper {row[1]:.5f} ms, plain {row[2]:.5f} ms, bound {row[3]:.5f} ms ({row[4]}), "
-              f"launch floor {floor:.5f} ms")
+        print(f"K1 bench step {'iou-only' if conf is None else 'iou+cost'} (S, K, D) = "
+              f"{(S, K, D)}: device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
+              f"{row[2]:.5f} ms, bound {row[3]:.5f} ms ({row[4]})")
         rows.append(row)
     return timing(0.0, rows)
 

@@ -60,6 +60,20 @@ def test_fused_iou_cost_kernel_bit_equal_to_twin(card, S, K, D, iou_only):
     assert (cost is None) if iou_only else torch.equal(cost, ref_cost)
 
 
+def test_fused_iou_cost_kernel_unaligned_conf(card):
+    """Confidences that start 4 bytes past a 16-byte boundary take the scalar
+    loads and stores, bit-equal to the twin."""
+    rng = np.random.default_rng(5)
+    trk, det = (torch.from_numpy(_boxes(rng, 8, n)).to(card) for n in (256, 128))
+    conf = torch.empty(8 * 128 + 1, device=card)[1:].view(8, 128)
+    conf.copy_(torch.from_numpy(rng.uniform(0.05, 1.0, (8, 128)).astype(np.float32)))
+    iou, cost = fused_iou_cost(trk, det, conf)
+    ref_iou, ref_cost = fused_iou_cost_plain(trk, det, conf)
+    torch.cuda.synchronize()
+    assert conf.data_ptr() % 16 == 4
+    assert torch.equal(iou, ref_iou) and torch.equal(cost, ref_cost)
+
+
 def _problem(rng, kind, S, R, C):
     if kind == "dense":
         cost = rng.uniform(0, 1, (S, R, C))

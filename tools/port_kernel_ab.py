@@ -16,10 +16,10 @@ measured the same way.  On one CUDA card it:
    bench's 8 sequences x 100 detections, D = 128, capacity 256), AABB and
    OBB ByteTrack, and times each kernel's device time per launch on those
    inputs (torch.profiler), and K3 at 4096 x 4096; K1's wrapper time per
-   launch (CUDA events around one call) and, where the checkout has them,
-   K1's store (float4 or bulk copy) and prologue (registers or shared
-   memory) variants and the launch floor (an empty kernel through K1's
-   ctypes path);
+   launch (CUDA events around one call) and, where the checkout has it, the
+   launch floor: an empty kernel through K1's ctypes path, on one block and
+   on the grids of K1's launches in this design and in the first one (one
+   pair a thread, 256-thread blocks);
 3. profiles 16 bench steps of each: kernels and device busy ms per step,
    the auction's and rotated IoU's device ms per step, and host ms per step
    without the profiler;
@@ -93,6 +93,7 @@ def main() -> int:
     }
     kernels = {"fused_iou_cost": "iou_cost_kernel", "masked_assignment": "auction_kernel",
                "rotated_iou": "rotated_iou_kernel"}
+    k1_calls = []  # K1's arguments at the AABB bench step
     for label, (cfg, frames_fn, cols) in paths.items():
         packed = [pack_frames(frames_fn(cs.N_FRAMES, cs.N_DETS, seed=s), D=cs.D_BENCH,
                               F=cs.N_FRAMES, det_cols=cols)[0] for s in range(cs.N_SEQS)]
@@ -110,27 +111,12 @@ def main() -> int:
                     a = [a[0], a[0]]  # the step passes one box tensor twice
                 times.append(measure.device_ms(lambda: getattr(bytetrack, name)(*a, **kw),
                                                kernels[name]))
+                if name == "fused_iou_cost":
+                    k1_calls.append(a)
             result[f"{label}_{name}_device_ms_per_launch"] = times
         if label == "aabb":
-            k1_calls = [a if len(a) == 3 or not torch.equal(*a) else [a[0], a[0]]
-                        for a, _ in rec["fused_iou_cost"]]
             result["aabb_fused_iou_cost_wrapper_ms_per_launch"] = [
                 measure.event_ms(lambda: fic.fused_iou_cost(*a)) for a in k1_calls]
-            if hasattr(fic, "BULK_STORE"):  # K1's store and prologue variants, checked, timed
-                for bulk, stage in ((False, False), (True, False), (False, True), (True, True)):
-                    fic.BULK_STORE, fic.STAGE_BOXES = bulk, stage
-                    try:
-                        for a in k1_calls:
-                            got, want = fic.fused_iou_cost(*a), fic.fused_iou_cost_plain(*a)
-                            if not all(g is w or torch.equal(g, w) for g, w in zip(got, want)):
-                                raise AssertionError(f"K1 (bulk {bulk}, staged {stage}) differs "
-                                                     "from the twin")
-                        key = f"{'bulk' if bulk else 'vec'}_{'staged' if stage else 'registers'}"
-                        result[f"aabb_fused_iou_cost_{key}_device_ms_per_launch"] = [
-                            measure.device_ms(lambda: fic.fused_iou_cost(*a), "iou_cost_kernel")
-                            for a in k1_calls]
-                    finally:
-                        fic.BULK_STORE, fic.STAGE_BOXES = False, False
 
         # 16 steps under the profiler, and without it on the host clock
         s16, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64])
@@ -161,9 +147,17 @@ def main() -> int:
                 ms.append(start.elapsed_time(end))
         result[f"{label}_replay_fps"] = cs.N_SEQS * cs.N_FRAMES / (statistics.median(ms) / 1e3)
 
-    if hasattr(fic, "empty_launch"):
-        result["launch_floor_ms"] = measure.device_ms(
-            lambda: fic.empty_launch(torch.device("cuda")), "empty_kernel")
+    if hasattr(fic, "empty_launch"):  # the launch floor: an empty kernel at K1's grids
+        grids = {(1, 32)}
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for a in k1_calls:
+            S, K, D = a[0].shape[0], a[0].shape[1], a[1].shape[1]
+            grids.add((S * -(-K * D // 256), 256))  # the one-pair-a-thread design's grid
+            g = fic.launch_geometry(S, K, D, sms)
+            grids.add((S * g.row_blocks, g.quads * g.lanes))
+        result["launch_floor_ms"] = {
+            f"{b}x{t}": measure.device_ms(lambda: fic.empty_launch(torch.device("cuda"), b, t),
+                                          "empty_kernel") for b, t in sorted(grids)}
     rng = np.random.default_rng(0)
     a, b = (torch.from_numpy(cs._obbs(rng, 1, 4096)).cuda() for _ in range(2))
     c1, c2 = (obb_corners(x).contiguous() for x in (a, b))
