@@ -211,12 +211,12 @@ def check_k1(rng, step_calls):
         calls.append((list(args) + [None])[:3])
     card = torch.device("cuda")
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    floors = {(1, 32): 0.0}
+    grids = [(1, 32)]
     for trk, det, _ in calls:
         g = launch_geometry(trk.shape[0], trk.shape[1], det.shape[1], sms)
-        floors[(trk.shape[0] * g.row_blocks, g.quads * g.lanes)] = 0.0
-    for b, t in floors:
-        floors[b, t] = measure.device_ms(lambda: empty_launch(card, b, t), "empty_kernel")
+        grids.append((trk.shape[0] * g.row_blocks, g.quads * g.lanes))
+    floors = {(b, t): measure.device_ms(lambda: empty_launch(card, b, t), "empty_kernel")
+              for b, t in dict.fromkeys(grids)}
     print("launch floor (an empty kernel through K1's ctypes path, device ms a launch): " +
           ", ".join(f"{b} x {t} threads {ms:.5f}" for (b, t), ms in floors.items()))
     rows = []
