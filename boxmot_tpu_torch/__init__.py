@@ -1,6 +1,6 @@
 """boxmot_tpu_torch: the PyTorch + CUDA port of boxmot_tpu.
 
-It runs ByteTrack and SFSORT replay, eval and live tracking, for
+It runs ByteTrack, SFSORT and OC-SORT replay, eval and live tracking, for
 axis-aligned and oriented boxes, on one NVIDIA H100, or on the CPU through
 each kernel's plain PyTorch twin.  The hot ops of the tracker steps are
 kernels written by hand for Hopper (``csrc/``), built with nvcc on first
@@ -12,8 +12,8 @@ host modules it needs (``data``, ``engine.metrics``, ``engine.mot_io``,
 Entry points, on the card unless ``device="cpu"`` is given::
 
     boxmot_tpu_torch.run_eval(root, "bytetrack")
-    boxmot_tpu_torch.run_eval_obb(mmot_root, "sfsort")
-    tracker = boxmot_tpu_torch.create_tracker("sfsort")
+    boxmot_tpu_torch.run_eval_obb(mmot_root, "ocsort")
+    tracker = boxmot_tpu_torch.create_tracker("ocsort")
     tracker.update(dets, img)  # (N, 6) xyxy or (N, 7) xywha detections
 """
 

@@ -32,6 +32,18 @@ _DEFAULTS = {
         "horizontal_margin": 0,
         "vertical_margin": 0,
     },
+    "ocsort": {
+        "min_conf": 0.1,
+        "det_thresh": 0.6,
+        "max_age": 30,
+        "min_hits": 3,
+        "delta_t": 3,
+        "asso_func": "iou",
+        "use_byte": False,
+        "inertia": 0.1,
+        "Q_xy_scaling": 0.01,
+        "Q_s_scaling": 0.0001,
+    },
 }
 
 

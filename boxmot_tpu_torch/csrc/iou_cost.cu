@@ -10,12 +10,12 @@
 // thread reads its detections' 16-byte boxes, so the natural (D, 4) layout is
 // kept.
 //
-// The union is clamped at 1e-9, as in the TPU kernel.  The JAX tracker step
-// uses iou_batch, which clamps at 1e-12; on the step the two agree, because
-// union >= max(area_t, area_d), every detection is either a detector box or
-// a unit padding box, and a clamp can only bind where both areas, and so the
-// intersection, are below 1e-9: a zero intersection gives IoU 0 under
-// either clamp.
+// The union is clamped at `eps`, an argument: the TPU kernel clamps at 1e-9,
+// the JAX tracker steps' iou_batch at 1e-12, and the two differ on boxes
+// whose union is below 1e-9 (a track and a detection of 1e-5 x 1e-5 have
+// IoU 1 under iou_batch and 0.1 under a 1e-9 clamp).  The tracker steps pass
+// iou_batch's 1e-12; the tests that hold K1 against the TPU kernel pass
+// 1e-9.
 //
 // Bound on this card.  On the tracker's paths K <= 256 and D <= 512: a call
 // reads a few KB of boxes and writes S*K*D floats per output, 2.1 MB for
@@ -66,7 +66,7 @@ __device__ __forceinline__ float box_area(const float4 b) {
 }
 
 __device__ __forceinline__ float pair_iou(const float4 t, const float area_t, const float4 b,
-                                          const float area_d) {
+                                          const float area_d, const float eps) {
   const float xx1 = fmaxf(t.x, b.x);
   const float yy1 = fmaxf(t.y, b.y);
   const float xx2 = fminf(t.z, b.z);
@@ -74,10 +74,10 @@ __device__ __forceinline__ float pair_iou(const float4 t, const float area_t, co
   const float inter = __fmul_rn(fmaxf(__fsub_rn(xx2, xx1), 0.0f),
                                 fmaxf(__fsub_rn(yy2, yy1), 0.0f));
   // a zero intersection is the quotient itself: the clamped union is at
-  // least 1e-9 and never NaN
+  // least eps > 0 and never NaN
   if (inter == 0.0f) return inter;
   const float uni = __fsub_rn(__fadd_rn(area_t, area_d), inter);
-  return __fdiv_rn(inter, fmaxf(uni, 1e-9f));
+  return __fdiv_rn(inter, fmaxf(uni, eps));
 }
 
 // the first n (1..4) of v to p: one float4 when kVec (then n == 4 and p is
@@ -102,7 +102,7 @@ template <bool kCost, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     iou_cost_kernel(const float4* __restrict__ trk, const float4* __restrict__ det,
                     const float* __restrict__ conf, float* __restrict__ iou_out,
-                    float* __restrict__ cost_out, int K, int D, int TK) {
+                    float* __restrict__ cost_out, int K, int D, int TK, float eps) {
   const int s = blockIdx.y;
   const int k0 = blockIdx.x * TK;
   const int rows = min(TK, K - k0);
@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
       const float area_t = box_area(t);
       float v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = pair_iou(t, area_t, b[i], area_d[i]);
+      for (int i = 0; i < 4; ++i) v[i] = pair_iou(t, area_t, b[i], area_d[i], eps);
       const size_t at = static_cast<size_t>(r) * D + d0;
       store4<kVec>(iou_tile + at, v, n);
       if (kCost) {
@@ -155,11 +155,11 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kCost>
 cudaError_t launch(int vec, const dim3 grid, const dim3 block, const float4* trk,
                    const float4* det, const float* conf, float* iou, float* cost, int K, int D,
-                   int TK, cudaStream_t st) {
+                   int TK, float eps, cudaStream_t st) {
   if (vec) {
-    iou_cost_kernel<kCost, true><<<grid, block, 0, st>>>(trk, det, conf, iou, cost, K, D, TK);
+    iou_cost_kernel<kCost, true><<<grid, block, 0, st>>>(trk, det, conf, iou, cost, K, D, TK, eps);
   } else {
-    iou_cost_kernel<kCost, false><<<grid, block, 0, st>>>(trk, det, conf, iou, cost, K, D, TK);
+    iou_cost_kernel<kCost, false><<<grid, block, 0, st>>>(trk, det, conf, iou, cost, K, D, TK, eps);
   }
   return cudaGetLastError();
 }
@@ -172,13 +172,14 @@ __global__ void empty_kernel() {}
 // track rows per block, row_blocks = ceil(K / TK), quads x lanes threads,
 // vec: float4 loads of the confidences and float4 stores (D % 4 == 0 and
 // every pointer 16-byte aligned).  conf and cost both null: the IoU-only
-// mode.
+// mode.  eps (> 0): the union clamp.
 extern "C" int bmt_iou_cost(const void* trk, const void* det, const void* conf, void* iou,
                             void* cost, int S, int K, int D, int rows, int row_blocks, int quads,
-                            int lanes, int vec, void* stream) {
+                            int lanes, int vec, float eps, void* stream) {
   if (S <= 0 || K <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   if (rows <= 0 || row_blocks <= 0 || static_cast<long>(rows) * row_blocks < K || quads <= 0 ||
-      lanes <= 0 || quads * lanes > kThreads || S > 65535 || (conf == nullptr) != (cost == nullptr))
+      lanes <= 0 || quads * lanes > kThreads || S > 65535 ||
+      (conf == nullptr) != (cost == nullptr) || !(eps > 0.0f))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(row_blocks, S);
   const dim3 block(quads, lanes);
@@ -187,9 +188,9 @@ extern "C" int bmt_iou_cost(const void* trk, const void* det, const void* conf, 
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       conf ? launch<true>(vec, grid, block, t, d, static_cast<const float*>(conf),
-                          static_cast<float*>(iou), static_cast<float*>(cost), K, D, rows, st)
+                          static_cast<float*>(iou), static_cast<float*>(cost), K, D, rows, eps, st)
            : launch<false>(vec, grid, block, t, d, nullptr, static_cast<float*>(iou), nullptr, K,
-                           D, rows, st);
+                           D, rows, eps, st);
   return static_cast<int>(err);
 }
 

@@ -22,21 +22,22 @@ from boxmot_tpu_torch.engine.mot_io import write_mot_results
 from boxmot_tpu_torch.engine.replay import replay_sequences_batched
 from boxmot_tpu_torch.engine.results import ValidationResult
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
 from boxmot_tpu_torch.trackers.zoo import check_ported
 from boxmot_tpu_torch.utils.device import resolve_device
 
 
-_TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig}
+_TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig, "ocsort": OcSortConfig}
 
 
 def build_replay_config(tracker_type: str, **params):
     """Replay config from the YAML tier + explicit overrides, merged by field
     name as in the JAX package.  The YAML keys that are not config fields
-    (ByteTrack's ``track_buffer`` and ``frame_rate``, SFSORT's margins) are
-    dropped, so the ByteTrack replay keeps the config defaults
-    ``det_thresh`` 0.45 and ``max_time_lost`` 25, which the pinned metrics
-    depend on."""
+    (ByteTrack's ``track_buffer`` and ``frame_rate``, SFSORT's margins,
+    OC-SORT's ``Q_xy_scaling`` and ``Q_s_scaling``) are dropped, so the
+    ByteTrack replay keeps the config defaults ``det_thresh`` 0.45 and
+    ``max_time_lost`` 25, which the pinned metrics depend on."""
     check_ported(tracker_type)
     cfg_cls = _TRACKER_CONFIGS[tracker_type]
     merged = {**get_tracker_defaults(tracker_type), **params}

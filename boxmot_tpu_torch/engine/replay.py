@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from boxmot_tpu_torch.engine.mot_io import convert_to_mot_format
-from boxmot_tpu_torch.trackers import bytetrack, sfsort
+from boxmot_tpu_torch.trackers import bytetrack, ocsort, sfsort
 from boxmot_tpu_torch.utils.device import resolve_device
 
 FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
@@ -33,6 +33,8 @@ def resolve_tracker(cfg):
         return bytetrack.init_state, bytetrack.bytetrack_step
     if isinstance(cfg, sfsort.SFSortConfig):
         return sfsort.init_state, sfsort.sfsort_step
+    if isinstance(cfg, ocsort.OcSortConfig):
+        return ocsort.init_state, ocsort.ocsort_step
     raise TypeError(f"unknown tracker config type {type(cfg).__name__}")
 
 

@@ -1,5 +1,5 @@
-"""Batched, masked Kalman filter bank, XYAH and XYWH-OBB layouts
-(counterpart of boxmot_tpu/motion/kalman.py).
+"""Batched, masked Kalman filter bank, XYAH, XYWH(-OBB) and XYSR(-OBB)
+layouts (counterpart of boxmot_tpu/motion/kalman.py).
 
 Track state is ``mean (..., dx)`` and ``cov (..., dx, dx)`` with any
 leading batch axes, here (S, K).  Every small product is written as
@@ -14,6 +14,7 @@ and a CUDA run of the port give the same bits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -274,6 +275,108 @@ def make_xywh_layout(obb: bool = False, std_weight_position: float = _SWP,
         meas_diag=meas_diag,
         enforce=enforce,
     )
+
+
+def _std_stds(values) -> tuple:
+    """float64 square roots of the noise variances, as the JAX factories
+    take them (rounded to float32 where a tensor is made of them)."""
+    return tuple(math.sqrt(v) for v in values)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_row(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 row of constants on ``device``, made once and filled in
+    place: a fill is a kernel, where a tensor made from host data would be a
+    copy from host memory, which a replay must not make."""
+    row = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        row[i].fill_(v)
+    return row
+
+
+def make_xysr_layout(obb: bool = False, q_xy_scaling: float = 0.01, q_s_scaling: float = 0.0001,
+                     q_a_scaling: float = 0.0001) -> KFLayout:
+    """[cx, cy, s=area, r=aspect] (+ theta) SORT-style filter with OC-SORT's
+    constant Q, R and P0; r has no velocity.  State: x, y, s, r, vx, vy, vs
+    (OBB: x, y, s, r, theta, vx, vy, vs, vtheta)."""
+    dz = 5 if obb else 4
+    dx = 9 if obb else 7
+    vel_of = {0: dz, 1: dz + 1, 2: dz + 2}  # position index -> its velocity
+    if obb:
+        vel_of[4] = 8
+        p0 = [10.0] * 5 + [10000.0] * 4
+        q = [1.0] * 5 + [q_xy_scaling, q_xy_scaling, q_s_scaling, q_a_scaling]
+        r = [1.0, 1.0, 10.0, 10.0, 10.0]
+    else:
+        p0 = [10.0] * 4 + [10000.0] * 3
+        q = [1.0] * 4 + [q_xy_scaling, q_xy_scaling, q_s_scaling]
+        r = [1.0, 1.0, 10.0, 10.0]
+    # JAX scales np.ones by the factor: 1.0 * q, which is q itself
+    F = tuple(tuple(1.0 if (b == a or vel_of.get(a) == b) else 0.0 for b in range(dx))
+              for a in range(dx))
+    p0_std, q_std, r_std = _std_stds(p0), _std_stds(q), _std_stds(r)
+
+    def const(values, like):
+        return _const_row(values, like.device).expand(like.shape[:-1] + (len(values),))
+
+    def init_mean(z):
+        return torch.cat([z, z.new_zeros(z.shape[:-1] + (dx - dz,))], dim=-1)
+
+    def enforce(mean):
+        mean = _set(mean, 2, torch.clamp_min(mean[..., 2], 1e-6))
+        mean = _set(mean, 3, torch.clamp_min(mean[..., 3], 1e-6))
+        if obb:
+            mean = _set(mean, 4, wrap_angle(mean[..., 4]))
+        return mean
+
+    return KFLayout(
+        name="xysr_obb" if obb else "xysr",
+        dx=dx,
+        dz=dz,
+        motion_mat=F,
+        init_mean=init_mean,
+        init_cov_diag=lambda z: const(p0_std, z),
+        process_diag=lambda mean: const(q_std, mean),
+        meas_diag=lambda mean: const(r_std, mean),
+        enforce=enforce,
+    )
+
+
+def xysr_noise(layout: KFLayout) -> tuple[list, list]:
+    """(process variances (dx,), measurement variances (dz,)) of a constant-
+    noise layout as float32 values: each std rounded to float32 and squared
+    in float32, as ``predict`` and ``update`` square them."""
+    probe = torch.zeros(1, layout.dx)
+    q_var = torch.square(layout.process_diag(probe))[0]
+    r_var = torch.square(layout.meas_diag(probe))[0]
+    return q_var.tolist(), r_var.tolist()
+
+
+def align_obb_xysr(z: torch.Tensor, ref: torch.Tensor, size_weight: float = 0.05):
+    """Resolve the 4-way OBB parameterization in XYSR space: z, ref (..., 5)
+    [cx, cy, s, r, theta]; (s, r, th), (s, r, th + pi), (s, 1/r, th + pi/2)
+    and (s, 1/r, th - pi/2) are one rectangle; take the candidate with the
+    least |wrapped angle delta| + size_weight * |log(r / ref_r)| (the first
+    one on a tie, as ``jnp.argmin``)."""
+    eps = 1e-6
+    r = torch.clamp_min(z[..., 3], eps)
+    th = wrap_angle(z[..., 4])
+    ref_r = torch.clamp_min(ref[..., 3], eps)
+    ref_th = ref[..., 4, None]
+
+    inv_r = 1.0 / r
+    cand_r = torch.stack([r, r, inv_r, inv_r], dim=-1)
+    cand_t = torch.stack([th, th + math.pi, th + math.pi / 2, th - math.pi / 2], dim=-1)
+    aligned_t = ref_th + wrap_angle(cand_t - ref_th)
+    angle_cost = torch.abs(aligned_t - ref_th)
+    size_cost = torch.abs(exact(torch.log, cand_r / ref_r[..., None]))
+    best = torch.argmin(angle_cost + size_weight * size_cost, dim=-1, keepdim=True)
+
+    def take(c):
+        return torch.gather(c, -1, best)[..., 0]
+
+    return torch.stack([z[..., 0], z[..., 1], torch.clamp_min(z[..., 2], eps),
+                        torch.clamp_min(take(cand_r), eps), take(aligned_t)], dim=-1)
 
 
 def align_obb_to_ref(meas: torch.Tensor, ref: torch.Tensor, size_weight: float = 0.05):

@@ -4,8 +4,14 @@
 ``boxmot_tpu/ops/pallas_kernels.py::_fused_iou_cost_pallas`` (B1).  On a
 CUDA tensor it launches the hand-written kernel ``csrc/iou_cost.cu``; on a
 CPU tensor it runs ``fused_iou_cost_plain``, the same arithmetic in plain
-PyTorch.  The tracker step calls it for the association IoU and cost, and
-in its IoU-only mode (no ``conf``) for the duplicate-suppression IoU.
+PyTorch.  The tracker steps call it for the association IoU and cost, and
+in its IoU-only mode (no ``conf``) for ByteTrack's duplicate-suppression IoU
+and OC-SORT's association IoU.
+
+The union clamp ``eps`` is an argument.  Its default, 1e-9, is the TPU
+kernel's; the tracker steps pass ``IOU_BATCH_EPS`` (1e-12), the clamp of
+``iou_batch``, which the JAX tracker steps use: the two clamps give other
+IoUs on boxes whose union is below 1e-9.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from boxmot_tpu_torch.csrc import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 THREADS = 512  # the most threads a block of K1 has
+TPU_KERNEL_EPS = 1e-9  # the TPU kernel's union clamp
+IOU_BATCH_EPS = 1e-12  # iou_batch's union clamp, which the tracker steps use
 
 
 class Launch(NamedTuple):
@@ -52,11 +60,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def fused_iou_cost_plain(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None = None):
+def fused_iou_cost_plain(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None = None,
+                         eps: float = TPU_KERNEL_EPS):
     """(S, K, 4), (S, D, 4) xyxy and (S, D) conf -> (iou, 1 - iou*conf), both
     (S, K, D); (iou, None) without conf.
 
-    Same operation order as the TPU kernel, union clamped at 1e-9.
+    Same operation order as the TPU kernel, union clamped at ``eps``.
     """
     t = trk[:, :, None, :]
     d = det[:, None, :, :]
@@ -67,12 +76,14 @@ def fused_iou_cost_plain(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tenso
     inter = torch.clamp_min(xx2 - xx1, 0.0) * torch.clamp_min(yy2 - yy1, 0.0)
     area_t = (trk[..., 2] - trk[..., 0]) * (trk[..., 3] - trk[..., 1])
     area_d = (det[..., 2] - det[..., 0]) * (det[..., 3] - det[..., 1])
-    iou = inter / torch.clamp_min(area_t[:, :, None] + area_d[:, None, :] - inter, 1e-9)
+    iou = inter / torch.clamp_min(area_t[:, :, None] + area_d[:, None, :] - inter, eps)
     return iou, None if conf is None else 1.0 - iou * conf[:, None, :]
 
 
-def _check(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None):
+def _check(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None, eps: float):
     """One pass over the arguments; returns (S, K, D)."""
+    if not eps > 0.0:
+        raise ValueError(f"fused_iou_cost: eps must be > 0, got {eps}")
     if trk.dim() != 3 or trk.shape[2] != 4:
         raise ValueError(f"fused_iou_cost: trk must be (S, K, 4), got {tuple(trk.shape)}")
     S, K, _ = trk.shape
@@ -93,13 +104,14 @@ def _check(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None):
     return S, K, D
 
 
-def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None = None):
+def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | None = None,
+                   eps: float = TPU_KERNEL_EPS):
     """(iou, cost) as ``fused_iou_cost_plain``, (iou, None) without conf;
     kernel K1 on a CUDA tensor."""
-    S, K, D = _check(trk, det, conf)
+    S, K, D = _check(trk, det, conf, eps)
     dev = trk.device
     if dev.type == "cpu":
-        return fused_iou_cost_plain(trk, det, conf)
+        return fused_iou_cost_plain(trk, det, conf, eps)
     if dev.type != "cuda":
         raise ValueError(f"fused_iou_cost: unsupported device {dev}")
     if trk.data_ptr() % 16 or det.data_ptr() % 16:
@@ -110,11 +122,11 @@ def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | No
         return iou, cost
     g = launch_geometry(S, K, D, _sm_count(dev.index))
     vec = g.vec and (conf is None or conf.data_ptr() % 16 == 0)
-    fn = build.entry("iou_cost", "bmt_iou_cost", [_P] * 5 + [_I] * 8 + [_P])
+    fn = build.entry("iou_cost", "bmt_iou_cost", [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P])
     with torch.cuda.device(dev):
         rc = fn(trk.data_ptr(), det.data_ptr(), None if conf is None else conf.data_ptr(),
                 iou.data_ptr(), None if cost is None else cost.data_ptr(), S, K, D, *g[:4], vec,
-                torch.cuda.current_stream(dev).cuda_stream)
+                eps, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("iou_cost", "bmt_iou_cost", rc)
     fused_iou_cost.launches += 1
     return iou, cost

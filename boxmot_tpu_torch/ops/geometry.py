@@ -1,7 +1,8 @@
 """Box conversions on the last axis (counterpart of boxmot_tpu/ops/geometry.py).
 
 Same operation order as the JAX functions.  Only the conversions the
-ported trackers use are ported.
+ported trackers use are ported: XYAH for ByteTrack, XYSR for OC-SORT,
+corners for oriented boxes.
 
 ``cos``, ``sin``, ``log`` and ``sqrt`` go through ``exact``: evaluated in
 float64 and rounded to float32, they give the correctly rounded float32
@@ -37,6 +38,36 @@ def xyah2xyxy(x: torch.Tensor) -> torch.Tensor:
     cx, cy, a, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
     w = a * h
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+def xyxy2xysr(x: torch.Tensor) -> torch.Tensor:
+    """(x1,y1,x2,y2) -> (cx,cy,s=area,r=w/(h+1e-6)), OC-SORT's measurement."""
+    x1, y1, x2, y2 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    w = x2 - x1
+    h = y2 - y1
+    return torch.stack([x1 + w / 2.0, y1 + h / 2.0, w * h, w / (h + 1e-6)], dim=-1)
+
+
+def xysr2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(cx,cy,s,r) -> (x1,y1,x2,y2); w = sqrt(s*r), h = s/w."""
+    cx, cy, s, r = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    w = exact(torch.sqrt, torch.clamp_min(s * r, 0.0))
+    h = s / torch.clamp_min(w, 1e-12)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+def obb2xysr(b: torch.Tensor) -> torch.Tensor:
+    """(cx,cy,w,h,theta) -> (cx,cy,s=w*h,r=w/h,theta), OC-SORT's OBB measurement."""
+    w = torch.clamp_min(b[..., 2], 1e-6)
+    h = torch.clamp_min(b[..., 3], 1e-6)
+    return torch.stack([b[..., 0], b[..., 1], w * h, w / h, b[..., 4]], dim=-1)
+
+
+def xysr2obb(x: torch.Tensor) -> torch.Tensor:
+    """(cx,cy,s,r,theta,...) state -> (cx,cy,w,h,theta)."""
+    w = exact(torch.sqrt, torch.clamp_min(x[..., 2] * x[..., 3], 1e-12))
+    h = x[..., 2] / torch.clamp_min(w, 1e-6)
+    return torch.stack([x[..., 0], x[..., 1], w, h, x[..., 4]], dim=-1)
 
 
 def obb_corners(xywha: torch.Tensor) -> torch.Tensor:

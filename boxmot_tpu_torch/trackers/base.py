@@ -2,7 +2,8 @@
 boxmot_tpu/trackers/base.py, without its visualization mixin).
 
 It keeps what cannot run in the batched step: input unwrapping,
-detection-layout inference, first-frame setup, padding to a static
+detection-layout inference, first-frame setup (the detection layout, and
+the frame size for centroid association), padding to a static
 detection bucket, per-class states renumbered by the shared
 ``GlobalIdAllocator``, and ``TrackResults`` wrapping.  ``update(dets, img)``
 keeps the JAX tracker's contract: (N, 6) axis-aligned detections give
@@ -69,11 +70,17 @@ class BaseTracker:
 
     supports_obb = False
 
-    def __init__(self, device, per_class: bool = False, nr_classes: int = 80,
-                 is_obb: bool = False, **kwargs):
-        # the JAX shell's association/age options are accepted and unused
-        # by the motion-only trackers, as there
+    def __init__(self, device, det_thresh: float = 0.3, max_age: int = 30, min_hits: int = 3,
+                 iou_threshold: float = 0.3, per_class: bool = False, nr_classes: int = 80,
+                 asso_func: str = "iou", is_obb: bool = False, **kwargs):
+        # the JAX shell's association and age options, with its defaults; a
+        # tracker that does not use them ignores them, as there
         self.device = resolve_device(device)
+        self.det_thresh = det_thresh
+        self.max_age = max_age
+        self.min_hits = min_hits
+        self.iou_threshold = iou_threshold
+        self.asso_func_name = asso_func
         self.per_class = per_class
         self.nr_classes = nr_classes
         self.is_obb = is_obb
@@ -108,7 +115,12 @@ class BaseTracker:
                 self._first_dets_processed = True
         if self.h is None and img is not None:
             self.h, self.w = img.shape[0:2]
+            self._set_frame_size(float(self.w), float(self.h))
         return TrackResults(self._do_update(dets))
+
+    def _set_frame_size(self, w: float, h: float):
+        """First-frame hook for trackers whose association needs the frame
+        size (the centroid family)."""
 
     def _set_detection_mode(self, is_obb: bool):
         if is_obb != self.is_obb:

@@ -9,7 +9,8 @@ of the JAX step (see its module docstring); per frame the step runs:
 * the Kalman predict over the tracked + lost pool (XYAH; XYWH + angle for
   oriented boxes);
 * the shared IoU matrix and the fused-score cost ``1 - iou * conf``: kernel
-  K1 (``ops.fused_iou_cost``) for axis-aligned boxes, kernel K3
+  K1 (``ops.fused_iou_cost``, with ``iou_batch``'s union clamp, as the JAX
+  step) for axis-aligned boxes, kernel K3
   (``ops.rotated_iou``) and an elementwise cost for oriented ones;
 * kernel K2 (``ops.lap.masked_assignment``) for the three passes;
 * one masked Joseph-form update for every matched slot (oriented
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from boxmot_tpu_torch.motion import kalman
-from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost
+from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost
 from boxmot_tpu_torch.ops.geometry import obb_corners, xyah2xyxy, xyxy2xyah
 from boxmot_tpu_torch.ops.lap import masked_assignment
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
@@ -169,7 +170,7 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
     else:
         det_xyxy = dets[..., :4].contiguous()
         det_meas = xyxy2xyah(det_xyxy)
-        iou, cost1 = fused_iou_cost(xyah2xyxy(pmean[..., :4]), det_xyxy, conf)
+        iou, cost1 = fused_iou_cost(xyah2xyxy(pmean[..., :4]), det_xyxy, conf, eps=IOU_BATCH_EPS)
     capped = state.lap_capped.clone()
 
     # pass 1: high-conf dets vs pool, fused-score cost
@@ -249,7 +250,7 @@ def bytetrack_step(cfg: ByteTrackConfig, state: ByteTrackState, dets: torch.Tens
         pair_iou = rotated_iou(out_box, out_box, corners, corners)
     else:
         out_box = xyah2xyxy(new_mean[..., :4])
-        pair_iou, _ = fused_iou_cost(out_box, out_box)
+        pair_iou, _ = fused_iou_cost(out_box, out_box, eps=IOU_BATCH_EPS)
     a_mask = status == TRACKED
     b_mask = status == LOST
     close = (1.0 - pair_iou) < 0.15

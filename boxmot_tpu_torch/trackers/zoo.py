@@ -1,8 +1,8 @@
 """Tracker registry (counterpart of boxmot_tpu/trackers/zoo.py).
 
-ByteTrack and SFSORT are ported, each for axis-aligned and oriented
-boxes; every other tracker name raises and names the ROADMAP slice that
-brings it.  Config resolution order, as in the JAX
+ByteTrack, SFSORT and OC-SORT are ported, each for axis-aligned and
+oriented boxes; every other tracker name raises and names the ROADMAP slice
+that brings it.  Config resolution order, as in the JAX
 zoo: built-in defaults < per-tracker config dict < kwargs.
 """
 
@@ -12,7 +12,6 @@ from boxmot_tpu_torch.configs import get_tracker_defaults
 
 # trackers of the JAX zoo that the port does not run yet -> ROADMAP Queue A slice
 NOT_PORTED = {
-    "ocsort": "Slice 3",
     "botsort": "Slice 4",
     "occluboost": "Slice 4",
     "deepocsort": "Slice 4",
@@ -23,7 +22,7 @@ NOT_PORTED = {
 }
 
 
-PORTED = ("bytetrack", "sfsort")
+PORTED = ("bytetrack", "sfsort", "ocsort")
 
 
 def check_ported(name: str) -> None:
@@ -44,6 +43,7 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
     the card unless the caller asks for the CPU."""
     check_ported(tracker_type)
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrack
+    from boxmot_tpu_torch.trackers.ocsort import OcSort
     from boxmot_tpu_torch.trackers.sfsort import SFSORT
 
     params = get_tracker_defaults(tracker_type) if tracker_config is None else dict(tracker_config)
@@ -51,4 +51,5 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
         params.update(evolve_param_dict)
     params.update(kwargs)
     params["per_class"] = per_class
-    return {"bytetrack": ByteTrack, "sfsort": SFSORT}[tracker_type](device=device, **params)
+    classes = {"bytetrack": ByteTrack, "sfsort": SFSORT, "ocsort": OcSort}
+    return classes[tracker_type](device=device, **params)

@@ -5,35 +5,43 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device report: torch's card name and nvidia-smi's name and power limit;
-  2. build the three hand-written kernels from csrc/, one nvcc each, in
+  2. build the four hand-written kernels from csrc/, one nvcc each, in
      parallel;
   3. each kernel against its plain PyTorch twin on the card, at the main
      paths' shapes and at ragged / tie-heavy / masked / degenerate ones: K1
-     in both of its modes (IoU + cost, IoU only), K2 on both of its paths (w
+     in both of its modes (IoU + cost, IoU only) and with both union clamps
+     (the TPU kernel's 1e-9, iou_batch's 1e-12), K2 on both of its paths (w
      in shared memory, cost read from global memory), K3 also on crossed
-     quadrilaterals that overflow its fast path; the launch floor, an empty
-     kernel's device time through K1's ctypes path on one block and on K1's
-     grids, on a line of its own;
+     quadrilaterals that overflow its fast path, K4 (the ORU) against its
+     twin on the CPU, AABB and OBB, where every slot rejoins with gaps 2-31,
+     on a ragged S with gaps past MAX_ORU, and on a recorded OC-SORT step;
+     the launch floor, an empty kernel's device time through K1's ctypes
+     path on one block and on K1's grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
      device time per launch (torch.profiler), its wrapper's time (CUDA
      events around one call), its twin's, and its bound counted from the
      work those inputs need; the OBB Kalman bank's bits on the card against
      the CPU;
-  4. AABB evals: run_eval for ByteTrack and SFSORT on MOT17-mini and
-     synth-long, held to the pinned HOTA/MOTA/IDF1, with their MOT rows
+  4. AABB evals: run_eval for ByteTrack, SFSORT and OC-SORT on MOT17-mini
+     and synth-long, held to the pinned HOTA/MOTA/IDF1, with their MOT rows
      held against the same evals on the CPU;
-  5. OBB evals: run_eval_obb for ByteTrack and SFSORT on mmot-mini, held to
-     the JAX package's values, with their tracks held against the CPU's;
-  6. the live API: 50 frames of MOT17-04-FRCNN, the mmot-mini frames as
-     (N, 7) detections, and frames of 300 detections, each against the same
-     tracker on the CPU;
-  7. replay throughput, AABB and OBB, at the bench shape (8 sequences x 256
-     frames x 100 detections, D = 128, capacity 256), timed with CUDA events.
+  5. OBB evals: run_eval_obb for ByteTrack, SFSORT and OC-SORT on mmot-mini,
+     held to the JAX package's values, with their tracks held against the
+     CPU's;
+  6. the live API: 50 frames of MOT17-04-FRCNN (ByteTrack, OC-SORT), the
+     mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT, OC-SORT), and
+     frames of 300 detections, each against the same tracker on the CPU;
+  7. replay throughput at the bench shape (8 sequences x 256 frames x 100
+     detections, D = 128, capacity 256), timed with CUDA events: ByteTrack
+     AABB and OBB, and OC-SORT AABB with 5 % of the detections missed each
+     frame (so that the ORU runs), with the slots K4 replayed; and a profile
+     of 16 OC-SORT steps (kernels, device busy and host ms per step).
 Every path of phases 4-7 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack: 2 IoU launches to 3 auctions; SFSORT: 1 rotated IoU to 2
-auctions in OBB mode) the counts must keep that ratio, so no step fell back
+auctions in OBB mode; OC-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 2
+auctions to 1 ORU) the counts must keep that ratio, so no step fell back
 to a twin.  The line before the last is {"kernels": [...]}, with each
 kernel's launches summed over those paths; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero before
@@ -67,6 +75,7 @@ from boxmot_tpu_torch.engine.replay import (
 )
 from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.ops.fused_iou_cost import (
+    IOU_BATCH_EPS,
     empty_launch,
     fused_iou_cost,
     fused_iou_cost_plain,
@@ -74,9 +83,11 @@ from boxmot_tpu_torch.ops.fused_iou_cost import (
 )
 from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
+from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from boxmot_tpu_torch.trackers import bytetrack
+from boxmot_tpu_torch.trackers import bytetrack, ocsort
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.utils import measure
 
 ROOT = Path(__file__).resolve().parent
@@ -84,18 +95,31 @@ ASSETS = ROOT / "assets"
 ROOTS = {"mot17_mini": ASSETS / "MOT17-mini" / "train", "synth_long": ASSETS / "synth-long" / "train"}
 MMOT_ROOT = ASSETS / "mmot-mini" / "train"
 LIVE_SEQ = ROOTS["mot17_mini"] / "MOT17-04-FRCNN"
-# the ByteTrack and SFSORT pins of tests/test_pinned_metrics.py (a CPU test holds them equal)
+# the ByteTrack, SFSORT and OC-SORT pins of tests/test_pinned_metrics.py (a CPU
+# test holds them equal)
 PINNED = {
     ("mot17_mini", "bytetrack"): {"HOTA": 0.649859, "MOTA": 0.495283, "IDF1": 0.662461},
+    ("mot17_mini", "ocsort"): {"HOTA": 0.651511, "MOTA": 0.488208, "IDF1": 0.656101},
     ("mot17_mini", "sfsort"): {"HOTA": 0.654495, "MOTA": 0.497642, "IDF1": 0.664567},
     ("synth_long", "bytetrack"): {"HOTA": 0.952785, "MOTA": 0.996300, "IDF1": 0.968698},
+    ("synth_long", "ocsort"): {"HOTA": 0.885979, "MOTA": 0.933777, "IDF1": 0.935373},
     ("synth_long", "sfsort"): {"HOTA": 0.898791, "MOTA": 0.980762, "IDF1": 0.916468},
 }
 # the JAX package's run_eval_obb on mmot-mini (a CPU test holds them equal)
 OBB_EVAL = {
     "bytetrack": {"HOTA": 0.604123, "MOTA": 0.662654, "IDF1": 0.671799},
     "sfsort": {"HOTA": 0.898815, "MOTA": 0.942670, "IDF1": 0.924151},
+    "ocsort": {"HOTA": 0.734300, "MOTA": 0.701753, "IDF1": 0.749516},
 }
+# launches per step of each tracker's kernels, axis-aligned and oriented
+RATIOS = {
+    "bytetrack": ({"fused_iou_cost": 2, "masked_assignment": 3},
+                  {"rotated_iou": 2, "masked_assignment": 3}),
+    "sfsort": ({"masked_assignment": 2}, {"rotated_iou": 1, "masked_assignment": 2}),
+    "ocsort": ({"fused_iou_cost": 2, "masked_assignment": 2, "oru_replay": 1},
+               {"rotated_iou": 2, "masked_assignment": 2, "oru_replay": 1}),
+}
+MISS = 0.05  # the OC-SORT bench line's share of detections missed each frame
 ATOL = 1e-4
 # the port evaluates cos/sin/log/sqrt in float64 and rounds once, so a cuda
 # run and a CPU run agree to the bit unless a float64 result lands within an
@@ -110,6 +134,7 @@ KERNELS = {  # counter name -> (wrapper, source, the TPU kernel or JAX function 
     "fused_iou_cost": (fused_iou_cost, "iou_cost", "boxmot_tpu/ops/pallas_kernels.py:59"),
     "masked_assignment": (masked_assignment, "auction", "boxmot_tpu/ops/lap.py:37"),
     "rotated_iou": (rotated_iou, "rotated_iou", "boxmot_tpu/ops/pallas_rotated_iou.py:136"),
+    "oru_replay": (oru_replay, "oru", "boxmot_tpu/trackers/ocsort.py:310"),
 }
 LAUNCHES = {name: 0 for name in KERNELS}  # summed over the driven paths
 
@@ -127,6 +152,14 @@ def synthetic_frames(n_frames, n_dets, seed=0):
         frames.append(np.concatenate(
             [p, p + size, conf[:, None], np.zeros((n_dets, 1))], axis=1).astype(np.float32))
     return frames
+
+
+def synthetic_frames_missed(n_frames, n_dets, seed=0, miss=MISS):
+    """``synthetic_frames`` with a share ``miss`` of the boxes dropped in each
+    frame (drawn from a second generator), so that tracks miss frames and
+    rejoin: OC-SORT's OCR pass and its ORU then run."""
+    rng = np.random.default_rng(seed + 1_000_003)
+    return [f[rng.uniform(size=len(f)) >= miss] for f in synthetic_frames(n_frames, n_dets, seed)]
 
 
 def synthetic_obb_frames(n_frames, n_dets, seed=0, miss=0.05):
@@ -149,6 +182,48 @@ def synthetic_obb_frames(n_frames, n_dets, seed=0, miss=0.05):
         frames.append(np.concatenate([p, size, th[:, None], conf[:, None],
                                       np.zeros((n_dets, 1))], axis=1)[keep].astype(np.float32))
     return frames
+
+
+def oru_inputs(rng, S, K, obb, p_rejoin=1.0, gap_max=31):
+    """Inputs of the ORU (kernel K4) for S x K slots, made with the port's
+    XYSR Kalman bank on the CPU: tracks initiated and updated four times
+    (the frozen state and the last measurement), then predicted through gaps
+    of 2 .. gap_max frames (the current state), and a new measurement where
+    the motion has carried each box (for oriented boxes with a turned
+    angle, a fifth of them with r inverted, aligned to the predicted mean).
+    A share ``p_rejoin`` of the slots rejoins.  Returns (layout, [mean, cov,
+    frozen_mean, frozen_cov, last_meas, z2], rejoin, gap), on the CPU."""
+    layout = kalman.make_xysr_layout(obb, 0.01, 1e-4, 1e-4)
+    w, h = rng.uniform(20, 200, (S, K)), rng.uniform(20, 200, (S, K))
+    cols = [rng.uniform(0, 1800, (S, K)), rng.uniform(0, 1000, (S, K)), w * h, w / h]
+    if obb:
+        cols.append(rng.uniform(-np.pi, np.pi, (S, K)))
+    z = torch.from_numpy(np.stack(cols, -1).astype(np.float32))
+    mean, cov = kalman.initiate(layout, z)
+    every = torch.ones((S, K), dtype=torch.bool)
+    vel = torch.from_numpy(rng.normal(0, 3, (S, K, 2)).astype(np.float32))
+    for _ in range(4):
+        mean, cov = kalman.predict(layout, mean, cov, every)
+        z = z.clone()
+        z[..., :2] += vel
+        z[..., 2] *= torch.from_numpy(rng.uniform(0.97, 1.03, (S, K)).astype(np.float32))
+        if obb:
+            z[..., 4] += torch.from_numpy(rng.normal(0, 0.02, (S, K)).astype(np.float32))
+            z = kalman.align_obb_xysr(z, mean[..., :5])
+        mean, cov = kalman.update(layout, mean, cov, z, every)
+    frozen_mean, frozen_cov, last_meas = mean, cov, z
+    gap = torch.from_numpy(rng.integers(2, gap_max + 1, (S, K)).astype(np.int32))
+    for i in range(int(gap.max())):
+        mean, cov = kalman.predict(layout, mean, cov, i < gap)
+    z2 = last_meas.clone()
+    z2[..., :2] += vel * gap[..., None].to(torch.float32)
+    if obb:
+        z2[..., 4] += torch.from_numpy(rng.normal(0, 0.3, (S, K)).astype(np.float32))
+        z2[:, ::5, 3] = 1.0 / z2[:, ::5, 3]
+        z2 = kalman.align_obb_xysr(z2, mean[..., :5])
+    rejoin = torch.from_numpy(rng.uniform(size=(S, K)) < p_rejoin)
+    tensors = [t.contiguous() for t in (mean, cov, frozen_mean, frozen_cov, last_meas, z2)]
+    return layout, tensors, rejoin, gap
 
 
 def _boxes(rng, S, n):
@@ -180,39 +255,63 @@ def _offset_copy(t):
     return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
 
 
+def _tiny_boxes(S, K, D):
+    """Boxes of 1e-5 px, whose unions lie below the TPU kernel's 1e-9 clamp:
+    there the two clamps give other IoUs."""
+    trk = np.tile(np.array([0, 0, 1e-5, 1e-5], np.float32), (S, K, 1))
+    det = np.tile(np.array([0, 0, 2e-5, 1e-5], np.float32), (S, D, 1))
+    det[:, ::2] = [0, 0, 1e-5, 1e-5]
+    return trk, det
+
+
 def check_k1(rng, step_calls):
     """K1 bit-equal to its twin in both modes (with conf: IoU and cost;
-    without: the IoU alone) at the step's shapes, a live frame's 512
-    detections and two shapes that take the scalar path (D % 4 != 0), and
-    with confidences that are not 16-byte aligned; the launch floor (an
-    empty kernel through the same ctypes path, on one block and on K1's
-    grids); then each of the bench step's two launches timed in its own
-    mode."""
+    without: the IoU alone) and with both union clamps (the TPU kernel's
+    default, iou_batch's that the tracker steps pass) at the step's shapes,
+    a live frame's 512 detections and two shapes that take the scalar path
+    (D % 4 != 0), with confidences that are not 16-byte aligned, and on
+    boxes whose unions lie below 1e-9; the launch floor (an empty kernel
+    through the same ctypes path, on one block and on K1's grids); then
+    each of the bench step's two launches timed in its own mode."""
+    cases = []
     for S, K, D in K1_SHAPES:
         trk = _boxes(rng, S, K)
         det = _boxes(rng, S, D)
         det[:, : D // 2] = trk[:, :1] + rng.uniform(-30, 30, (S, D // 2, 4))
+        cases.append(("", trk, det))
+    cases.append((", tiny boxes", *_tiny_boxes(2, 8, 12)))
+    for tag, trk, det in cases:
+        S, K, D = trk.shape[0], trk.shape[1], det.shape[1]
         conf = rng.uniform(0.05, 1.0, (S, D)).astype(np.float32)
         full = [torch.from_numpy(a).cuda() for a in (trk, det, conf)]
-        for mode, args in (("iou+cost", full), ("iou-only", full[:2]),
-                           ("iou+cost, conf 4 bytes off", full[:2] + [_offset_copy(full[2])])):
-            got, want = fused_iou_cost(*args), fused_iou_cost_plain(*args)
-            torch.cuda.synchronize()
-            same = [g is w or torch.equal(g, w) for g, w in zip(got, want)]
-            if not all(same):
-                raise AssertionError(f"K1 {mode} at S={S} K={K} D={D}: not bit-equal to the "
-                                     f"twin (iou {same[0]}, cost {same[1]})")
-            print(f"K1 {mode} S={S} K={K} D={D}: bit-equal to the twin")
+        for clamp, kw in (("clamp 1e-9", {}), ("clamp 1e-12", {"eps": IOU_BATCH_EPS})):
+            for mode, args in (("iou+cost", full), ("iou-only", full[:2]),
+                               ("iou+cost, conf 4 bytes off", full[:2] + [_offset_copy(full[2])])):
+                got, want = fused_iou_cost(*args, **kw), fused_iou_cost_plain(*args, **kw)
+                torch.cuda.synchronize()
+                same = [g is w or torch.equal(g, w) for g, w in zip(got, want)]
+                if not all(same):
+                    raise AssertionError(f"K1 {mode}{tag}, {clamp} at S={S} K={K} D={D}: not "
+                                         f"bit-equal to the twin (iou {same[0]}, cost {same[1]})")
+            print(f"K1 iou+cost, iou-only, offset conf{tag}, {clamp}, S={S} K={K} D={D}: "
+                  f"bit-equal to the twin")
+    tiny = [torch.from_numpy(a).cuda() for a in cases[-1][1:]]
+    wide, narrow = (fused_iou_cost(*tiny, eps=e)[0][0, 0, :2].tolist()
+                    for e in (1e-9, IOU_BATCH_EPS))
+    print(f"K1 on 1e-5 px boxes, the first two IoUs: clamp 1e-9 {wide}, clamp 1e-12 {narrow} "
+          f"(iou_batch's)")
+    if narrow[0] != 1.0 or wide == narrow:
+        raise AssertionError("K1's union clamp does not act as the argument says")
     # the AABB bench step's own inputs (its two launches, each in its mode)
     calls = []
-    for args, _ in step_calls["aabb"]["fused_iou_cost"]:
+    for args, kwargs in step_calls["aabb"]["fused_iou_cost"]:
         if len(args) == 2 and torch.equal(*args):
             args = [args[0], args[0]]  # the step passes one box tensor twice
-        calls.append((list(args) + [None])[:3])
+        calls.append(((list(args) + [None])[:3], kwargs))
     card = torch.device("cuda")
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     grids = [(1, 32)]
-    for trk, det, _ in calls:
+    for (trk, det, _), _ in calls:
         g = launch_geometry(trk.shape[0], trk.shape[1], det.shape[1], sms)
         grids.append((trk.shape[0] * g.row_blocks, g.quads * g.lanes))
     floors = {(b, t): measure.device_ms(lambda: empty_launch(card, b, t), "empty_kernel")
@@ -220,12 +319,13 @@ def check_k1(rng, step_calls):
     print("launch floor (an empty kernel through K1's ctypes path, device ms a launch): " +
           ", ".join(f"{b} x {t} threads {ms:.5f}" for (b, t), ms in floors.items()))
     rows = []
-    for trk, det, conf in calls:
+    for (trk, det, conf), kw in calls:
         args = [trk, det] if conf is None else [trk, det, conf]
         S, K, D = trk.shape[0], trk.shape[1], det.shape[1]
-        row = (measure.device_ms(lambda: fused_iou_cost(*args), "iou_cost_kernel"),
-               measure.event_ms(lambda: fused_iou_cost(*args)),
-               measure.event_ms(lambda: fused_iou_cost_plain(*args)), *k1_bound(trk, det, conf))
+        row = (measure.device_ms(lambda: fused_iou_cost(*args, **kw), "iou_cost_kernel"),
+               measure.event_ms(lambda: fused_iou_cost(*args, **kw)),
+               measure.event_ms(lambda: fused_iou_cost_plain(*args, **kw)),
+               *k1_bound(trk, det, conf))
         print(f"K1 bench step {'iou-only' if conf is None else 'iou+cost'} (S, K, D) = "
               f"{(S, K, D)}: device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
               f"{row[2]:.5f} ms, bound {row[3]:.5f} ms ({row[4]})")
@@ -459,25 +559,130 @@ def check_k3(rng, step_calls):
 
 def bench_step_calls():
     """The arguments of every kernel launch of one steady bench step (frame
-    64 of 256), AABB and OBB ByteTrack at the bench shape, recorded so that
-    phase 3 times each kernel on the inputs the main path gives it."""
+    64 of 256), AABB and OBB ByteTrack at the bench shape, and of the ORU
+    launch of an OC-SORT AABB bench step (with MISS of the detections
+    missed), recorded so that phase 3 times each kernel on the inputs the
+    main path gives it."""
     calls = {}
-    for label, cfg, frames_fn, cols, names in (
-            ("aabb", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6,
+    for label, cfg, frames_fn, cols, module, names in (
+            ("aabb", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, bytetrack,
              ("fused_iou_cost", "masked_assignment")),
             ("obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
-             lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7,
-             ("rotated_iou", "masked_assignment"))):
+             lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, bytetrack,
+             ("rotated_iou", "masked_assignment")),
+            ("ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, ocsort,
+             ("oru_replay",))):
         packed = [pack_frames(frames_fn(65, N_DETS, seed=100 + s), D=D_BENCH, F=65,
                               det_cols=cols)[0] for s in range(N_SEQS)]
         batch = torch.from_numpy(np.stack(packed)).cuda()
         states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64])
-        with measure.record_calls(bytetrack, names) as rec:
+        with measure.record_calls(module, names) as rec:
             batch_replay(cfg, states, batch[:, 64:])
         calls[label] = rec
         print(f"bench step {label}: " + ", ".join(
-            f"{n} x {len(v)} {[tuple(a[0].shape) for a, _ in v]}" for n, v in rec.items()))
+            f"{n} x {len(v)} {[tuple(next(x for x in a if torch.is_tensor(x)).shape) for a, _ in v]}"
+            for n, v in rec.items()))
     return calls
+
+
+def _k4_same(label, layout, tensors, rejoin, gap):
+    """K4 on the card against its twin on the CPU, the same inputs: mean,
+    covariance and the replayed count bit-equal.  Returns the number of
+    rejoining slots."""
+    S = rejoin.shape[0]
+    card = [t.cuda() for t in (*tensors, rejoin, gap)]
+    replayed = [torch.zeros(S, dtype=torch.int32, device=d) for d in ("cuda", "cpu")]
+    got = oru_replay(layout, *card, replayed[0])
+    want = oru_replay_plain(layout, *(t.cpu() for t in (*tensors, rejoin, gap)), replayed[1])
+    torch.cuda.synchronize()
+    same = [torch.equal(g.cpu(), w) for g, w in zip((*got, replayed[0]), (*want, replayed[1]))]
+    n = int(rejoin.sum())
+    if not all(same):
+        bad = (got[0].cpu() != want[0]).any(-1) | (got[1].cpu() != want[1]).flatten(2).any(-1)
+        raise AssertionError(f"K4 {label}: not bit-equal to the twin (mean {same[0]}, cov "
+                             f"{same[1]}, replayed {same[2]}; {int(bad.sum())} of {n} slots)")
+    gaps = f"{int(gap[rejoin].min())}-{int(gap[rejoin].max())}" if n else "none"
+    print(f"K4 {label} (S, K) = {tuple(rejoin.shape)}: bit-equal to the twin on the CPU, {n} "
+          f"slots rejoin, gaps {gaps}")
+    return n
+
+
+def _k4_predict_ops(dx):
+    """Operations of one XYSR predict as K4 does them: an add per position
+    with a velocity for the mean and per such row and column of F P F^T,
+    the noise's dx * dx adds (an exact zero off the diagonal) and the clamps
+    of s and r."""
+    vel = 3 if dx == 7 else 4
+    return vel + 2 * vel * dx + dx * dx + 2
+
+
+def _k4_update_ops(dx, dz):
+    """Operations of one interpolated measurement and masked Joseph-form
+    update as K4 does them (a sum over an index counts each product and add,
+    exact zeros included)."""
+    ops = dz * dz  # the innovation covariance
+    ops += sum(2 * j + 1 for i in range(dz) for j in range(i + 1))  # Cholesky
+    ops += sum(1 + sum(2 * (i - j) + 1 for j in range(i)) for i in range(dz))  # its inverse
+    ops += dz * dz * (2 * dz - 1) + dx * dz * (2 * dz - 1)  # Sinv = M^T M, the gain
+    ops += dz + dx * (2 * dz - 1) + dx + 2  # innovation, delta, mean, clamps
+    ops += dx * dz + 2 * dx * dx * (2 * dx - 1)  # I - K H, (I - K H) P (I - K H)^T
+    ops += dx * dz + dx * dx * (2 * dz - 1) + dx * dx  # K R K^T, added
+    ops += 14  # the interpolated x, y, w, h, s and r
+    if dz == 5:
+        ops += 6 + 4 * 12 + 3 + 1  # the angle, the four candidates, the pick, the damping
+    return ops
+
+
+def k4_bound(layout, rejoin, gap):
+    """K4's least time for these inputs, counted from the rejoining slots
+    alone (a slot that does not rejoin keeps its mean and covariance): each
+    reads its frozen mean and covariance, its last and new measurements, its
+    gap and flag and writes its mean and covariance; its operations are
+    those of its min(gap, MAX_ORU) updates and the predicts between them."""
+    dx, dz = layout.dx, layout.dz
+    n = torch.clamp(torch.where(rejoin, gap, 0), max=MAX_ORU).cpu().to(torch.int64)
+    slots, updates = int(rejoin.sum()), int(n.sum())
+    n_bytes = slots * (4 * (2 * (dx + dx * dx) + 2 * dz + 1) + 1)
+    return measure.bound_ms(n_bytes, updates * _k4_update_ops(dx, dz)
+                            + (updates - slots) * _k4_predict_ops(dx))
+
+
+def check_k4(rng, step_calls):
+    """K4 (the ORU) bit-equal to its twin run on the CPU, AABB and OBB: at the
+    bench's S x K where every slot rejoins with gaps 2-31, on a ragged S
+    with half the slots rejoining and gaps up to 40 (past MAX_ORU), and on a
+    recorded OC-SORT bench step; then the kernel timed on that step's
+    inputs, and on the all-rejoin AABB set, beside its wrapper, the plain
+    version (the same twin, run on the card) and the bound."""
+    sets = {}
+    for obb in (False, True):
+        kind = "OBB" if obb else "AABB"
+        for label, args in ((f"{kind} all rejoin", (N_SEQS, CAPACITY, obb)),
+                            (f"{kind} ragged", (3, 77, obb, 0.5, 40))):
+            layout, tensors, rejoin, gap = oru_inputs(rng, *args)
+            _k4_same(label, layout, tensors, rejoin, gap)
+            sets[label] = (layout, [t.cuda() for t in (*tensors, rejoin, gap)])
+    rows = []
+    for i, (args, _) in enumerate(step_calls["ocsort"]["oru_replay"]):
+        layout, tensors, rejoin, gap = args[0], args[1:7], args[7], args[8]
+        _k4_same(f"OC-SORT bench step {i}", layout, [t.cpu() for t in tensors], rejoin.cpu(),
+                 gap.cpu())
+        sets[f"OC-SORT bench step {i}"] = (layout, list(args[1:9]))
+    timed = [k for k in sets if k.startswith("OC-SORT")][:1] + ["AABB all rejoin", "OBB all rejoin"]
+    for label in timed:
+        layout, card = sets[label]
+        S = card[-2].shape[0]
+        replayed = torch.zeros(S, dtype=torch.int32, device="cuda")
+        row = (measure.device_ms(lambda: oru_replay(layout, *card, replayed), "oru_kernel"),
+               measure.event_ms(lambda: oru_replay(layout, *card, replayed)),
+               measure.event_ms(lambda: oru_replay_plain(layout, *card, replayed), reps=5,
+                                warmup=1), *k4_bound(layout, card[-2], card[-1]))
+        print(f"K4 {label}: device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
+              f"{row[2]:.4f} ms (on the card), bound {row[3]:.6f} ms ({row[4]}), "
+              f"{int(card[-2].sum())} slots rejoin")
+        if label.startswith("OC-SORT"):
+            rows.append(row)
+    return timing(0.0, rows)
 
 
 def check_kalman_obb(rng):
@@ -544,16 +749,14 @@ def check_sync_mode_is_live():
 
 
 def run_aabb_evals():
-    """Phase 4: run_eval for ByteTrack and SFSORT on both fixtures."""
-    ratios = {"bytetrack": {"fused_iou_cost": 2, "masked_assignment": 3},
-              "sfsort": {"masked_assignment": 2}}
+    """Phase 4: run_eval for ByteTrack, SFSORT and OC-SORT on both fixtures."""
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         for (name, tracker), want in sorted(PINNED.items()):
             t0 = time.perf_counter()
             res = drive(f"run_eval {tracker} {name}", lambda: boxmot_tpu_torch.run_eval(
                 ROOTS[name], tracker, device="cuda", output_dir=out / "cuda" / tracker / name),
-                ratios[tracker])
+                RATIOS[tracker][0])
             seconds = time.perf_counter() - t0
             got = {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
             print(f"eval {tracker} {name} on cuda: {got} in {seconds:.3f} s (pins {want})")
@@ -579,16 +782,14 @@ def run_aabb_evals():
 
 
 def run_obb_evals():
-    """Phase 5: run_eval_obb for ByteTrack and SFSORT on mmot-mini."""
-    ratios = {"bytetrack": {"rotated_iou": 2, "masked_assignment": 3},
-              "sfsort": {"rotated_iou": 1, "masked_assignment": 2}}
+    """Phase 5: run_eval_obb for ByteTrack, SFSORT and OC-SORT on mmot-mini."""
     dets = mmot_obb_dets(MMOT_ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         for tracker, want in OBB_EVAL.items():
             out = {d: Path(tmp) / tracker / d for d in ("cuda", "cpu")}
             t0 = time.perf_counter()
             res = drive(f"run_eval_obb {tracker}", lambda: boxmot_tpu_torch.run_eval_obb(
-                MMOT_ROOT, tracker, device="cuda", output_dir=out["cuda"]), ratios[tracker])
+                MMOT_ROOT, tracker, device="cuda", output_dir=out["cuda"]), RATIOS[tracker][1])
             seconds = time.perf_counter() - t0
             got = {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
             print(f"eval_obb {tracker} mmot-mini on cuda: {got} in {seconds:.3f} s (JAX {want})")
@@ -636,10 +837,10 @@ def _live_frames(n_frames):
     return frames, img
 
 
-def run_live():
+def run_live(tracker):
     """Phase 6a: live update on cuda against the same tracker on the cpu."""
     frames, img = _live_frames(50)
-    trackers = {d: boxmot_tpu_torch.create_tracker("bytetrack", device=d) for d in ("cuda", "cpu")}
+    trackers = {d: boxmot_tpu_torch.create_tracker(tracker, device=d) for d in ("cuda", "cpu")}
     n_rows, worst, update_ms = 0, 0.0, []
     for f, dets in enumerate(frames, start=1):
         t0 = time.perf_counter()
@@ -657,7 +858,7 @@ def run_live():
         n_rows += len(g)
     if n_rows == 0:
         raise AssertionError("live API: no track was emitted in 50 frames")
-    print(f"live API, 50 frames of {LIVE_SEQ.name}: {n_rows} rows equal to cpu "
+    print(f"live {tracker}, 50 frames of {LIVE_SEQ.name}: {n_rows} rows equal to cpu "
           f"(ids, det_ind, cls, conf exact; max box diff {worst:.3g} px); cuda update "
           f"median {statistics.median(update_ms[1:]):.3f} ms/frame (host clock, frames 2-50)")
 
@@ -700,13 +901,14 @@ def run_live_crowded():
 
 def _bench(label, cfg, frames_fn, det_cols, card, launches=6):
     """frames/s of batch_replay at the bench shape; a distinct seeded input
-    per launch, the first launch a warm-up."""
+    per launch, the first launch a warm-up.  Returns the last launch's
+    input."""
     batches = []
     for v in range(launches):
         packed = [pack_frames(frames_fn(N_FRAMES, N_DETS, seed=v * N_SEQS + s), D=D_BENCH,
                               F=N_FRAMES, det_cols=det_cols)[0] for s in range(N_SEQS)]
         batches.append(torch.from_numpy(np.stack(packed)).cuda())
-    ms, capped = [], 0
+    ms, capped, replayed = [], 0, []
     for i, b in enumerate(batches):
         states = init_states(cfg, N_SEQS, "cuda")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -717,25 +919,59 @@ def _bench(label, cfg, frames_fn, det_cols, card, launches=6):
         if not torch.isfinite(outs[masks]).all():
             raise AssertionError(f"{label} bench replay: non-finite output")
         capped += int(states.lap_capped.sum())
+        if hasattr(states, "oru_replayed"):  # summed on the device, read once after the replay
+            replayed.append(int(states.oru_replayed.sum()))
         if i:
             ms.append(start.elapsed_time(end))
     fps = N_SEQS * N_FRAMES / (statistics.median(ms) / 1e3)
     line = {"metric": f"{label}_replay_fps_{N_DETS}dets", "value": fps, "unit": "frames/s",
             "shape": [N_SEQS, N_FRAMES, N_DETS, D_BENCH, CAPACITY], "launch_ms": ms,
             "lap_capped": capped, "card": card}
+    if replayed:
+        line["oru_slots_replayed"] = replayed
     print(json.dumps(line))
-    return fps
+    if capped:
+        raise AssertionError(f"{label} bench: {capped} auction(s) stopped at the iteration cap")
+    return batches[-1]
+
+
+def profile_ocsort_step(card, batch):
+    """Kernels, device busy ms and host ms per OC-SORT AABB step at the
+    bench shape: 16 steady steps (frames 64-79) under torch.profiler, host
+    ms from the same 16 steps again without it (host clock, ending in a
+    synchronize); the idle share is 1 - busy / host ms."""
+    cfg = OcSortConfig(capacity=CAPACITY)
+    states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64])
+    prof = measure.profile_steps(lambda: batch_replay(cfg, states, batch[:, 64:80]), 16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_replay(cfg, states, batch[:, 64:80])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 16
+    top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][1])[:8]
+    line = {"metric": "ocsort_step_profile", "kernels_per_step": prof["kernels_per_step"],
+            "busy_ms_per_step": prof["busy_ms_per_step"], "host_ms_per_step": host_ms,
+            "idle_share": 1.0 - prof["busy_ms_per_step"] / host_ms,
+            "top_kernels_ms_per_step": {k[:60]: v[1] for k, v in top},
+            "oru_kernel_ms_per_step": sum(v[1] for k, v in prof["by_kernel"].items()
+                                          if "oru_kernel" in k), "card": card}
+    print(json.dumps(line))
 
 
 def run_throughput(card):
-    """Phase 7: the AABB and OBB ByteTrack bench lines."""
+    """Phase 7: the AABB and OBB ByteTrack bench lines, the OC-SORT AABB
+    line with MISS of the detections missed, and the OC-SORT step profile."""
     drive("bench bytetrack AABB", lambda: _bench(
         "bytetrack", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, card),
-        {"fused_iou_cost": 2, "masked_assignment": 3}, sync_free=False)
+        RATIOS["bytetrack"][0], sync_free=False)
     drive("bench bytetrack OBB", lambda: _bench(
         "bytetrack_obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
         lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, card, launches=4),
-        {"rotated_iou": 2, "masked_assignment": 3}, sync_free=False)
+        RATIOS["bytetrack"][1], sync_free=False)
+    batch = drive("bench ocsort AABB", lambda: _bench(
+        "ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, card, launches=4),
+        RATIOS["ocsort"][0], sync_free=False)
+    profile_ocsort_step(card, batch)
 
 
 def build_kernels():
@@ -767,20 +1003,22 @@ def main() -> int:
     step_calls = bench_step_calls()
     checks = {"fused_iou_cost": check_k1(rng, step_calls),
               "masked_assignment": check_k2(rng, step_calls),
-              "rotated_iou": check_k3(rng, step_calls)}
+              "rotated_iou": check_k3(rng, step_calls),
+              "oru_replay": check_k4(rng, step_calls)}
     del step_calls
     check_kalman_obb(rng)
 
     check_sync_mode_is_live()
     run_aabb_evals()
     run_obb_evals()
-    live = {"fused_iou_cost": 2, "masked_assignment": 3}
-    drive("live bytetrack AABB", run_live, live, sync_free=False)
-    drive("live bytetrack OBB", lambda: run_live_obb("bytetrack"),
-          {"rotated_iou": 2, "masked_assignment": 3}, sync_free=False)
-    drive("live sfsort OBB", lambda: run_live_obb("sfsort"),
-          {"rotated_iou": 1, "masked_assignment": 2}, sync_free=False)
-    drive("live bytetrack 300 detections", run_live_crowded, live, sync_free=False)
+    for tracker in ("bytetrack", "ocsort"):
+        drive(f"live {tracker} AABB", lambda: run_live(tracker), RATIOS[tracker][0],
+              sync_free=False)
+    for tracker in ("bytetrack", "sfsort", "ocsort"):
+        drive(f"live {tracker} OBB", lambda: run_live_obb(tracker), RATIOS[tracker][1],
+              sync_free=False)
+    drive("live bytetrack 300 detections", run_live_crowded, RATIOS["bytetrack"][0],
+          sync_free=False)
     run_throughput(smi)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -788,7 +1026,7 @@ def main() -> int:
     for name, c in checks.items():
         print(f"wrapper ms {name}: {c['wrapper_ms']:.5f} (CUDA events around one call of the "
               f"wrapper, host work included)")
-    # library_ms: no single PyTorch call computes any of the three functions
+    # library_ms: no single PyTorch call computes any of the four functions
     kernels = [
         {"name": name, "route": "cuda", "source": f"boxmot_tpu_torch/csrc/{src}.cu",
          "replaces": replaces, "launches": LAUNCHES[name],

@@ -162,8 +162,8 @@ def test_live_update_equals_jax(per_class):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(ValueError, match="Slice 3"):
-        create_tracker("ocsort", device="cpu")
+    with pytest.raises(ValueError, match="Slice 4"):
+        create_tracker("botsort", device="cpu")
     with pytest.raises(ValueError, match="Slice 4"):
         create_tracker("occluboost", device="cpu")
     with pytest.raises(ValueError, match="Unknown tracker"):
@@ -209,7 +209,9 @@ def test_live_frames_of_300_detections_equal_jax():
 
 def test_aabb_step_runs_k1_in_full_then_iou_only_mode():
     """The AABB step calls K1 twice: the association with the confidences
-    (IoU and cost), the duplicate suppression in the IoU-only mode."""
+    (IoU and cost), the duplicate suppression in the IoU-only mode; both
+    with ``iou_batch``'s union clamp, as the JAX step."""
+    from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS
     from boxmot_tpu_torch.utils.measure import record_calls
 
     frames = _public_frames(ASSETS / "MOT17-mini/train/MOT17-04-FRCNN", 2)
@@ -221,6 +223,6 @@ def test_aabb_step_runs_k1_in_full_then_iou_only_mode():
         with record_calls(tbt, ["fused_iou_cost"]) as rec:
             state, _, _ = tbt.bytetrack_step(cfg, state, dets, dets[..., 4] >= 0)
         (assoc, kw_a), (dup, kw_d) = rec["fused_iou_cost"]
-        assert not kw_a and not kw_d
+        assert kw_a == kw_d == {"eps": IOU_BATCH_EPS}
         assert [tuple(a.shape) for a in assoc] == [(1, 32, 4), (1, 64, 4), (1, 64)]
         assert len(dup) == 2 and torch.equal(dup[0], dup[1])

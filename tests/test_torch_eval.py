@@ -101,7 +101,8 @@ def test_replay_rows_equal_jax_replay():
 def test_chip_smoke_pins_equal_the_suite_pins():
     from tests.test_torch_obb import JAX_OBB_EVAL
 
-    assert chip_smoke.PINNED == {k: v for k, v in PINNED.items() if k[1] in ("bytetrack", "sfsort")}
+    assert chip_smoke.PINNED == {k: v for k, v in PINNED.items()
+                                 if k[1] in ("bytetrack", "sfsort", "ocsort")}
     assert chip_smoke.OBB_EVAL == JAX_OBB_EVAL
     assert chip_smoke.ATOL == ATOL
 
@@ -141,7 +142,7 @@ def test_mirrored_defaults_and_configs_equal_jax():
     # YAML keys that are not fields are dropped: the replay keeps 0.45 and 25
     assert (cfg.track_thresh, cfg.match_thresh, cfg.det_thresh, cfg.max_time_lost) == (0.6, 0.9, 0.45, 25)
     with pytest.raises(ValueError, match="Slice"):
-        build_replay_config("ocsort")
+        build_replay_config("botsort")
 
 
 def test_pack_frames_and_buckets_equal_jax():
@@ -174,8 +175,9 @@ def test_unpack_mot_rows_equals_jax():
 
 
 def test_port_import_and_eval_leave_jax_out():
-    """The port, driven through its evals and its live API, loads neither JAX
-    nor any module of the JAX package."""
+    """The port, driven through its evals (ByteTrack, SFSORT OBB, OC-SORT)
+    and its live API (ByteTrack, OC-SORT), loads neither JAX nor any module
+    of the JAX package."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
@@ -185,11 +187,14 @@ def test_port_import_and_eval_leave_jax_out():
         "assert abs(res['combined']['HOTA'] - 0.649859) <= 1e-4\n"
         "res = boxmot_tpu_torch.run_eval_obb('assets/mmot-mini/train', 'sfsort', device='cpu')\n"
         "assert abs(res['combined']['HOTA'] - 0.898815) <= 1e-4\n"
-        "trk = boxmot_tpu_torch.create_tracker('bytetrack', device='cpu', per_class=True)\n"
+        "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'ocsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.651511) <= 1e-4\n"
         "dets = np.array([[10, 10, 50, 90, 0.9, 0], [200, 40, 260, 160, 0.8, 2]], np.float32)\n"
-        "for _ in range(3):\n"
-        "    out = trk.update(dets, np.zeros((480, 640, 3), np.uint8))\n"
-        "assert out.shape == (2, 8) and sorted(out.id) == [1, 2], out\n"
+        "for name in ('bytetrack', 'ocsort'):\n"
+        "    trk = boxmot_tpu_torch.create_tracker(name, device='cpu', per_class=True)\n"
+        "    for _ in range(3):\n"
+        "        out = trk.update(dets, np.zeros((480, 640, 3), np.uint8))\n"
+        "    assert out.shape == (2, 8) and sorted(out.id) == [1, 2], out\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from boxmot_tpu_torch.ops.fused_iou_cost import fused_iou_cost, fused_iou_cost_plain
+from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
+from boxmot_tpu_torch.ops.oru import oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from chip_smoke import crossed_quads
+from chip_smoke import _tiny_boxes, crossed_quads, oru_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +73,38 @@ def test_fused_iou_cost_kernel_unaligned_conf(card):
     torch.cuda.synchronize()
     assert conf.data_ptr() % 16 == 4
     assert torch.equal(iou, ref_iou) and torch.equal(cost, ref_cost)
+
+
+@pytest.mark.parametrize("eps", [1e-9, IOU_BATCH_EPS], ids=["tpu-clamp", "iou-batch-clamp"])
+def test_fused_iou_cost_kernel_union_clamp(card, eps):
+    """On boxes whose unions lie below 1e-9 the two clamps give other IoUs;
+    the kernel takes the clamp as an argument, bit-equal to the twin."""
+    trk, det = (torch.from_numpy(a).to(card) for a in _tiny_boxes(2, 8, 12))
+    conf = torch.full((2, 12), 0.5, device=card)
+    for args in ((trk, det), (trk, det, conf)):
+        got, want = fused_iou_cost(*args, eps=eps), fused_iou_cost_plain(*args, eps=eps)
+        torch.cuda.synchronize()
+        assert all(g is w or torch.equal(g, w) for g, w in zip(got, want))
+    assert (float(got[0][0, 0, 0]) == 1.0) == (eps == IOU_BATCH_EPS)
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+@pytest.mark.parametrize("S, K, p_rejoin, gap_max", [(8, 256, 1.0, 31), (3, 77, 0.5, 40),
+                                                     (1, 1, 1.0, 31)])
+def test_oru_kernel_bit_equal_to_twin_on_the_cpu(card, obb, S, K, p_rejoin, gap_max):
+    """K4's replay equals its twin run on the CPU bit for bit: every slot
+    rejoining with gaps 2-31, half of them with gaps past MAX_ORU, one slot."""
+    rng = np.random.default_rng(S * K + obb)
+    layout, tensors, rejoin, gap = oru_inputs(rng, S, K, obb, p_rejoin, gap_max)
+    replayed = [torch.zeros(S, dtype=torch.int32, device=d) for d in (card, "cpu")]
+    before = oru_replay.launches
+    got = oru_replay(layout, *(t.to(card) for t in (*tensors, rejoin, gap)), replayed[0])
+    want = oru_replay_plain(layout, *tensors, rejoin, gap, replayed[1])
+    torch.cuda.synchronize()
+    assert oru_replay.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(replayed[0].cpu(), replayed[1])
+    assert int(replayed[1].sum()) == int(rejoin.sum())
 
 
 def _problem(rng, kind, S, R, C):

@@ -49,6 +49,7 @@ MMOT = Path(__file__).resolve().parent.parent / "assets" / "mmot-mini" / "train"
 JAX_OBB_EVAL = {
     "bytetrack": {"HOTA": 0.604123, "MOTA": 0.662654, "IDF1": 0.671799},
     "sfsort": {"HOTA": 0.898815, "MOTA": 0.942670, "IDF1": 0.924151},
+    "ocsort": {"HOTA": 0.734300, "MOTA": 0.701753, "IDF1": 0.749516},
 }
 ATOL = 1e-4
 RTOL = 1e-4
