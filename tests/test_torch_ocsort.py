@@ -320,14 +320,21 @@ def test_oru_plain_replays_the_capped_gap_and_passes_other_slots_through():
         oru.oru_replay(layout, *tensors, rejoin, gap.long(), replayed)
 
 
-def test_step_frame_by_frame_equals_jax():
-    """MOT17-04's public detections and a synth-long prefix, S = 2."""
+@pytest.mark.parametrize("variant", ["defaults", "byte-giou"])
+def test_step_frame_by_frame_equals_jax(variant):
+    """MOT17-04's public detections and a synth-long prefix, S = 2: with the
+    live defaults (K1's IoU), and with the BYTE pass on, a higher detection
+    threshold (so that low-confidence detections reach it) and GIoU."""
     n_frames = 50
     seqs = [_public_frames(ASSETS / "MOT17-mini/train/MOT17-04-FRCNN", n_frames),
             _public_frames(ASSETS / "synth-long/train/SYNTH-01", n_frames)]
     packed = np.stack([pack_frames(s, D=32, F=n_frames)[0] for s in seqs])
-    _, rows = _run_steps(*_live_cfgs(False), packed)
-    assert rows > 800  # the prefixes really track
+    jcfg, tcfg = _live_cfgs(False)
+    if variant == "byte-giou":
+        kw = dict(use_byte=True, det_thresh=0.8, asso_func="giou", delta_t=2)
+        jcfg, tcfg = dataclasses.replace(jcfg, **kw), dataclasses.replace(tcfg, **kw)
+    _, rows = _run_steps(jcfg, tcfg, packed)
+    assert rows > 600  # the prefixes really track
 
 
 def test_obb_step_frame_by_frame_equals_jax():
