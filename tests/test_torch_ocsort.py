@@ -54,6 +54,7 @@ from boxmot_tpu_torch.ops import geometry as tgeo
 from boxmot_tpu_torch.ops import iou as tiou
 from boxmot_tpu_torch.ops import oru
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
+from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
 from boxmot_tpu_torch.trackers import ocsort as to
 from chip_smoke import oru_inputs, synthetic_obb_frames
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
@@ -185,17 +186,17 @@ def test_association_family_equals_jax(name):
     assert (want[3:20].max(axis=1) > 0.3).mean() > 0.5  # the pairs really overlap
 
 
-@pytest.mark.parametrize("name", ["iou_obb", "centroid_obb"])
-def test_obb_association_equals_jax(name):
+def test_obb_association_equals_jax():
+    """``"centroid_obb"`` against JAX; ``"iou_obb"`` resolves to kernel K3,
+    whose twin tests/test_torch_obb.py holds to the JAX rotated IoU."""
     rng = np.random.default_rng(4)
     a, b = _obbs(rng, 24), _obbs(rng, 20)
     b[:12] = a[:12] + rng.normal(0, 2, (12, 5)).astype(F32)
-    # jitted, as the JAX step runs it (op by op the rotated IoU compiles for ~15 s)
-    want = np.asarray(jax.jit(jiou.get_asso_func(name, 640.0, 512.0))(a, b))
-    got = tiou.get_asso_func(name, 640.0, 512.0)(torch.from_numpy(a)[None],
-                                                 torch.from_numpy(b)[None])[0].numpy()
-    # the rotated IoU's corners come from cos/sin, which differ by an ulp
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    want = np.asarray(jiou.get_asso_func("centroid_obb", 640.0, 512.0)(a, b))
+    got = tiou.get_asso_func("centroid_obb", 640.0, 512.0)(torch.from_numpy(a)[None],
+                                                           torch.from_numpy(b)[None])[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert tiou.get_asso_func("iou_obb") is rotated_iou
 
 
 def test_asso_func_names_and_errors_equal_jax():
