@@ -1,7 +1,7 @@
 // OC-SORT's observation-centric re-update (ORU), batched over S x K slots.
 //
 // Replaces the ORU block of boxmot_tpu/trackers/ocsort.py::ocsort_step (a
-// lax.cond around a lax.fori_loop, lines 310-388), which has no Pallas
+// lax.cond around a lax.fori_loop, lines 310-391), which has no Pallas
 // kernel: a slot that rejoins (matched again after misses) restores the mean
 // and covariance frozen at its first miss and replays the XYSR Kalman filter
 // over measurements interpolated between its last real measurement and the
@@ -13,34 +13,47 @@
 // damped x0.8.  Eager PyTorch could only bound that loop by reading the
 // largest gap on the host; here one launch a step does it on the device.
 //
-// Design: one thread per slot.  A slot that does not rejoin copies its mean
-// and covariance through and exits.  A rejoining slot keeps its mean and
-// covariance in registers (spilling to local memory, which L1 caches, for
-// the 9 x 9 oriented case) and runs its replay serially: the work is a chain
-// of small dependent matrix products, with nothing to share between slots.
+// Design: one warp per slot, blocks of four warps (ops/oru.py::
+// launch_geometry gives the grid and the shared memory).  A warp whose slot
+// does not rejoin copies the slot's mean and covariance through, lane i
+// taking floats i, i + 32, ..., so that each load touches neighbouring
+// addresses, and exits.  A rejoining slot's warp keeps the replay's state
+// (mean, covariance, Cholesky factor, its inverse, S^-1, gain, I - K H and
+// A P) in a tile of shared memory of its own, about 1-1.6 KB, and runs each
+// stage of the filter as a function of the lane over that tile: the lanes
+// share out a stage's elements, and __syncwarp separates the stages, so no
+// lane reads in a stage what another writes in it.  The serial parts stay on
+// one lane or a few: the Cholesky of the dz x dz innovation covariance on one
+// lane, its inverse with one lane per column (each column is a chain of its
+// own), the interpolation on one lane, the oriented alignment's four
+// candidates on four lanes and the pick on one.
 //
-// Bound on this card: the bytes of the rejoining slots (each reads a frozen
-// mean and covariance and writes them back, under 1 KB) and their few
-// thousand operations an iteration are far below a microsecond for the
-// handful of slots that rejoin in a frame; a launch's time is the launch and
-// the longest slot's chain of dependent operations (ops/oru.py::oru_work
-// counts the work).
+// Bound on this card: the function is out of place, so it reads and writes
+// every slot's mean and covariance once (about 0.9 MB at 8 x 256 slots, 7
+// states); the rejoining slots add a few thousand dependent operations an
+// update.  A launch's time is the launch, that copy, and the longest slot's
+// chain of stages (ops/oru.py, chip_smoke.py::k4_bound counts the work).
 //
 // Arithmetic must equal the plain PyTorch twin (ops/oru.py::oru_replay_plain
-// with motion/kalman.py's predict and update) bit for bit: the operations are
-// theirs, in their order, each written with an explicitly rounded intrinsic
-// (the library is built with -fmad=false); products with an exact zero and
-// adds of an exact zero are kept where the twin has them, so signed zeros
-// agree too; sqrt and log are evaluated in double and rounded once, as
-// ops/geometry.py::exact does; wrap_angle is torch.remainder's floor modulo
-// (fmod, then the divisor added where the signs differ); divisions are true
-// divisions, never multiplies by a reciprocal.
+// with motion/kalman.py's predict and update) bit for bit: each output
+// element is computed by one lane with the twin's operations in the twin's
+// order, each written with an explicitly rounded intrinsic (the library is
+// built with -fmad=false); products with an exact zero and adds of an exact
+// zero are kept where the twin has them, so signed zeros agree too; sqrt and
+// log are evaluated in double and rounded once, as ops/geometry.py::exact
+// does; wrap_angle is torch.remainder's floor modulo (fmod, then the divisor
+// added where the signs differ); divisions are true divisions, never
+// multiplies by a reciprocal.  Only where an element is computed, and where
+// it lives, differs from the twin.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kMaxThreads = 128;  // ops/oru.py::THREADS
+constexpr int kStepLane = kWarp - 1;  // the lane that interpolates the measurements
+constexpr int kCandLane = kWarp - 4;  // lanes kCandLane .. +3: the OBB alignment's candidates
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kHalfPi = 1.57079632679489661923f;
@@ -48,6 +61,51 @@ constexpr float kHalfPi = 1.57079632679489661923f;
 struct Noise {
   float q[9];  // process variances (dx of them)
   float r[5];  // measurement variances (dz of them)
+};
+
+struct Args {
+  const float* mean_in;  // (S, K, dx) after the frame's predict
+  const float* cov_in;  // (S, K, dx, dx)
+  const float* frozen_mean;
+  const float* frozen_cov;
+  const float* last_meas;  // (S, K, dz)
+  const float* z2;  // (S, K, dz)
+  const bool* rejoin;  // (S, K)
+  const int* gap;  // (S, K)
+  float* mean_out;
+  float* cov_out;
+  int* replayed;  // (S,)
+  Noise nz;
+  int S, K, max_oru;
+};
+
+// A rejoining slot's replay state and workspace, in its warp's tile of
+// shared memory; ops/oru.py::tile_floats counts the same floats.
+template <int DX, int DZ>
+struct Tile {
+  float m[DX];  // the replay's mean
+  float z[DZ];  // this iteration's measurement
+  float innov[DZ];
+  float m1[DZ];  // the last real measurement
+  float step[8];  // w1, h1, then the steps of x, y, w, h and the angle
+  float cand[3][4];  // the OBB alignment: each candidate's cost, angle and r
+  float L[DZ][DZ];  // the Cholesky factor (lower triangle)
+  float M[DZ][DZ];  // its inverse; the upper triangle stays 0
+  float Si[DZ][DZ];
+  float G[DX][DZ];  // the gain
+  float A[DX][DX];  // I - K H
+  float P[2][DX][DX];  // the covariance, and a second buffer (predict's output, A P)
+};
+
+// The lanes of one warp: a stage is a function of the lane, and the lanes
+// meet at __syncwarp after it.
+struct Lanes {
+  int lane;
+  template <class F>
+  __device__ __forceinline__ void stage(F&& f) const {
+    f(lane);
+    __syncwarp();
+  }
 };
 
 // torch.clamp_min: NaN propagates
@@ -78,57 +136,95 @@ __device__ __forceinline__ int vel_of(const int a) {
   return a < 3 ? a + 5 : (a == 4 ? 8 : -1);
 }
 
+// the layout's constraint on mean element a: s and r clamped, theta wrapped
 template <int DX>
-__device__ __forceinline__ void enforce(float (&m)[DX]) {
-  m[2] = clamp_min(m[2], 1e-6f);
-  m[3] = clamp_min(m[3], 1e-6f);
-  if (DX == 9) m[4] = wrap_angle(m[4]);
+__device__ __forceinline__ float enforce(const int a, const float x) {
+  if (a == 2 || a == 3) return clamp_min(x, 1e-6f);
+  if (DX == 9 && a == 4) return wrap_angle(x);
+  return x;
 }
 
-// motion/kalman.py::predict with the XYSR transition: F x, F P F^T (rows,
-// then columns, one add where F has an off-diagonal 1), the process noise on
-// the diagonal (an exact zero added off it), then the mean's constraints
-template <int DX>
-__device__ void predict(float (&m)[DX], float (&P)[DX][DX], const Noise& nz) {
-  float nm[DX];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-    const int v = vel_of<DX>(a);
-    nm[a] = v >= 0 ? __fadd_rn(m[a], m[v]) : m[a];
-  }
-  enforce<DX>(nm);
-#pragma unroll
-  for (int a = 0; a < DX; ++a) m[a] = nm[a];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {  // rows: FP = F P
-    const int v = vel_of<DX>(a);
-    if (v >= 0) {
-#pragma unroll
-      for (int c = 0; c < DX; ++c) P[a][c] = __fadd_rn(P[a][c], P[v][c]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < DX; ++r) {  // columns: (F P) F^T, then the noise
-#pragma unroll
-    for (int a = 0; a < DX; ++a) {
-      const int v = vel_of<DX>(a);
-      const float x = v >= 0 ? __fadd_rn(P[r][a], P[r][v]) : P[r][a];
-      P[r][a] = x;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < DX; ++r) {
-#pragma unroll
-    for (int a = 0; a < DX; ++a) P[r][a] = __fadd_rn(P[r][a], r == a ? nz.q[a] : 0.0f);
-  }
+// w = sqrt(max(s r, 1e-12)), h = sqrt(max(s / max(r, 1e-12), 1e-12))
+__device__ __forceinline__ void meas_wh(const float s, const float r, float& w, float& h) {
+  w = exact_sqrt(clamp_min(__fmul_rn(s, r), 1e-12f));
+  h = exact_sqrt(clamp_min(__fdiv_rn(s, clamp_min(r, 1e-12f)), 1e-12f));
 }
 
-// motion/kalman.py::update: the unrolled Cholesky of S = P[:dz, :dz] + R, its
-// inverse M = L^-1 and Sinv = M^T M (summed over every k, zeros included),
-// the gain, the mean, and P = (I - K H) P (I - K H)^T + K R K^T
+// one lane: the start and steps of the interpolation between the last real
+// measurement and the new one
 template <int DX, int DZ>
-__device__ void update(float (&m)[DX], float (&P)[DX][DX], const float (&z)[DZ],
-                       const Noise& nz) {
+__device__ void interpolation(Tile<DX, DZ>& t, const Args& a, const size_t zo, const int g) {
+  float m1[DZ], zz[DZ];
+#pragma unroll
+  for (int c = 0; c < DZ; ++c) {
+    m1[c] = a.last_meas[zo + c];
+    zz[c] = a.z2[zo + c];
+    t.m1[c] = m1[c];
+  }
+  float w1, h1, w2, h2;
+  meas_wh(m1[2], m1[3], w1, h1);
+  meas_wh(zz[2], zz[3], w2, h2);
+  const float gapf = clamp_min(static_cast<float>(g), 1.0f);
+  t.step[0] = w1;
+  t.step[1] = h1;
+  t.step[2] = __fdiv_rn(__fsub_rn(zz[0], m1[0]), gapf);
+  t.step[3] = __fdiv_rn(__fsub_rn(zz[1], m1[1]), gapf);
+  t.step[4] = __fdiv_rn(__fsub_rn(w2, w1), gapf);
+  t.step[5] = __fdiv_rn(__fsub_rn(h2, h1), gapf);
+  t.step[6] = DZ == 5 ? __fdiv_rn(wrap_angle(__fsub_rn(zz[DZ - 1], m1[DZ - 1])), gapf) : 0.0f;
+}
+
+// one lane: the i-th interpolated measurement
+template <int DX, int DZ>
+__device__ void measurement(Tile<DX, DZ>& t, const int i) {
+  const float fi = static_cast<float>(i);
+  const float wi = __fadd_rn(t.step[0], __fmul_rn(fi, t.step[4]));
+  const float hi = __fadd_rn(t.step[1], __fmul_rn(fi, t.step[5]));
+  t.z[0] = __fadd_rn(t.m1[0], __fmul_rn(fi, t.step[2]));
+  t.z[1] = __fadd_rn(t.m1[1], __fmul_rn(fi, t.step[3]));
+  t.z[2] = clamp_min(__fmul_rn(wi, hi), 1e-6f);
+  t.z[3] = clamp_min(__fdiv_rn(wi, clamp_min(hi, 1e-12f)), 1e-6f);
+  if (DZ == 5) t.z[DZ - 1] = wrap_angle(__fadd_rn(t.m1[DZ - 1], __fmul_rn(fi, t.step[6])));
+}
+
+// motion/kalman.py::align_obb_xysr against the replay's mean, candidate c of
+// (s, r, th), (s, r, th + pi), (s, 1/r, th + pi/2), (s, 1/r, th - pi/2): its
+// cost |wrapped angle delta| + 0.05 |log(r / ref_r)|, its angle and its r
+template <int DX, int DZ>
+__device__ void candidate(Tile<DX, DZ>& t, const int c) {
+  const float r = clamp_min(t.z[3], 1e-6f);
+  const float th = wrap_angle(t.z[4]);
+  const float ref_r = clamp_min(t.m[3], 1e-6f);
+  const float ref_th = t.m[4];
+  const float cand_r = c < 2 ? r : __frcp_rn(r);
+  const float cand_t = c == 0 ? th
+                       : c == 1 ? __fadd_rn(th, kPi)
+                       : c == 2 ? __fadd_rn(th, kHalfPi)
+                                : __fsub_rn(th, kHalfPi);
+  const float aligned = __fadd_rn(ref_th, wrap_angle(__fsub_rn(cand_t, ref_th)));
+  const float angle_cost = fabsf(__fsub_rn(aligned, ref_th));
+  const float size_cost = fabsf(exact_log(__fdiv_rn(cand_r, ref_r)));
+  t.cand[0][c] = __fadd_rn(angle_cost, __fmul_rn(0.05f, size_cost));
+  t.cand[1][c] = aligned;
+  t.cand[2][c] = cand_r;
+}
+
+// one lane: the first candidate of least cost (jnp.argmin's tie rule)
+template <int DX, int DZ>
+__device__ void pick(Tile<DX, DZ>& t) {
+  int best = 0;
+#pragma unroll
+  for (int c = 1; c < 4; ++c) {
+    if (t.cand[0][c] < t.cand[0][best]) best = c;
+  }
+  t.z[2] = clamp_min(t.z[2], 1e-6f);
+  t.z[3] = clamp_min(t.cand[2][best], 1e-6f);
+  t.z[4] = t.cand[1][best];
+}
+
+// one lane: the unrolled Cholesky of S = P[:dz, :dz] + R, in registers
+template <int DX, int DZ>
+__device__ void cholesky(Tile<DX, DZ>& t, const float (&P)[DX][DX], const Noise& nz) {
   float L[DZ][DZ];
 #pragma unroll
   for (int i = 0; i < DZ; ++i) {
@@ -138,200 +234,186 @@ __device__ void update(float (&m)[DX], float (&P)[DX][DX], const float (&z)[DZ],
 #pragma unroll
       for (int k = 0; k < j; ++k) s = __fsub_rn(s, __fmul_rn(L[i][k], L[j][k]));
       L[i][j] = i == j ? exact_sqrt(clamp_min(s, 1e-9f)) : __fdiv_rn(s, L[j][j]);
-    }
-  }
-  float M[DZ][DZ];
-#pragma unroll
-  for (int i = 0; i < DZ; ++i) {
-#pragma unroll
-    for (int j = 0; j < DZ; ++j) M[i][j] = 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < DZ; ++i) {
-    M[i][i] = __frcp_rn(L[i][i]);
-#pragma unroll
-    for (int j = 0; j < i; ++j) {
-      float s = __fmul_rn(L[i][j], M[j][j]);
-#pragma unroll
-      for (int k = j + 1; k < i; ++k) s = __fadd_rn(s, __fmul_rn(L[i][k], M[k][j]));
-      M[i][j] = __fdiv_rn(-s, L[i][i]);
-    }
-  }
-  float Si[DZ][DZ];
-#pragma unroll
-  for (int a = 0; a < DZ; ++a) {
-#pragma unroll
-    for (int b = 0; b < DZ; ++b) {
-      float s = __fmul_rn(M[0][a], M[0][b]);
-#pragma unroll
-      for (int k = 1; k < DZ; ++k) s = __fadd_rn(s, __fmul_rn(M[k][a], M[k][b]));
-      Si[a][b] = s;
-    }
-  }
-  float G[DX][DZ];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-#pragma unroll
-    for (int c = 0; c < DZ; ++c) {
-      float s = __fmul_rn(P[a][0], Si[0][c]);
-#pragma unroll
-      for (int d = 1; d < DZ; ++d) s = __fadd_rn(s, __fmul_rn(P[a][d], Si[d][c]));
-      G[a][c] = s;
-    }
-  }
-  float innov[DZ];
-#pragma unroll
-  for (int c = 0; c < DZ; ++c) innov[c] = __fsub_rn(z[c], m[c]);
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-    float delta = __fmul_rn(innov[0], G[a][0]);
-#pragma unroll
-    for (int c = 1; c < DZ; ++c) delta = __fadd_rn(delta, __fmul_rn(innov[c], G[a][c]));
-    m[a] = __fadd_rn(m[a], delta);
-  }
-  enforce<DX>(m);
-
-  // A = I - K H: A[a][b] = eye - G[a][b] for b < dz, eye beyond
-  float A[DX][DX];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-#pragma unroll
-    for (int b = 0; b < DX; ++b) {
-      const float eye = a == b ? 1.0f : 0.0f;
-      A[a][b] = b < DZ ? __fsub_rn(eye, G[a][b < DZ ? b : 0]) : eye;
-    }
-  }
-  float AP[DX][DX];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-#pragma unroll
-    for (int c = 0; c < DX; ++c) {
-      float s = __fmul_rn(A[a][0], P[0][c]);
-#pragma unroll
-      for (int b = 1; b < DX; ++b) s = __fadd_rn(s, __fmul_rn(A[a][b], P[b][c]));
-      AP[a][c] = s;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-#pragma unroll
-    for (int b = 0; b < DX; ++b) {
-      float s = __fmul_rn(AP[a][0], A[b][0]);
-#pragma unroll
-      for (int c = 1; c < DX; ++c) s = __fadd_rn(s, __fmul_rn(AP[a][c], A[b][c]));
-      float krk = __fmul_rn(__fmul_rn(G[a][0], nz.r[0]), G[b][0]);
-#pragma unroll
-      for (int c = 1; c < DZ; ++c)
-        krk = __fadd_rn(krk, __fmul_rn(__fmul_rn(G[a][c], nz.r[c]), G[b][c]));
-      P[a][b] = __fadd_rn(s, krk);
+      t.L[i][j] = L[i][j];
     }
   }
 }
 
-// motion/kalman.py::align_obb_xysr against the replay's mean: of (s, r, th),
-// (s, r, th + pi), (s, 1/r, th + pi/2), (s, 1/r, th - pi/2), the first with
-// the least |wrapped angle delta| + 0.05 |log(r / ref_r)|
-__device__ void align_obb_xysr(float (&z)[5], const float (&m)[9]) {
-  const float r = clamp_min(z[3], 1e-6f);
-  const float th = wrap_angle(z[4]);
-  const float ref_r = clamp_min(m[3], 1e-6f);
-  const float ref_th = m[4];
-  const float inv_r = __frcp_rn(r);
-  const float cand_r[4] = {r, r, inv_r, inv_r};
-  const float cand_t[4] = {th, __fadd_rn(th, kPi), __fadd_rn(th, kHalfPi),
-                           __fsub_rn(th, kHalfPi)};
-  int best = 0;
-  float best_cost = 0.0f, best_t = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float aligned = __fadd_rn(ref_th, wrap_angle(__fsub_rn(cand_t[c], ref_th)));
-    const float angle_cost = fabsf(__fsub_rn(aligned, ref_th));
-    const float size_cost = fabsf(exact_log(__fdiv_rn(cand_r[c], ref_r)));
-    const float cost = __fadd_rn(angle_cost, __fmul_rn(0.05f, size_cost));
-    if (c == 0 || cost < best_cost) {
-      best = c;
-      best_cost = cost;
-      best_t = aligned;
-    }
+// lane j < dz: column j of M = L^-1, a chain of its own down the rows
+template <int DX, int DZ>
+__device__ void inverse_column(Tile<DX, DZ>& t, const int j) {
+  t.M[j][j] = __frcp_rn(t.L[j][j]);
+  for (int i = j + 1; i < DZ; ++i) {
+    float s = __fmul_rn(t.L[i][j], t.M[j][j]);
+    for (int k = j + 1; k < i; ++k) s = __fadd_rn(s, __fmul_rn(t.L[i][k], t.M[k][j]));
+    t.M[i][j] = __fdiv_rn(-s, t.L[i][i]);
   }
-  z[2] = clamp_min(z[2], 1e-6f);
-  z[3] = clamp_min(cand_r[best], 1e-6f);
-  z[4] = best_t;
 }
 
-// w = sqrt(max(s r, 1e-12)), h = sqrt(max(s / max(r, 1e-12), 1e-12))
-__device__ __forceinline__ void meas_wh(const float s, const float r, float& w, float& h) {
-  w = exact_sqrt(clamp_min(__fmul_rn(s, r), 1e-12f));
-  h = exact_sqrt(clamp_min(__fdiv_rn(s, clamp_min(r, 1e-12f)), 1e-12f));
+// The replay of one rejoining slot by one warp: motion/kalman.py::predict
+// with the XYSR transition (F x, F P F^T by rows then columns with one add
+// where F has an off-diagonal 1, the process noise on the diagonal and an
+// exact zero added off it, the mean's constraints) and ::update (the
+// Cholesky of S, M = L^-1, Sinv = M^T M summed over every k, zeros
+// included, the gain, the mean, P = (I - K H) P (I - K H)^T + K R K^T).
+template <int DX, int DZ, class W>
+__device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, const int slot) {
+  const Noise& nz = a.nz;
+  const size_t mo = static_cast<size_t>(slot) * DX;
+  const size_t co = static_cast<size_t>(slot) * DX * DX;
+  const size_t zo = static_cast<size_t>(slot) * DZ;
+  const int g = a.gap[slot];
+  lanes.stage([&](const int lane) {
+    for (int e = lane; e < DX; e += kWarp) t.m[e] = a.frozen_mean[mo + e];
+    for (int e = lane; e < DX * DX; e += kWarp) (&t.P[0][0][0])[e] = a.frozen_cov[co + e];
+    for (int e = lane; e < DZ * DZ; e += kWarp) (&t.M[0][0])[e] = 0.0f;
+    if (lane == kStepLane) interpolation(t, a, zo, g);
+  });
+  constexpr int kVelRows = DX == 7 ? 3 : 4;  // rows of F with an off-diagonal 1
+  const int n = min(g, a.max_oru);
+  int cur = 0;
+  for (int i = 1; i <= n; ++i) {
+    if (i > 1) {
+      float(&P)[DX][DX] = t.P[cur];
+      float(&Q)[DX][DX] = t.P[cur ^ 1];
+      // the predicted mean (its velocities do not change), F P's rows in
+      // place (a row reads a velocity row, which stays), the measurement
+      lanes.stage([&](const int lane) {
+        if (lane < DZ) {
+          const int v = vel_of<DX>(lane);
+          t.m[lane] = enforce<DX>(lane, v >= 0 ? __fadd_rn(t.m[lane], t.m[v]) : t.m[lane]);
+        }
+        for (int e = lane; e < kVelRows * DX; e += kWarp) {
+          const int row = e / DX == 3 ? 4 : e / DX, c = e % DX;
+          P[row][c] = __fadd_rn(P[row][c], P[vel_of<DX>(row)][c]);
+        }
+        if (lane == kStepLane) measurement(t, i);
+      });
+      // (F P) F^T and the noise into the second buffer; the alignment's
+      // candidates against the predicted mean
+      lanes.stage([&](const int lane) {
+        for (int e = lane; e < DX * DX; e += kWarp) {
+          const int r = e / DX, c = e % DX, v = vel_of<DX>(c);
+          const float x = v >= 0 ? __fadd_rn(P[r][c], P[r][v]) : P[r][c];
+          Q[r][c] = __fadd_rn(x, r == c ? nz.q[c] : 0.0f);
+        }
+        if (DZ == 5 && lane >= kCandLane) candidate(t, lane - kCandLane);
+      });
+      cur ^= 1;
+    } else {
+      lanes.stage([&](const int lane) {
+        if (lane == kStepLane) measurement(t, i);
+      });
+      if (DZ == 5) {
+        lanes.stage([&](const int lane) {
+          if (lane >= kCandLane) candidate(t, lane - kCandLane);
+        });
+      }
+    }
+    float(&P)[DX][DX] = t.P[cur];
+    float(&AP)[DX][DX] = t.P[cur ^ 1];
+    lanes.stage([&](const int lane) {
+      if (lane == 0) cholesky(t, P, nz);
+      if (DZ == 5 && lane == 1) pick(t);
+    });
+    lanes.stage([&](const int lane) {
+      if (lane < DZ) inverse_column(t, lane);
+    });
+    lanes.stage([&](const int lane) {  // Sinv = M^T M
+      for (int e = lane; e < DZ * DZ; e += kWarp) {
+        const int r = e / DZ, c = e % DZ;
+        float s = __fmul_rn(t.M[0][r], t.M[0][c]);
+#pragma unroll
+        for (int k = 1; k < DZ; ++k) s = __fadd_rn(s, __fmul_rn(t.M[k][r], t.M[k][c]));
+        t.Si[r][c] = s;
+      }
+    });
+    lanes.stage([&](const int lane) {  // the gain, and the innovation
+      for (int e = lane; e < DX * DZ; e += kWarp) {
+        const int r = e / DZ, c = e % DZ;
+        float s = __fmul_rn(P[r][0], t.Si[0][c]);
+#pragma unroll
+        for (int d = 1; d < DZ; ++d) s = __fadd_rn(s, __fmul_rn(P[r][d], t.Si[d][c]));
+        t.G[r][c] = s;
+      }
+      if (lane < DZ) t.innov[lane] = __fsub_rn(t.z[lane], t.m[lane]);
+    });
+    lanes.stage([&](const int lane) {  // the mean; A = I - K H (eye beyond dz)
+      if (lane < DX) {
+        float delta = __fmul_rn(t.innov[0], t.G[lane][0]);
+#pragma unroll
+        for (int c = 1; c < DZ; ++c) delta = __fadd_rn(delta, __fmul_rn(t.innov[c], t.G[lane][c]));
+        float x = enforce<DX>(lane, __fadd_rn(t.m[lane], delta));
+        if (DX == 9 && lane == 8) x = __fmul_rn(x, 0.8f);  // the angular velocity damped
+        t.m[lane] = x;
+      }
+      for (int e = lane; e < DX * DX; e += kWarp) {
+        const int r = e / DX, c = e % DX;
+        const float eye = r == c ? 1.0f : 0.0f;
+        t.A[r][c] = c < DZ ? __fsub_rn(eye, t.G[r][c < DZ ? c : 0]) : eye;
+      }
+    });
+    lanes.stage([&](const int lane) {  // A P
+      for (int e = lane; e < DX * DX; e += kWarp) {
+        const int r = e / DX, c = e % DX;
+        float s = __fmul_rn(t.A[r][0], P[0][c]);
+#pragma unroll
+        for (int b = 1; b < DX; ++b) s = __fadd_rn(s, __fmul_rn(t.A[r][b], P[b][c]));
+        AP[r][c] = s;
+      }
+    });
+    lanes.stage([&](const int lane) {  // P = A P A^T + K R K^T
+      for (int e = lane; e < DX * DX; e += kWarp) {
+        const int r = e / DX, c = e % DX;
+        float s = __fmul_rn(AP[r][0], t.A[c][0]);
+#pragma unroll
+        for (int k = 1; k < DX; ++k) s = __fadd_rn(s, __fmul_rn(AP[r][k], t.A[c][k]));
+        float krk = __fmul_rn(__fmul_rn(t.G[r][0], nz.r[0]), t.G[c][0]);
+#pragma unroll
+        for (int k = 1; k < DZ; ++k)
+          krk = __fadd_rn(krk, __fmul_rn(__fmul_rn(t.G[r][k], nz.r[k]), t.G[c][k]));
+        P[r][c] = __fadd_rn(s, krk);
+      }
+    });
+  }
+  lanes.stage([&](const int lane) {
+    for (int e = lane; e < DX; e += kWarp) a.mean_out[mo + e] = t.m[e];
+    for (int e = lane; e < DX * DX; e += kWarp) a.cov_out[co + e] = (&t.P[cur][0][0])[e];
+    if (lane == 0) atomicAdd(a.replayed + slot / a.K, 1);
+  });
+}
+
+// a slot that does not rejoin: its mean and covariance copied through,
+// neighbouring lanes on neighbouring floats
+template <int DX>
+__device__ void copy_slot(const int lane, const Args& a, const int slot) {
+  const size_t mo = static_cast<size_t>(slot) * DX;
+  const size_t co = static_cast<size_t>(slot) * DX * DX;
+  for (int e = lane; e < DX; e += kWarp) a.mean_out[mo + e] = __ldg(a.mean_in + mo + e);
+  for (int e = lane; e < DX * DX; e += kWarp) a.cov_out[co + e] = __ldg(a.cov_in + co + e);
 }
 
 template <int DX, int DZ>
-__global__ void __launch_bounds__(kThreads)
-    oru_kernel(const float* __restrict__ mean_in, const float* __restrict__ cov_in,
-               const float* __restrict__ frozen_mean, const float* __restrict__ frozen_cov,
-               const float* __restrict__ last_meas, const float* __restrict__ z2,
-               const bool* __restrict__ rejoin, const int* __restrict__ gap,
-               float* __restrict__ mean_out, float* __restrict__ cov_out,
-               int* __restrict__ replayed, const Noise nz, int S, int K, int max_oru) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= S * K) return;
-  const size_t mo = static_cast<size_t>(slot) * DX;
-  const size_t co = static_cast<size_t>(slot) * DX * DX;
-  if (!rejoin[slot]) {
-#pragma unroll
-    for (int a = 0; a < DX; ++a) mean_out[mo + a] = mean_in[mo + a];
-    for (int e = 0; e < DX * DX; ++e) cov_out[co + e] = cov_in[co + e];
-    return;
+__global__ void __launch_bounds__(kMaxThreads) oru_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int slot = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (slot >= a.S * a.K) return;  // the whole warp
+  const int lane = threadIdx.x % kWarp;
+  if (a.rejoin[slot]) {
+    replay_slot<DX, DZ>(Lanes{lane}, reinterpret_cast<Tile<DX, DZ>*>(smem)[warp], a, slot);
+  } else {
+    copy_slot<DX>(lane, a, slot);
   }
-  float m[DX], P[DX][DX], m1[DZ], zz[DZ];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) m[a] = frozen_mean[mo + a];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-#pragma unroll
-    for (int b = 0; b < DX; ++b) P[a][b] = frozen_cov[co + a * DX + b];
-  }
-#pragma unroll
-  for (int c = 0; c < DZ; ++c) {
-    m1[c] = last_meas[static_cast<size_t>(slot) * DZ + c];
-    zz[c] = z2[static_cast<size_t>(slot) * DZ + c];
-  }
-  const int g = gap[slot];
-  float w1, h1, w2, h2;
-  meas_wh(m1[2], m1[3], w1, h1);
-  meas_wh(zz[2], zz[3], w2, h2);
-  const float gapf = clamp_min(static_cast<float>(g), 1.0f);
-  const float dx = __fdiv_rn(__fsub_rn(zz[0], m1[0]), gapf);
-  const float dy = __fdiv_rn(__fsub_rn(zz[1], m1[1]), gapf);
-  const float dw = __fdiv_rn(__fsub_rn(w2, w1), gapf);
-  const float dh = __fdiv_rn(__fsub_rn(h2, h1), gapf);
-  const float dth = DZ == 5 ? __fdiv_rn(wrap_angle(__fsub_rn(zz[DZ - 1], m1[DZ - 1])), gapf) : 0.0f;
-  const int n = min(g, max_oru);
-  for (int i = 1; i <= n; ++i) {
-    if (i > 1) predict<DX>(m, P, nz);
-    const float fi = static_cast<float>(i);
-    const float wi = __fadd_rn(w1, __fmul_rn(fi, dw));
-    const float hi = __fadd_rn(h1, __fmul_rn(fi, dh));
-    float zi[DZ];
-    zi[0] = __fadd_rn(m1[0], __fmul_rn(fi, dx));
-    zi[1] = __fadd_rn(m1[1], __fmul_rn(fi, dy));
-    zi[2] = clamp_min(__fmul_rn(wi, hi), 1e-6f);
-    zi[3] = clamp_min(__fdiv_rn(wi, clamp_min(hi, 1e-12f)), 1e-6f);
-    if constexpr (DZ == 5) {
-      zi[4] = wrap_angle(__fadd_rn(m1[4], __fmul_rn(fi, dth)));
-      align_obb_xysr(zi, m);
-    }
-    update<DX, DZ>(m, P, zi, nz);
-    if constexpr (DX == 9) m[8] = __fmul_rn(m[8], 0.8f);
-  }
-#pragma unroll
-  for (int a = 0; a < DX; ++a) mean_out[mo + a] = m[a];
-#pragma unroll
-  for (int a = 0; a < DX; ++a) {
-#pragma unroll
-    for (int b = 0; b < DX; ++b) cov_out[co + a * DX + b] = P[a][b];
-  }
-  atomicAdd(replayed + slot / K, 1);
+}
+
+template <int DX, int DZ>
+int launch(const Args& a, const int blocks, const int threads, const int smem_bytes,
+           cudaStream_t st) {
+  if (smem_bytes < (threads / kWarp) * static_cast<int>(sizeof(Tile<DX, DZ>)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  oru_kernel<DX, DZ><<<blocks, threads, smem_bytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -342,40 +424,41 @@ __global__ void __launch_bounds__(kThreads)
 // and adds each sequence's rejoining slots to replayed (S,) int32.  noise:
 // a host array of the dx process variances, then the dz measurement ones.
 // obb: 0 for the 7-state XYSR filter, 1 for the 9-state oriented one.
+// blocks, threads, smem_bytes: ops/oru.py::launch_geometry, a warp a slot
+// (threads a multiple of 32, at most 128) and a tile of shared memory a warp.
 extern "C" int bmt_oru(const void* mean_in, const void* cov_in, const void* frozen_mean,
                        const void* frozen_cov, const void* last_meas, const void* z2,
                        const void* rejoin, const void* gap, void* mean_out, void* cov_out,
                        void* replayed, const float* noise, int S, int K, int obb, int max_oru,
-                       void* stream) {
+                       int blocks, int threads, int smem_bytes, void* stream) {
   if (S <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
-  if (noise == nullptr || max_oru < 0 || static_cast<long>(S) * K > (1L << 30))
+  const long slots = static_cast<long>(S) * K;
+  if (noise == nullptr || max_oru < 0 || slots > (1L << 30) || threads <= 0 ||
+      threads > kMaxThreads || threads % kWarp != 0 ||
+      static_cast<long>(blocks) * (threads / kWarp) < slots || smem_bytes > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const int dx = obb ? 9 : 7;
   const int dz = obb ? 5 : 4;
-  Noise nz{};
-  for (int i = 0; i < dx; ++i) nz.q[i] = noise[i];
-  for (int i = 0; i < dz; ++i) nz.r[i] = noise[dx + i];
-  const int blocks = (S * K + kThreads - 1) / kThreads;
+  Args a{};
+  a.mean_in = static_cast<const float*>(mean_in);
+  a.cov_in = static_cast<const float*>(cov_in);
+  a.frozen_mean = static_cast<const float*>(frozen_mean);
+  a.frozen_cov = static_cast<const float*>(frozen_cov);
+  a.last_meas = static_cast<const float*>(last_meas);
+  a.z2 = static_cast<const float*>(z2);
+  a.rejoin = static_cast<const bool*>(rejoin);
+  a.gap = static_cast<const int*>(gap);
+  a.mean_out = static_cast<float*>(mean_out);
+  a.cov_out = static_cast<float*>(cov_out);
+  a.replayed = static_cast<int*>(replayed);
+  for (int i = 0; i < dx; ++i) a.nz.q[i] = noise[i];
+  for (int i = 0; i < dz; ++i) a.nz.r[i] = noise[dx + i];
+  a.S = S;
+  a.K = K;
+  a.max_oru = max_oru;
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* mi = static_cast<const float*>(mean_in);
-  const auto* ci = static_cast<const float*>(cov_in);
-  const auto* fm = static_cast<const float*>(frozen_mean);
-  const auto* fc = static_cast<const float*>(frozen_cov);
-  const auto* lm = static_cast<const float*>(last_meas);
-  const auto* zz = static_cast<const float*>(z2);
-  const auto* rj = static_cast<const bool*>(rejoin);
-  const auto* gp = static_cast<const int*>(gap);
-  auto* mo = static_cast<float*>(mean_out);
-  auto* co = static_cast<float*>(cov_out);
-  auto* rp = static_cast<int*>(replayed);
-  if (obb) {
-    oru_kernel<9, 5><<<blocks, kThreads, 0, st>>>(mi, ci, fm, fc, lm, zz, rj, gp, mo, co, rp, nz,
-                                                  S, K, max_oru);
-  } else {
-    oru_kernel<7, 4><<<blocks, kThreads, 0, st>>>(mi, ci, fm, fc, lm, zz, rj, gp, mo, co, rp, nz,
-                                                  S, K, max_oru);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return obb ? launch<9, 5>(a, blocks, threads, smem_bytes, st)
+             : launch<7, 4>(a, blocks, threads, smem_bytes, st);
 }
 
 extern "C" const char* bmt_cuda_error_string(int err) {

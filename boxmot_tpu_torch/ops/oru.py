@@ -11,9 +11,11 @@ follows the wrapped delta, the measurement is aligned to the replay's own
 mean, and the angular velocity is damped x0.8 after the update).  The loop's
 trip count depends on the data, so in eager PyTorch it would need a host
 read; on a CUDA tensor ``oru_replay`` launches ``csrc/oru.cu`` once per step
-instead, one thread per slot, and a slot that does not rejoin copies its
-mean and covariance through.  On a CPU tensor it runs ``oru_replay_plain``,
-the same masked loop in plain PyTorch with the port's ``kalman.predict`` and
+instead, one warp per slot (``launch_geometry``): a warp whose slot does not
+rejoin copies its mean and covariance through, and a rejoining slot's warp
+runs the replay over a tile of shared memory, its lanes sharing out the
+elements of each stage.  On a CPU tensor it runs ``oru_replay_plain``, the
+same masked loop in plain PyTorch with the port's ``kalman.predict`` and
 ``kalman.update``, whose operations the kernel repeats in the same order.
 
 Both add the number of rejoining slots of each sequence to ``replayed``.
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +34,35 @@ from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.ops.geometry import exact, wrap_angle
 
 MAX_ORU = 32  # the longest replay; the reference's gaps are at most max_age
+WARPS = 4  # warps a block of K4, one slot each
+THREADS = 32 * WARPS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class Launch(NamedTuple):
+    """K4's launch: a grid of ``blocks`` blocks of ``threads`` threads and
+    ``shared_bytes`` of dynamic shared memory a block."""
+
+    blocks: int
+    threads: int
+    shared_bytes: int
+
+
+def tile_floats(dx: int, dz: int) -> int:
+    """Floats of a rejoining slot's tile in K4 (``csrc/oru.cu::Tile``): the
+    mean, the measurement, the innovation and the last measurement, 8
+    interpolation scalars, 3 x 4 alignment candidates, L, M and Sinv, the
+    gain, I - K H and two covariance buffers."""
+    return dx + 3 * dz + 8 + 12 + 3 * dz * dz + dx * dz + 3 * dx * dx
+
+
+@functools.lru_cache(maxsize=64)
+def launch_geometry(S: int, K: int, obb: bool) -> Launch:
+    """One warp per slot of the S x K, ``WARPS`` to a block, and a tile of
+    shared memory a warp (7-state XYSR, or 9-state oriented with ``obb``)."""
+    dx, dz = (9, 5) if obb else (7, 4)
+    return Launch(-(-S * K // WARPS), THREADS, 4 * WARPS * tile_floats(dx, dz))
 
 
 def _interpolation(last_meas, z2, gap):
@@ -151,12 +181,14 @@ def oru_replay(layout, mean, cov, frozen_mean, frozen_cov, last_meas, z2, rejoin
     out_mean, out_cov = torch.empty_like(mean), torch.empty_like(cov)
     if rejoin.numel() == 0:
         return out_mean, out_cov
-    fn = build.entry("oru", "bmt_oru", [_P] * 11 + [_P] + [_I] * 4 + [_P])
+    obb = layout.dz == 5
+    fn = build.entry("oru", "bmt_oru", [_P] * 11 + [_P] + [_I] * 7 + [_P])
     with torch.cuda.device(dev):
         rc = fn(mean.data_ptr(), cov.data_ptr(), frozen_mean.data_ptr(), frozen_cov.data_ptr(),
                 last_meas.data_ptr(), z2.data_ptr(), rejoin.data_ptr(), gap.data_ptr(),
                 out_mean.data_ptr(), out_cov.data_ptr(), replayed.data_ptr(), _noise(layout),
-                S, K, int(layout.dz == 5), MAX_ORU, torch.cuda.current_stream(dev).cuda_stream)
+                S, K, int(obb), MAX_ORU, *launch_geometry(S, K, obb),
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("oru", "bmt_oru", rc)
     oru_replay.launches += 1
     return out_mean, out_cov

@@ -11,7 +11,7 @@ file path beside another checkout of the port.
 * ``record_calls`` keeps the arguments of the kernel wrappers a step calls,
   so that a kernel can be timed on the inputs the main path gives it.
 * ``profile_steps`` gives the device busy time of a run of steps, and each
-  kernel's share of it.
+  kernel's share of it, from a trace that another one confirms.
 * ``bound_ms`` is the least time the card could take for some work: the
   larger of its bytes over the memory rate and its operations over the
   float32 rate (NVIDIA H100 SXM data sheet, 700 W).
@@ -105,18 +105,38 @@ def record_calls(module, names):
             setattr(module, name, fn)
 
 
+def settled_trace(kernel_counts: list[int]) -> int | None:
+    """Which of the step traces taken so far to keep, from their kernel
+    counts in order: the latest one whose count an earlier trace matches;
+    after three traces of which no two agree, the one with the most kernels
+    (a trace loses device events, it never gains them); else None, to take
+    another."""
+    if kernel_counts[-1] in kernel_counts[:-1]:
+        return len(kernel_counts) - 1
+    if len(kernel_counts) >= 3:
+        return max(range(len(kernel_counts)), key=kernel_counts.__getitem__)
+    return None
+
+
 def profile_steps(fn, n_steps: int) -> dict:
     """Profile ``fn`` (which runs ``n_steps`` steps and returns nothing the
     host waits for); per step: kernels launched, device busy ms, and each
-    kernel's (launches, device ms)."""
+    kernel's (launches, device ms).  A trace now and then loses device
+    events, so ``fn`` is traced until two traces agree on the kernel count,
+    at most three times (``settled_trace``); ``traces`` says how many."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    table = _kernel_table(prof)
+    tables, keep = [], None
+    while keep is None:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        tables.append(_kernel_table(prof))
+        keep = settled_trace([sum(n for n, _ in t.values()) for t in tables])
+    table = tables[keep]
     return {
         "kernels_per_step": sum(n for n, _ in table.values()) / n_steps,
         "busy_ms_per_step": sum(us for _, us in table.values()) / n_steps / 1e3,
         "by_kernel": {k: (n / n_steps, us / n_steps / 1e3) for k, (n, us) in table.items()},
+        "traces": len(tables),
     }

@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      in shared memory, cost read from global memory), K3 also on crossed
      quadrilaterals that overflow its fast path, K4 (the ORU) against its
      twin on the CPU, AABB and OBB, where every slot rejoins with gaps 2-31,
-     on a ragged S with gaps past MAX_ORU, and on a recorded OC-SORT step;
+     on a ragged S with gaps past MAX_ORU, on its edges (no slot rejoining,
+     5 x 13 slots, gaps of MAX_ORU and MAX_ORU + 1, tied alignment
+     candidates) and on a recorded OC-SORT step;
      the launch floor, an empty kernel's device time through K1's ctypes
      path on one block and on K1's grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
@@ -53,6 +55,7 @@ from __future__ import annotations
 import concurrent.futures
 import configparser
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -81,9 +84,10 @@ from boxmot_tpu_torch.ops.fused_iou_cost import (
     fused_iou_cost_plain,
     launch_geometry,
 )
-from boxmot_tpu_torch.ops.geometry import obb_corners
+from boxmot_tpu_torch.ops.geometry import obb_corners, wrap_angle
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
+from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
 from boxmot_tpu_torch.trackers import bytetrack, ocsort
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
@@ -224,6 +228,60 @@ def oru_inputs(rng, S, K, obb, p_rejoin=1.0, gap_max=31):
     rejoin = torch.from_numpy(rng.uniform(size=(S, K)) < p_rejoin)
     tensors = [t.contiguous() for t in (mean, cov, frozen_mean, frozen_cov, last_meas, z2)]
     return layout, tensors, rejoin, gap
+
+
+# K4's edge sets: (name, oriented) pairs of oru_edge_inputs
+ORU_EDGES = (("no slot rejoins", False), ("no slot rejoins", True), ("5 x 13", False),
+             ("5 x 13", True), ("gaps MAX_ORU, MAX_ORU + 1", False),
+             ("gaps MAX_ORU, MAX_ORU + 1", True), ("alignment ties", True))
+
+
+def _alignment_ties():
+    """(measured angle, reference angle) float32 pairs for which two of
+    align_obb_xysr's candidates cost exactly the same when r = 1 (every
+    candidate then has the same size cost): measured angles within 8 ulps of
+    +-pi/2 against references within 64 ulps of +-pi/4 and +-3pi/4, the
+    angle costs formed as the alignment forms them."""
+    th = np.concatenate([np.float32(s * np.pi / 2) + np.arange(-8, 9, dtype=np.float32)
+                         * np.spacing(np.float32(np.pi / 2)) for s in (-1, 1)])
+    ref = np.concatenate([np.float32(k * np.pi / 4) + np.arange(-64, 65, dtype=np.float32)
+                          * np.spacing(np.float32(np.pi / 4) * abs(k)) for k in (-3, -1, 1, 3)])
+    th, ref = (torch.from_numpy(np.ascontiguousarray(x)) for x in np.meshgrid(th, ref))
+    a = wrap_angle(wrap_angle(th))  # the measurement's wrap, then the candidate's
+    cand = torch.stack([a, a + math.pi, a + math.pi / 2, a - math.pi / 2], -1)
+    cost = torch.abs(ref[..., None] + wrap_angle(cand - ref[..., None]) - ref[..., None])
+    tie = (cost == cost.min(-1, keepdim=True).values).sum(-1) > 1
+    return th[tie], ref[tie]
+
+
+def oru_edge_inputs(rng, edge, obb):
+    """K4's edge sets, as ``oru_inputs`` returns them: no slot rejoining (a
+    pure copy-through, 8 x 256); S x K = 5 x 13, not a multiple of a block's
+    warps; gaps of exactly MAX_ORU and MAX_ORU + 1; and, oriented, alignment
+    ties: r = 1 in both measurements and, for the measured and frozen
+    angles, pairs near +-pi/2 and +-pi/4 or +-3pi/4 on which two candidates
+    cost exactly the same (``_alignment_ties``), with a gap of 1, so that the
+    replay's one update aligns against the frozen mean on a tie."""
+    if edge == "no slot rejoins":
+        return oru_inputs(rng, N_SEQS, CAPACITY, obb, p_rejoin=0.0)
+    if edge == "5 x 13":
+        return oru_inputs(rng, 5, 13, obb, p_rejoin=0.7)
+    if edge == "gaps MAX_ORU, MAX_ORU + 1":
+        layout, tensors, rejoin, gap = oru_inputs(rng, 2, 16, obb)
+        gap = torch.full_like(gap, MAX_ORU)
+        gap[:, 1::2] = MAX_ORU + 1
+        return layout, tensors, rejoin, gap
+    if edge != "alignment ties" or not obb:
+        raise ValueError(f"no K4 edge set {edge!r} (oriented: {obb})")
+    layout, tensors, rejoin, _ = oru_inputs(rng, 2, 32, True)
+    mean, cov, frozen_mean, frozen_cov, last_meas, z2 = (t.clone() for t in tensors)
+    th, ref = _alignment_ties()
+    pick = torch.from_numpy(rng.integers(0, len(th), (2, 32)))
+    frozen_mean[..., 4] = ref[pick]
+    last_meas[..., 3], last_meas[..., 4] = 1.0, th[pick]
+    z2[..., 3], z2[..., 4] = 1.0, th[pick]
+    gap = torch.ones((2, 32), dtype=torch.int32)
+    return layout, [mean, cov, frozen_mean, frozen_cov, last_meas, z2], rejoin, gap
 
 
 def _boxes(rng, S, n):
@@ -633,27 +691,36 @@ def _k4_update_ops(dx, dz):
     return ops
 
 
+def k4_bytes(layout, rejoin):
+    """Bytes K4's function must move.  It is out of place: every slot's mean
+    and covariance is written once and read once, from the frame's predict
+    where the slot does not rejoin and from the frozen state where it does;
+    a rejoining slot also reads its last and new measurements and its gap.
+    Every rejoin flag is read, and ``replayed`` (S,) read and written."""
+    dx, dz = layout.dx, layout.dz
+    S, K = rejoin.shape
+    return S * K * (1 + 8 * (dx + dx * dx)) + int(rejoin.sum()) * 4 * (2 * dz + 1) + 8 * S
+
+
 def k4_bound(layout, rejoin, gap):
-    """K4's least time for these inputs, counted from the rejoining slots
-    alone (a slot that does not rejoin keeps its mean and covariance): each
-    reads its frozen mean and covariance, its last and new measurements, its
-    gap and flag and writes its mean and covariance; its operations are
-    those of its min(gap, MAX_ORU) updates and the predicts between them."""
+    """K4's least time for these inputs: ``k4_bytes`` over the memory rate,
+    or the operations of each rejoining slot's min(gap, MAX_ORU) updates and
+    the predicts between them over the float32 rate."""
     dx, dz = layout.dx, layout.dz
     n = torch.clamp(torch.where(rejoin, gap, 0), max=MAX_ORU).cpu().to(torch.int64)
-    slots, updates = int(rejoin.sum()), int(n.sum())
-    n_bytes = slots * (4 * (2 * (dx + dx * dx) + 2 * dz + 1) + 1)
-    return measure.bound_ms(n_bytes, updates * _k4_update_ops(dx, dz)
+    slots, updates = int((n > 0).sum()), int(n.sum())
+    return measure.bound_ms(k4_bytes(layout, rejoin), updates * _k4_update_ops(dx, dz)
                             + (updates - slots) * _k4_predict_ops(dx))
 
 
 def check_k4(rng, step_calls):
     """K4 (the ORU) bit-equal to its twin run on the CPU, AABB and OBB: at the
     bench's S x K where every slot rejoins with gaps 2-31, on a ragged S
-    with half the slots rejoining and gaps up to 40 (past MAX_ORU), and on a
-    recorded OC-SORT bench step; then the kernel timed on that step's
-    inputs, and on the all-rejoin AABB set, beside its wrapper, the plain
-    version (the same twin, run on the card) and the bound."""
+    with half the slots rejoining and gaps up to 40 (past MAX_ORU), on its
+    edge sets (``oru_edge_inputs``) and on a recorded OC-SORT bench step;
+    then the kernel timed on that step's inputs, and on the all-rejoin AABB
+    and OBB sets, beside its wrapper, the plain version (the same twin, run
+    on the card) and the bound."""
     sets = {}
     for obb in (False, True):
         kind = "OBB" if obb else "AABB"
@@ -662,6 +729,10 @@ def check_k4(rng, step_calls):
             layout, tensors, rejoin, gap = oru_inputs(rng, *args)
             _k4_same(label, layout, tensors, rejoin, gap)
             sets[label] = (layout, [t.cuda() for t in (*tensors, rejoin, gap)])
+        print(f"K4 {kind} launch at (S, K) = ({N_SEQS}, {CAPACITY}): "
+              f"{k4_geometry(N_SEQS, CAPACITY, obb)} (blocks, threads, shared bytes a block)")
+    for edge, obb in ORU_EDGES:
+        _k4_same(f"{'OBB' if obb else 'AABB'} {edge}", *oru_edge_inputs(rng, edge, obb))
     rows = []
     for i, (args, _) in enumerate(step_calls["ocsort"]["oru_replay"]):
         layout, tensors, rejoin, gap = args[0], args[1:7], args[7], args[8]

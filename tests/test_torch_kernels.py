@@ -18,7 +18,7 @@ from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
 from boxmot_tpu_torch.ops.oru import oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from chip_smoke import _tiny_boxes, crossed_quads, oru_inputs
+from chip_smoke import ORU_EDGES, _tiny_boxes, crossed_quads, oru_edge_inputs, oru_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -105,6 +105,28 @@ def test_oru_kernel_bit_equal_to_twin_on_the_cpu(card, obb, S, K, p_rejoin, gap_
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert torch.equal(replayed[0].cpu(), replayed[1])
     assert int(replayed[1].sum()) == int(rejoin.sum())
+
+
+@pytest.mark.parametrize("edge, obb", ORU_EDGES, ids=[f"{e}-{'obb' if o else 'aabb'}"
+                                                     for e, o in ORU_EDGES])
+def test_oru_kernel_edges_bit_equal_to_twin_on_the_cpu(card, edge, obb):
+    """K4 on its edges, bit-equal to its twin on the CPU: no slot rejoining
+    (every warp copies through), 5 x 13 slots (the last block part empty),
+    gaps of exactly MAX_ORU and MAX_ORU + 1, and alignment candidates that
+    tie (the first one wins, as jnp.argmin)."""
+    rng = np.random.default_rng(len(edge) + obb)
+    layout, tensors, rejoin, gap = oru_edge_inputs(rng, edge, obb)
+    S = rejoin.shape[0]
+    replayed = [torch.zeros(S, dtype=torch.int32, device=d) for d in (card, "cpu")]
+    before = oru_replay.launches
+    got = oru_replay(layout, *(t.to(card) for t in (*tensors, rejoin, gap)), replayed[0])
+    want = oru_replay_plain(layout, *tensors, rejoin, gap, replayed[1])
+    torch.cuda.synchronize()
+    assert oru_replay.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(replayed[0].cpu(), replayed[1])
+    if edge == "no slot rejoins":
+        assert torch.equal(got[0].cpu(), tensors[0]) and torch.equal(got[1].cpu(), tensors[1])
 
 
 def _problem(rng, kind, S, R, C):

@@ -56,7 +56,7 @@ from boxmot_tpu_torch.ops import oru
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
 from boxmot_tpu_torch.trackers import ocsort as to
-from chip_smoke import oru_inputs, synthetic_obb_frames
+from chip_smoke import k4_bound, k4_bytes, oru_inputs, synthetic_obb_frames
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
 from tests.test_torch_bytetrack import _public_frames
 from tests.test_torch_obb import ATOL, JAX_OBB_EVAL, MMOT
@@ -319,6 +319,38 @@ def test_oru_plain_replays_the_capped_gap_and_passes_other_slots_through():
         oru.oru_replay(tk.make_xyah_layout(), *tensors, rejoin, gap, replayed)
     with pytest.raises(ValueError, match="int32"):
         oru.oru_replay(layout, *tensors, rejoin, gap.long(), replayed)
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+def test_k4_bound_counts_every_slot_of_the_out_of_place_replay(obb):
+    """K4 writes new (S, K, dx) and (S, K, dx, dx) outputs, so its bound
+    reads and writes every slot's mean and covariance once, and only the
+    rejoining slots' measurements and gaps; its operations are those of each
+    rejoining slot's min(gap, MAX_ORU) updates and the predicts between."""
+    from boxmot_tpu_torch.utils import measure
+    from chip_smoke import _k4_predict_ops, _k4_update_ops
+    layout = tk.make_xysr_layout(obb, 0.01, 1e-4, 1e-4)
+    rejoin = torch.tensor([[True, False, True], [False, False, True]])
+    gap = torch.tensor([[2, 7, 5], [9, 1, 40]], dtype=torch.int32)
+    dx, dz = (9, 5) if obb else (7, 4)
+    state = 4 * (dx + dx * dx)  # one slot's mean and covariance
+    hand = 6 * (state + state + 1) + 3 * (4 * dz + 4 * dz + 4) + 2 * 4 * 2
+    assert k4_bytes(layout, rejoin) == hand == (4474 if obb else 2818)
+    updates = 2 + 5 + oru.MAX_ORU
+    assert k4_bound(layout, rejoin, gap) == measure.bound_ms(
+        hand, updates * _k4_update_ops(dx, dz) + (updates - 3) * _k4_predict_ops(dx))
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+@pytest.mark.parametrize("S, K", [(8, 256), (3, 77), (1, 1)])
+def test_k4_launch_geometry_is_a_warp_a_slot(S, K, obb):
+    g = oru.launch_geometry(S, K, obb)
+    warps = g.threads // 32
+    assert g.threads % 32 == 0 and g.threads == oru.THREADS <= 128
+    assert (g.blocks - 1) * warps < S * K <= g.blocks * warps  # every slot, no empty block
+    tile = 4 * (407 if obb else 262)  # csrc/oru.cu's Tile<9, 5> / Tile<7, 4>, counted by hand
+    assert g.shared_bytes == warps * tile == warps * 4 * oru.tile_floats(*((9, 5) if obb else (7, 4)))
+    assert g.shared_bytes <= 48 * 1024  # dynamic shared memory without an opt-in
 
 
 @pytest.mark.parametrize("variant", ["defaults", "byte-giou"])

@@ -219,3 +219,16 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     assert build.library_path("auction") != a
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.library_path("iou_cost") != a
+
+
+@pytest.mark.parametrize("counts, keep", [
+    ([403], None),  # one trace: take another
+    ([403, 403], 1),  # two agree
+    ([401, 403], None),  # the first lost events: take a third
+    ([401, 403, 403], 2),
+    ([403, 401, 403], 2),
+    ([399, 401, 400], 1),  # no two agree after three: the most kernels
+])
+def test_profile_keeps_a_trace_that_another_confirms(counts, keep):
+    from boxmot_tpu_torch.utils.measure import settled_trace
+    assert settled_trace(counts) == keep

@@ -24,7 +24,14 @@ measured the same way.  On one CUDA card it:
    the auction's and rotated IoU's device ms per step, and host ms per step
    without the profiler;
 4. times the full bench replay (frames/s, the median of 3 launches after a
-   warm-up), as chip_smoke.py's bench lines do.
+   warm-up), as chip_smoke.py's bench lines do;
+5. OC-SORT AABB with 5 % of the detections missed a frame
+   (``synthetic_frames_missed``): records the ORU launch of the step that
+   chip_smoke.py's phase 3 records (frame 64 of 65) and times kernel K4's
+   device time per launch on its inputs and on chip_smoke.py's all-rejoin
+   sets (``oru_inputs`` at 8 x 256, AABB and OBB, gaps 2-31); then profiles
+   16 OC-SORT steps of the bench input (frames 64-79): kernels, device busy
+   and K4's device ms per step, and host ms per step without the profiler.
 
 It prints one JSON object and appends it to chiprun_out/port_kernel_ab.jsonl.
 Compare two checkouts only within one run on one card, in turns
@@ -73,8 +80,9 @@ def main() -> int:
     from boxmot_tpu_torch.ops import fused_iou_cost as fic
     from boxmot_tpu_torch.ops.geometry import obb_corners
     from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
-    from boxmot_tpu_torch.trackers import bytetrack
+    from boxmot_tpu_torch.trackers import bytetrack, ocsort
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+    from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 
     import boxmot_tpu_torch
     if Path(boxmot_tpu_torch.__file__).resolve().parents[1] != root:
@@ -82,8 +90,8 @@ def main() -> int:
     measure = _load_measure()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        list(pool.map(build.build, ("iou_cost", "auction", "rotated_iou")))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(build.build, ("iou_cost", "auction", "rotated_iou", "oru")))
 
     result = {"label": args.label or str(root), "card": smi}
     paths = {
@@ -123,6 +131,7 @@ def main() -> int:
         prof = measure.profile_steps(lambda: batch_replay(cfg, s16, batch[:, 64:80]), 16)
         result[f"{label}_kernels_per_step"] = prof["kernels_per_step"]
         result[f"{label}_busy_ms_per_step"] = prof["busy_ms_per_step"]
+        result[f"{label}_profile_traces"] = prof["traces"]
         for name, k in kernels.items():
             hits = [v for key, v in prof["by_kernel"].items() if k in key]
             result[f"{label}_{name}_ms_per_step"] = sum(ms for _, ms in hits)
@@ -163,6 +172,8 @@ def main() -> int:
     c1, c2 = (obb_corners(x).contiguous() for x in (a, b))
     result["rotated_iou_4096_device_ms"] = measure.device_ms(
         lambda: rotated_iou(a, b, c1, c2), "rotated_iou_kernel", reps=5, warmup=2)
+    result.update(_ocsort(cs, measure, batch_replay, init_states, pack_frames, ocsort,
+                          OcSortConfig))
     line = json.dumps(result)
     print(line)
     out = HERE / "chiprun_out"
@@ -170,6 +181,51 @@ def main() -> int:
     with open(out / "port_kernel_ab.jsonl", "a") as f:
         f.write(line + "\n")
     return 0
+
+
+def _ocsort(cs, measure, batch_replay, init_states, pack_frames, ocsort, OcSortConfig) -> dict:
+    """Step 5: K4 on the recorded OC-SORT AABB step and the all-rejoin sets,
+    and the 16-step OC-SORT profile."""
+    result = {}
+    cfg = OcSortConfig(capacity=cs.CAPACITY)
+    packed = [pack_frames(cs.synthetic_frames_missed(65, cs.N_DETS, seed=100 + s), D=cs.D_BENCH,
+                          F=65, det_cols=6)[0] for s in range(cs.N_SEQS)]
+    batch = torch.from_numpy(np.stack(packed)).cuda()
+    states, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64])
+    with measure.record_calls(ocsort, ["oru_replay"]) as rec:
+        batch_replay(cfg, states, batch[:, 64:])
+    sets = {"ocsort_step": rec["oru_replay"][0][0]}
+    for seed, obb in enumerate((False, True)):
+        layout, tensors, rejoin, gap = cs.oru_inputs(np.random.default_rng(seed), cs.N_SEQS,
+                                                     cs.CAPACITY, obb)
+        replayed = torch.zeros(cs.N_SEQS, dtype=torch.int32)
+        sets[f"all_rejoin_{'obb' if obb else 'aabb'}"] = [
+            layout, *(t.cuda() for t in (*tensors, rejoin, gap, replayed))]
+    for label, args in sets.items():
+        result[f"oru_{label}_device_ms_per_launch"] = measure.device_ms(
+            lambda: ocsort.oru_replay(*args), "oru_kernel")
+        result[f"oru_{label}_slots_rejoining"] = int(args[7].sum())
+        result[f"oru_{label}_longest_gap"] = int(torch.where(args[7], args[8], 0).max())
+
+    # 16 steps of the bench input under the profiler, and without it on the host clock
+    packed = [pack_frames(cs.synthetic_frames_missed(cs.N_FRAMES, cs.N_DETS, seed=s), D=cs.D_BENCH,
+                          F=cs.N_FRAMES, det_cols=6)[0] for s in range(cs.N_SEQS)]
+    batch = torch.from_numpy(np.stack(packed)).cuda()
+    s16, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64])
+    prof = measure.profile_steps(lambda: batch_replay(cfg, s16, batch[:, 64:80]), 16)
+    result["ocsort_kernels_per_step"] = prof["kernels_per_step"]
+    result["ocsort_busy_ms_per_step"] = prof["busy_ms_per_step"]
+    result["ocsort_profile_traces"] = prof["traces"]
+    result["ocsort_oru_replay_ms_per_step"] = sum(
+        ms for key, (_, ms) in prof["by_kernel"].items() if "oru_kernel" in key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_replay(cfg, s16, batch[:, 80:96])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 16
+    result["ocsort_host_ms_per_step"] = host_ms
+    result["ocsort_idle_share"] = 1.0 - prof["busy_ms_per_step"] / host_ms
+    return result
 
 
 if __name__ == "__main__":
