@@ -18,21 +18,31 @@
 // does not rejoin copies the slot's mean and covariance through, lane i
 // taking floats i, i + 32, ..., so that each load touches neighbouring
 // addresses, and exits.  A rejoining slot's warp keeps the replay's state
-// (mean, covariance, Cholesky factor, its inverse, S^-1, gain, I - K H and
-// A P) in a tile of shared memory of its own, about 1-1.6 KB, and runs each
-// stage of the filter as a function of the lane over that tile: the lanes
-// share out a stage's elements, and __syncwarp separates the stages, so no
-// lane reads in a stage what another writes in it.  The serial parts stay on
-// one lane or a few: the Cholesky of the dz x dz innovation covariance on one
-// lane, its inverse with one lane per column (each column is a chain of its
-// own), the interpolation on one lane, the oriented alignment's four
-// candidates on four lanes and the pick on one.
+// (mean, covariance and a second covariance buffer, L^-1, S^-1, gain and
+// I - K H) in a tile of shared memory of its own, about 1-1.5 KB, and runs
+// each stage of the filter as a function of the lane over that tile: the
+// lanes share out a stage's elements, each lane computing all its values
+// before it stores them, and __syncwarp separates the stages, so no lane
+// reads in a stage what another writes in it.  An iteration is seven
+// stages: F P F^T with the noise (each lane forms the rows of F P that its
+// element needs) beside the predicted mean and the next measurement; the
+// factor; S^-1 = M^T M; the gain; the mean and I - K H; A P; the Joseph
+// covariance.  The serial parts stay on one lane or a few: the Cholesky of
+// the dz x dz innovation covariance and its inverse M on one lane, in
+// registers; the interpolation on one lane; the oriented alignment's four
+// candidates on four lanes and the pick on one.  XYSR's innovation
+// covariance is diagonal, so most of the factor's divisions divide an exact
+// zero, which sends the card's IEEE division to its slow path: div_rn forms
+// those quotients, signed zeros, as products.
 //
 // Bound on this card: the function is out of place, so it reads and writes
 // every slot's mean and covariance once (about 0.9 MB at 8 x 256 slots, 7
-// states); the rejoining slots add a few thousand dependent operations an
-// update.  A launch's time is the launch, that copy, and the longest slot's
-// chain of stages (ops/oru.py, chip_smoke.py::k4_bound counts the work).
+// states); the rejoining slots add a few thousand operations an update.  A
+// launch's time is the launch, that copy, and the longest slot's replay: a
+// lone warp issuing some hundreds of mostly dependent instructions an
+// iteration, divergent lanes' paths one after another, the factor's chain
+// of square roots and divisions the longest of them (ops/oru.py,
+// chip_smoke.py::k4_bound counts the work).
 //
 // Arithmetic must equal the plain PyTorch twin (ops/oru.py::oru_replay_plain
 // with motion/kalman.py's predict and update) bit for bit: each output
@@ -80,7 +90,8 @@ struct Args {
 };
 
 // A rejoining slot's replay state and workspace, in its warp's tile of
-// shared memory; ops/oru.py::tile_floats counts the same floats.
+// shared memory; ops/oru.py::tile_floats counts the same floats (the
+// factor L lives in the factoring lane's registers).
 template <int DX, int DZ>
 struct Tile {
   float m[DX];  // the replay's mean
@@ -89,8 +100,7 @@ struct Tile {
   float m1[DZ];  // the last real measurement
   float step[8];  // w1, h1, then the steps of x, y, w, h and the angle
   float cand[3][4];  // the OBB alignment: each candidate's cost, angle and r
-  float L[DZ][DZ];  // the Cholesky factor (lower triangle)
-  float M[DZ][DZ];  // its inverse; the upper triangle stays 0
+  float M[DZ][DZ];  // L^-1 of S's Cholesky factor L; the upper triangle stays 0
   float Si[DZ][DZ];
   float G[DX][DZ];  // the gain
   float A[DX][DX];  // I - K H
@@ -108,6 +118,22 @@ struct Lanes {
   }
 };
 
+// The elements e = lane, lane + 32, ... below N of a stage: every value
+// computed first, so that a lane's elements overlap, then stored.
+template <int N, class V, class S>
+__device__ __forceinline__ void each(const int lane, V&& value, S&& store) {
+  constexpr int kPer = (N + kWarp - 1) / kWarp;
+  float v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (lane + k * kWarp < N) v[k] = value(lane + k * kWarp);
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (lane + k * kWarp < N) store(lane + k * kWarp, v[k]);
+  }
+}
+
 // torch.clamp_min: NaN propagates
 __device__ __forceinline__ float clamp_min(const float x, const float lo) {
   return x < lo ? lo : x;
@@ -118,6 +144,13 @@ __device__ __forceinline__ float wrap_angle(const float a) {
   float mod = fmodf(__fadd_rn(a, kPi), kTwoPi);
   if (mod != 0.0f && (mod < 0.0f)) mod = __fadd_rn(mod, kTwoPi);
   return __fsub_rn(mod, kPi);
+}
+
+// IEEE division n / d.  A zero dividend sends the card's division to its
+// slow path, so where d is finite and not zero the quotient, a zero with the
+// sign of the product, is formed as n * d.
+__device__ __forceinline__ float div_rn(const float n, const float d) {
+  return n == 0.0f && d != 0.0f && isfinite(d) ? __fmul_rn(n, d) : __fdiv_rn(n, d);
 }
 
 __device__ __forceinline__ float exact_sqrt(const float x) {
@@ -147,7 +180,7 @@ __device__ __forceinline__ float enforce(const int a, const float x) {
 // w = sqrt(max(s r, 1e-12)), h = sqrt(max(s / max(r, 1e-12), 1e-12))
 __device__ __forceinline__ void meas_wh(const float s, const float r, float& w, float& h) {
   w = exact_sqrt(clamp_min(__fmul_rn(s, r), 1e-12f));
-  h = exact_sqrt(clamp_min(__fdiv_rn(s, clamp_min(r, 1e-12f)), 1e-12f));
+  h = exact_sqrt(clamp_min(div_rn(s, clamp_min(r, 1e-12f)), 1e-12f));
 }
 
 // one lane: the start and steps of the interpolation between the last real
@@ -167,11 +200,11 @@ __device__ void interpolation(Tile<DX, DZ>& t, const Args& a, const size_t zo, c
   const float gapf = clamp_min(static_cast<float>(g), 1.0f);
   t.step[0] = w1;
   t.step[1] = h1;
-  t.step[2] = __fdiv_rn(__fsub_rn(zz[0], m1[0]), gapf);
-  t.step[3] = __fdiv_rn(__fsub_rn(zz[1], m1[1]), gapf);
-  t.step[4] = __fdiv_rn(__fsub_rn(w2, w1), gapf);
-  t.step[5] = __fdiv_rn(__fsub_rn(h2, h1), gapf);
-  t.step[6] = DZ == 5 ? __fdiv_rn(wrap_angle(__fsub_rn(zz[DZ - 1], m1[DZ - 1])), gapf) : 0.0f;
+  t.step[2] = div_rn(__fsub_rn(zz[0], m1[0]), gapf);
+  t.step[3] = div_rn(__fsub_rn(zz[1], m1[1]), gapf);
+  t.step[4] = div_rn(__fsub_rn(w2, w1), gapf);
+  t.step[5] = div_rn(__fsub_rn(h2, h1), gapf);
+  t.step[6] = DZ == 5 ? div_rn(wrap_angle(__fsub_rn(zz[DZ - 1], m1[DZ - 1])), gapf) : 0.0f;
 }
 
 // one lane: the i-th interpolated measurement
@@ -183,7 +216,7 @@ __device__ void measurement(Tile<DX, DZ>& t, const int i) {
   t.z[0] = __fadd_rn(t.m1[0], __fmul_rn(fi, t.step[2]));
   t.z[1] = __fadd_rn(t.m1[1], __fmul_rn(fi, t.step[3]));
   t.z[2] = clamp_min(__fmul_rn(wi, hi), 1e-6f);
-  t.z[3] = clamp_min(__fdiv_rn(wi, clamp_min(hi, 1e-12f)), 1e-6f);
+  t.z[3] = clamp_min(div_rn(wi, clamp_min(hi, 1e-12f)), 1e-6f);
   if (DZ == 5) t.z[DZ - 1] = wrap_angle(__fadd_rn(t.m1[DZ - 1], __fmul_rn(fi, t.step[6])));
 }
 
@@ -203,7 +236,7 @@ __device__ void candidate(Tile<DX, DZ>& t, const int c) {
                                 : __fsub_rn(th, kHalfPi);
   const float aligned = __fadd_rn(ref_th, wrap_angle(__fsub_rn(cand_t, ref_th)));
   const float angle_cost = fabsf(__fsub_rn(aligned, ref_th));
-  const float size_cost = fabsf(exact_log(__fdiv_rn(cand_r, ref_r)));
+  const float size_cost = fabsf(exact_log(div_rn(cand_r, ref_r)));
   t.cand[0][c] = __fadd_rn(angle_cost, __fmul_rn(0.05f, size_cost));
   t.cand[1][c] = aligned;
   t.cand[2][c] = cand_r;
@@ -222,9 +255,12 @@ __device__ void pick(Tile<DX, DZ>& t) {
   t.z[4] = t.cand[1][best];
 }
 
-// one lane: the unrolled Cholesky of S = P[:dz, :dz] + R, in registers
+// one lane: the unrolled Cholesky of S = P[:dz, :dz] + R and its inverse
+// M = L^-1, in registers (a chain of dependent square roots and divisions
+// with nothing to share out); M's lower triangle written to the tile, whose
+// upper triangle stays 0
 template <int DX, int DZ>
-__device__ void cholesky(Tile<DX, DZ>& t, const float (&P)[DX][DX], const Noise& nz) {
+__device__ void factor(Tile<DX, DZ>& t, const float (&P)[DX][DX], const Noise& nz) {
   float L[DZ][DZ];
 #pragma unroll
   for (int i = 0; i < DZ; ++i) {
@@ -233,20 +269,22 @@ __device__ void cholesky(Tile<DX, DZ>& t, const float (&P)[DX][DX], const Noise&
       float s = __fadd_rn(P[i][j], i == j ? nz.r[i] : 0.0f);
 #pragma unroll
       for (int k = 0; k < j; ++k) s = __fsub_rn(s, __fmul_rn(L[i][k], L[j][k]));
-      L[i][j] = i == j ? exact_sqrt(clamp_min(s, 1e-9f)) : __fdiv_rn(s, L[j][j]);
-      t.L[i][j] = L[i][j];
+      L[i][j] = i == j ? exact_sqrt(clamp_min(s, 1e-9f)) : div_rn(s, L[j][j]);
     }
   }
-}
-
-// lane j < dz: column j of M = L^-1, a chain of its own down the rows
-template <int DX, int DZ>
-__device__ void inverse_column(Tile<DX, DZ>& t, const int j) {
-  t.M[j][j] = __frcp_rn(t.L[j][j]);
-  for (int i = j + 1; i < DZ; ++i) {
-    float s = __fmul_rn(t.L[i][j], t.M[j][j]);
-    for (int k = j + 1; k < i; ++k) s = __fadd_rn(s, __fmul_rn(t.L[i][k], t.M[k][j]));
-    t.M[i][j] = __fdiv_rn(-s, t.L[i][i]);
+  float M[DZ][DZ];
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    M[i][i] = __frcp_rn(L[i][i]);
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      float s = __fmul_rn(L[i][j], M[j][j]);
+#pragma unroll
+      for (int k = j + 1; k < i; ++k) s = __fadd_rn(s, __fmul_rn(L[i][k], M[k][j]));
+      M[i][j] = div_rn(-s, L[i][i]);
+    }
+#pragma unroll
+    for (int j = 0; j <= i; ++j) t.M[i][j] = M[i][j];
   }
 }
 
@@ -267,75 +305,59 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
     for (int e = lane; e < DX; e += kWarp) t.m[e] = a.frozen_mean[mo + e];
     for (int e = lane; e < DX * DX; e += kWarp) (&t.P[0][0][0])[e] = a.frozen_cov[co + e];
     for (int e = lane; e < DZ * DZ; e += kWarp) (&t.M[0][0])[e] = 0.0f;
-    if (lane == kStepLane) interpolation(t, a, zo, g);
+    if (lane == kStepLane) {
+      interpolation(t, a, zo, g);
+      measurement(t, 1);
+    }
   });
-  constexpr int kVelRows = DX == 7 ? 3 : 4;  // rows of F with an off-diagonal 1
   const int n = min(g, a.max_oru);
   int cur = 0;
   for (int i = 1; i <= n; ++i) {
     if (i > 1) {
       float(&P)[DX][DX] = t.P[cur];
       float(&Q)[DX][DX] = t.P[cur ^ 1];
-      // the predicted mean (its velocities do not change), F P's rows in
-      // place (a row reads a velocity row, which stays), the measurement
+      // the predicted mean (its velocities do not change), F P F^T and the
+      // noise into the second buffer (each lane forms the rows of F P that
+      // its element needs), the measurement
       lanes.stage([&](const int lane) {
         if (lane < DZ) {
           const int v = vel_of<DX>(lane);
           t.m[lane] = enforce<DX>(lane, v >= 0 ? __fadd_rn(t.m[lane], t.m[v]) : t.m[lane]);
         }
-        for (int e = lane; e < kVelRows * DX; e += kWarp) {
-          const int row = e / DX == 3 ? 4 : e / DX, c = e % DX;
-          P[row][c] = __fadd_rn(P[row][c], P[vel_of<DX>(row)][c]);
-        }
+        each<DX * DX>(lane, [&](const int e) {
+          const int r = e / DX, c = e % DX, vr = vel_of<DX>(r), vc = vel_of<DX>(c);
+          float x = vr >= 0 ? __fadd_rn(P[r][c], P[vr][c]) : P[r][c];
+          if (vc >= 0) x = __fadd_rn(x, vr >= 0 ? __fadd_rn(P[r][vc], P[vr][vc]) : P[r][vc]);
+          return __fadd_rn(x, r == c ? nz.q[c] : 0.0f);
+        }, [&](const int e, const float x) { (&Q[0][0])[e] = x; });
         if (lane == kStepLane) measurement(t, i);
-      });
-      // (F P) F^T and the noise into the second buffer; the alignment's
-      // candidates against the predicted mean
-      lanes.stage([&](const int lane) {
-        for (int e = lane; e < DX * DX; e += kWarp) {
-          const int r = e / DX, c = e % DX, v = vel_of<DX>(c);
-          const float x = v >= 0 ? __fadd_rn(P[r][c], P[r][v]) : P[r][c];
-          Q[r][c] = __fadd_rn(x, r == c ? nz.q[c] : 0.0f);
-        }
-        if (DZ == 5 && lane >= kCandLane) candidate(t, lane - kCandLane);
       });
       cur ^= 1;
-    } else {
-      lanes.stage([&](const int lane) {
-        if (lane == kStepLane) measurement(t, i);
-      });
-      if (DZ == 5) {
-        lanes.stage([&](const int lane) {
-          if (lane >= kCandLane) candidate(t, lane - kCandLane);
-        });
-      }
     }
     float(&P)[DX][DX] = t.P[cur];
     float(&AP)[DX][DX] = t.P[cur ^ 1];
-    lanes.stage([&](const int lane) {
-      if (lane == 0) cholesky(t, P, nz);
-      if (DZ == 5 && lane == 1) pick(t);
+    lanes.stage([&](const int lane) {  // S's factor and inverse; the alignment's candidates
+      if (lane == 0) factor(t, P, nz);
+      if (DZ == 5 && lane >= kCandLane) candidate(t, lane - kCandLane);
     });
-    lanes.stage([&](const int lane) {
-      if (lane < DZ) inverse_column(t, lane);
-    });
-    lanes.stage([&](const int lane) {  // Sinv = M^T M
-      for (int e = lane; e < DZ * DZ; e += kWarp) {
+    lanes.stage([&](const int lane) {  // Sinv = M^T M; the aligned measurement
+      each<DZ * DZ>(lane, [&](const int e) {
         const int r = e / DZ, c = e % DZ;
         float s = __fmul_rn(t.M[0][r], t.M[0][c]);
 #pragma unroll
         for (int k = 1; k < DZ; ++k) s = __fadd_rn(s, __fmul_rn(t.M[k][r], t.M[k][c]));
-        t.Si[r][c] = s;
-      }
+        return s;
+      }, [&](const int e, const float x) { (&t.Si[0][0])[e] = x; });
+      if (DZ == 5 && lane == kStepLane) pick(t);
     });
     lanes.stage([&](const int lane) {  // the gain, and the innovation
-      for (int e = lane; e < DX * DZ; e += kWarp) {
+      each<DX * DZ>(lane, [&](const int e) {
         const int r = e / DZ, c = e % DZ;
         float s = __fmul_rn(P[r][0], t.Si[0][c]);
 #pragma unroll
         for (int d = 1; d < DZ; ++d) s = __fadd_rn(s, __fmul_rn(P[r][d], t.Si[d][c]));
-        t.G[r][c] = s;
-      }
+        return s;
+      }, [&](const int e, const float x) { (&t.G[0][0])[e] = x; });
       if (lane < DZ) t.innov[lane] = __fsub_rn(t.z[lane], t.m[lane]);
     });
     lanes.stage([&](const int lane) {  // the mean; A = I - K H (eye beyond dz)
@@ -347,23 +369,23 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
         if (DX == 9 && lane == 8) x = __fmul_rn(x, 0.8f);  // the angular velocity damped
         t.m[lane] = x;
       }
-      for (int e = lane; e < DX * DX; e += kWarp) {
+      each<DX * DX>(lane, [&](const int e) {
         const int r = e / DX, c = e % DX;
         const float eye = r == c ? 1.0f : 0.0f;
-        t.A[r][c] = c < DZ ? __fsub_rn(eye, t.G[r][c < DZ ? c : 0]) : eye;
-      }
+        return c < DZ ? __fsub_rn(eye, t.G[r][c < DZ ? c : 0]) : eye;
+      }, [&](const int e, const float x) { (&t.A[0][0])[e] = x; });
     });
     lanes.stage([&](const int lane) {  // A P
-      for (int e = lane; e < DX * DX; e += kWarp) {
+      each<DX * DX>(lane, [&](const int e) {
         const int r = e / DX, c = e % DX;
         float s = __fmul_rn(t.A[r][0], P[0][c]);
 #pragma unroll
         for (int b = 1; b < DX; ++b) s = __fadd_rn(s, __fmul_rn(t.A[r][b], P[b][c]));
-        AP[r][c] = s;
-      }
+        return s;
+      }, [&](const int e, const float x) { (&AP[0][0])[e] = x; });
     });
     lanes.stage([&](const int lane) {  // P = A P A^T + K R K^T
-      for (int e = lane; e < DX * DX; e += kWarp) {
+      each<DX * DX>(lane, [&](const int e) {
         const int r = e / DX, c = e % DX;
         float s = __fmul_rn(AP[r][0], t.A[c][0]);
 #pragma unroll
@@ -372,8 +394,8 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
 #pragma unroll
         for (int k = 1; k < DZ; ++k)
           krk = __fadd_rn(krk, __fmul_rn(__fmul_rn(t.G[r][k], nz.r[k]), t.G[c][k]));
-        P[r][c] = __fadd_rn(s, krk);
-      }
+        return __fadd_rn(s, krk);
+      }, [&](const int e, const float x) { (&P[0][0])[e] = x; });
     });
   }
   lanes.stage([&](const int lane) {

@@ -52,9 +52,9 @@ class Launch(NamedTuple):
 def tile_floats(dx: int, dz: int) -> int:
     """Floats of a rejoining slot's tile in K4 (``csrc/oru.cu::Tile``): the
     mean, the measurement, the innovation and the last measurement, 8
-    interpolation scalars, 3 x 4 alignment candidates, L, M and Sinv, the
-    gain, I - K H and two covariance buffers."""
-    return dx + 3 * dz + 8 + 12 + 3 * dz * dz + dx * dz + 3 * dx * dx
+    interpolation scalars, 3 x 4 alignment candidates, M = L^-1 and Sinv,
+    the gain, I - K H and two covariance buffers."""
+    return dx + 3 * dz + 8 + 12 + 2 * dz * dz + dx * dz + 3 * dx * dx
 
 
 @functools.lru_cache(maxsize=64)

@@ -1027,7 +1027,7 @@ def profile_ocsort_step(card, batch):
     top = sorted(families.items(), key=lambda kv: -kv[1][1])[:8]
     line = {"metric": "ocsort_step_profile", "kernels_per_step": prof["kernels_per_step"],
             "busy_ms_per_step": prof["busy_ms_per_step"], "host_ms_per_step": host_ms,
-            "idle_share": 1.0 - prof["busy_ms_per_step"] / host_ms,
+            "idle_share": 1.0 - prof["busy_ms_per_step"] / host_ms, "traces": prof["traces"],
             "top_kernel_families_launches_ms_per_step": dict(top), "card": card}
     print(json.dumps(line))
 

@@ -80,9 +80,8 @@ def main() -> int:
     from boxmot_tpu_torch.ops import fused_iou_cost as fic
     from boxmot_tpu_torch.ops.geometry import obb_corners
     from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
-    from boxmot_tpu_torch.trackers import bytetrack, ocsort
+    from boxmot_tpu_torch.trackers import bytetrack
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
-    from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 
     import boxmot_tpu_torch
     if Path(boxmot_tpu_torch.__file__).resolve().parents[1] != root:
@@ -172,8 +171,7 @@ def main() -> int:
     c1, c2 = (obb_corners(x).contiguous() for x in (a, b))
     result["rotated_iou_4096_device_ms"] = measure.device_ms(
         lambda: rotated_iou(a, b, c1, c2), "rotated_iou_kernel", reps=5, warmup=2)
-    result.update(_ocsort(cs, measure, batch_replay, init_states, pack_frames, ocsort,
-                          OcSortConfig))
+    result.update(_ocsort(cs, measure))
     line = json.dumps(result)
     print(line)
     out = HERE / "chiprun_out"
@@ -183,9 +181,14 @@ def main() -> int:
     return 0
 
 
-def _ocsort(cs, measure, batch_replay, init_states, pack_frames, ocsort, OcSortConfig) -> dict:
+def _ocsort(cs, measure) -> dict:
     """Step 5: K4 on the recorded OC-SORT AABB step and the all-rejoin sets,
-    and the 16-step OC-SORT profile."""
+    and the 16-step OC-SORT profile, with the checkout's port (``main`` has
+    put it first on the path)."""
+    from boxmot_tpu_torch.engine.replay import batch_replay, init_states, pack_frames
+    from boxmot_tpu_torch.trackers import ocsort
+    from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
+
     result = {}
     cfg = OcSortConfig(capacity=cs.CAPACITY)
     packed = [pack_frames(cs.synthetic_frames_missed(65, cs.N_DETS, seed=100 + s), D=cs.D_BENCH,
