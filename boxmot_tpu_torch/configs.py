@@ -44,6 +44,43 @@ _DEFAULTS = {
         "Q_xy_scaling": 0.01,
         "Q_s_scaling": 0.0001,
     },
+    # the YAML's "activates" children (cmc_method under use_cmc, the
+    # appearance thresholds under with_reid) flattened to the top level
+    "botsort": {
+        "track_high_thresh": 0.6296854875023994,
+        "track_low_thresh": 0.1014392537025336,
+        "new_track_thresh": 0.6246494191492591,
+        "track_buffer": 40,
+        "match_thresh": 0.7722224024589055,
+        "use_cmc": True,
+        "cmc_method": "sof",
+        "frame_rate": 30,
+        "fuse_first_associate": True,
+        "with_reid": True,
+        "proximity_thresh": 0.6084297894561342,
+        "appearance_thresh": 0.6188818853936099,
+        "unconfirmed_emb_scale": 2.5445206391993294,
+        "second_match_thresh": 0.28795081514328974,
+        "unconfirmed_match_thresh": 0.41148010638233784,
+        "removed_stracks_buffer": 329,
+    },
+    "deepocsort": {
+        "det_thresh": 0.5,
+        "max_age": 30,
+        "min_hits": 3,
+        "iou_thresh": 0.3,
+        "delta_t": 3,
+        "asso_func": "iou",
+        "inertia": 0.2,
+        "w_association_emb": 0.75,
+        "alpha_fixed_emb": 0.95,
+        "aw_param": 0.5,
+        "embedding_off": False,
+        "cmc_off": False,
+        "aw_off": False,
+        "Q_xy_scaling": 0.01,
+        "Q_s_scaling": 0.0001,
+    },
 }
 
 

@@ -1,12 +1,16 @@
-"""Detection cache paths and per-frame loading.
+"""Detection, embedding and warp cache paths and per-frame loading.
 
-The port's own copy of ``det_cache_path`` and ``load_cached_dets_per_frame``
-from ``boxmot_tpu/data/cache.py``, unchanged.  The cache layout is the
+The port's own copy of ``det_cache_path``, ``emb_cache_path``,
+``load_cached_dets_per_frame``, ``load_cached_embs_per_frame``,
+``warp_cache_path`` and ``load_cached_warps_per_frame`` from
+``boxmot_tpu/data/cache.py``, unchanged.  The cache layout is the
 reference's
 
-    <root>/<detector>/dets/<seq>.npy
+    <root>/<detector>/dets/<seq>.npy                       (frame, x1, y1, x2, y2, conf, cls)
+    <root>/<detector>/embs/<reid>/<preprocess>/<seq>.npy   (frame, feature...)
+    <root>/warps/<cmc_method>/<seq>.npy                    (frame, w00, w01, w02, w10, w11, w12)
 
-with detection rows (frame, x1, y1, x2, y2, conf, cls).
+with the embedding rows aligned row for row with the detection rows.
 """
 
 from __future__ import annotations
@@ -20,6 +24,12 @@ def det_cache_path(root: Path, detector: str, seq: str) -> Path:
     return Path(root) / detector / "dets" / f"{seq}.npy"
 
 
+def emb_cache_path(root: Path, detector: str, reid: str, seq: str,
+                   preprocess: str = "resize") -> Path:
+    """Copy of ``boxmot_tpu.data.cache.emb_cache_path``."""
+    return Path(root) / detector / "embs" / reid / preprocess / f"{seq}.npy"
+
+
 def load_cached_dets_per_frame(path: Path, n_frames: int):
     """(N, 7) [frame, x1, y1, x2, y2, conf, cls] cache -> per-frame list."""
     rows = np.load(path)
@@ -31,4 +41,40 @@ def load_cached_dets_per_frame(path: Path, n_frames: int):
         sel = rows[frames == f]
         if len(sel):
             out[f - 1] = sel[:, 1:7].astype(np.float32)
+    return out
+
+
+def load_cached_embs_per_frame(path: Path, n_frames: int):
+    """(N, 1 + F) cache -> per-frame list of (Ni, F) embeddings (copy of
+    ``boxmot_tpu.data.cache.load_cached_embs_per_frame``)."""
+    rows = np.load(path)
+    feat = rows.shape[1] - 1 if rows.size else 1
+    out = [np.zeros((0, feat), np.float32) for _ in range(n_frames)]
+    if rows.size == 0:
+        return out
+    frames = rows[:, 0].astype(int)
+    for f in range(1, n_frames + 1):
+        sel = rows[frames == f]
+        if len(sel):
+            out[f - 1] = sel[:, 1:].astype(np.float32)
+    return out
+
+
+def warp_cache_path(root: Path, cmc_method: str, seq: str) -> Path:
+    """Camera-motion warp cache: one (2, 3) affine warp per frame (copy of
+    ``boxmot_tpu.data.cache.warp_cache_path``)."""
+    return Path(root) / "warps" / cmc_method / f"{seq}.npy"
+
+
+def load_cached_warps_per_frame(path: Path, n_frames: int) -> np.ndarray:
+    """(N, 7) [frame, w00, w01, w02, w10, w11, w12] cache -> (n_frames, 2, 3)
+    float32 warps; frames missing from the cache get the identity (copy of
+    ``boxmot_tpu.data.cache.load_cached_warps_per_frame``)."""
+    rows = np.load(path)
+    out = np.broadcast_to(np.eye(2, 3, dtype=np.float32), (n_frames, 2, 3)).copy()
+    if rows.size == 0:
+        return out
+    frames = rows[:, 0].astype(int)
+    keep = (frames >= 1) & (frames <= n_frames)
+    out[frames[keep] - 1] = rows[keep, 1:7].astype(np.float32).reshape(-1, 2, 3)
     return out

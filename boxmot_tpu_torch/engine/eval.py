@@ -15,29 +15,41 @@ from pathlib import Path
 import numpy as np
 
 from boxmot_tpu_torch.configs import get_tracker_defaults
-from boxmot_tpu_torch.data.cache import det_cache_path, load_cached_dets_per_frame
+from boxmot_tpu_torch.data.cache import (
+    det_cache_path,
+    emb_cache_path,
+    load_cached_dets_per_frame,
+    load_cached_embs_per_frame,
+    load_cached_warps_per_frame,
+    warp_cache_path,
+)
 from boxmot_tpu_torch.data.mot import MOTDataset
 from boxmot_tpu_torch.engine.metrics.mot_metrics import evaluate_sequences, preprocess_sequence
 from boxmot_tpu_torch.engine.mot_io import write_mot_results
 from boxmot_tpu_torch.engine.replay import replay_sequences_batched
 from boxmot_tpu_torch.engine.results import ValidationResult
+from boxmot_tpu_torch.trackers.botsort import BotSortConfig
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+from boxmot_tpu_torch.trackers.deepocsort import DeepOcSortConfig
 from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
 from boxmot_tpu_torch.trackers.zoo import check_ported
 from boxmot_tpu_torch.utils.device import resolve_device
 
 
-_TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig, "ocsort": OcSortConfig}
+_TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig, "ocsort": OcSortConfig,
+                    "botsort": BotSortConfig, "deepocsort": DeepOcSortConfig}
 
 
 def build_replay_config(tracker_type: str, **params):
     """Replay config from the YAML tier + explicit overrides, merged by field
     name as in the JAX package.  The YAML keys that are not config fields
-    (ByteTrack's ``track_buffer`` and ``frame_rate``, SFSORT's margins,
-    OC-SORT's ``Q_xy_scaling`` and ``Q_s_scaling``) are dropped, so the
-    ByteTrack replay keeps the config defaults ``det_thresh`` 0.45 and
-    ``max_time_lost`` 25, which the pinned metrics depend on."""
+    (ByteTrack's and BoT-SORT's ``track_buffer`` and ``frame_rate``, SFSORT's
+    margins, OC-SORT's and DeepOCSORT's ``Q_xy_scaling`` and ``Q_s_scaling``,
+    DeepOCSORT's ``iou_thresh``, BoT-SORT's ``cmc_method``) are dropped, so
+    the ByteTrack replay keeps the config defaults ``det_thresh`` 0.45 and
+    ``max_time_lost`` 25, BoT-SORT's ``max_time_lost`` stays 30 and
+    DeepOCSORT's ``iou_threshold`` 0.3, which the pinned metrics depend on."""
     check_ported(tracker_type)
     cfg_cls = _TRACKER_CONFIGS[tracker_type]
     merged = {**get_tracker_defaults(tracker_type), **params}
@@ -55,33 +67,60 @@ def run_eval(
     min_det_conf: float | None = None,
     cache_root: Path | None = None,
     detector: str = "public",
+    reid: str | None = None,
+    preprocess: str = "resize",
+    cmc_method: str | None = None,
     seq_names=None,
     verbose: bool = False,
 ) -> ValidationResult:
     """Evaluate a tracker over every sequence under ``data_root`` on ``device``.
 
     Detections come from each sequence's public det.txt or, when
-    ``cache_root`` is given, from the generated detection cache.  Returns the
-    metric dicts ({"per_seq": ..., "combined": ...}) with HOTA, MOTA, IDF1.
+    ``cache_root`` is given, from the generated detection cache; with
+    ``reid`` the appearance trackers also read the embedding cache of that
+    ReID model (and ``preprocess``), row-aligned with the detections, and
+    without it ``with_reid`` defaults to False, as in the JAX ``run_eval``.
+    ``cmc_method`` replays the cached camera-motion warps of that method
+    (sequences without a warp file replay identities).  Returns the metric
+    dicts ({"per_seq": ..., "combined": ...}) with HOTA, MOTA, IDF1.
     """
     device = resolve_device(device)
     dataset = MOTDataset(data_root, names=seq_names)
     if len(dataset) == 0:
         raise ValueError(f"no MOT sequences found under {data_root}")
-    cfg = build_replay_config(tracker_type, **(tracker_params or {}))
+    tracker_params = dict(tracker_params or {})
+    if reid is None:
+        # no embedding cache: the appearance terms off
+        tracker_params.setdefault("with_reid", False)
+    cfg = build_replay_config(tracker_type, **tracker_params)
+    # motion-only configs carry no feat_dim; their cached embeddings are not read
+    load_embs = reid is not None and cache_root is not None and hasattr(cfg, "feat_dim")
 
     seqs = list(dataset)
     inputs = []
     for seq in seqs:
+        embs = warps = None
         if cache_root is not None:
             dets = load_cached_dets_per_frame(
                 det_cache_path(cache_root, detector, seq.name), seq.seq_length
             )
+            if load_embs:
+                embs = load_cached_embs_per_frame(
+                    emb_cache_path(cache_root, detector, reid, seq.name, preprocess),
+                    seq.seq_length,
+                )
         else:
             dets = seq.dets_per_frame()
         if min_det_conf is not None:
-            dets = [d[d[:, 4] >= min_det_conf] for d in dets]
-        inputs.append({"dets": dets})
+            keep = [d[:, 4] >= min_det_conf for d in dets]
+            dets = [d[k] for d, k in zip(dets, keep)]
+            if embs is not None:
+                embs = [e[k] for e, k in zip(embs, keep)]
+        if cmc_method and cache_root is not None:
+            wpath = warp_cache_path(cache_root, cmc_method, seq.name)
+            if wpath.exists():
+                warps = load_cached_warps_per_frame(wpath, seq.seq_length)
+        inputs.append({"dets": dets, "embs": embs, "warps": warps})
 
     seq_data = {}
     for seq, mot_rows in zip(seqs, replay_sequences_batched(cfg, inputs, device=device)):

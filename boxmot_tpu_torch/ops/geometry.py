@@ -1,8 +1,8 @@
 """Box conversions on the last axis (counterpart of boxmot_tpu/ops/geometry.py).
 
 Same operation order as the JAX functions.  Only the conversions the
-ported trackers use are ported: XYAH for ByteTrack, XYSR for OC-SORT,
-corners for oriented boxes.
+ported trackers use are ported: XYAH for ByteTrack, XYWH for BoT-SORT, XYSR
+for OC-SORT and DeepOCSORT, corners for oriented boxes.
 
 ``cos``, ``sin``, ``log`` and ``sqrt`` go through ``exact``: evaluated in
 float64 and rounded to float32, they give the correctly rounded float32
@@ -37,6 +37,18 @@ def xyah2xyxy(x: torch.Tensor) -> torch.Tensor:
     """(cx,cy,a,h) -> (x1,y1,x2,y2); a = w/h."""
     cx, cy, a, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
     w = a * h
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(x1,y1,x2,y2) -> (cx,cy,w,h), BoT-SORT's measurement."""
+    x1, y1, x2, y2 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+
+
+def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(cx,cy,w,h) -> (x1,y1,x2,y2)."""
+    cx, cy, w, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 

@@ -5,12 +5,17 @@ It keeps what cannot run in the batched step: input unwrapping,
 detection-layout inference, first-frame setup (the detection layout, and
 the frame size for centroid association), padding to a static
 detection bucket, per-class states renumbered by the shared
-``GlobalIdAllocator``, and ``TrackResults`` wrapping.  ``update(dets, img)``
-keeps the JAX tracker's contract: (N, 6) axis-aligned detections give
+``GlobalIdAllocator``, and ``TrackResults`` wrapping.
+``update(dets, img, embs, masks)`` keeps the JAX tracker's contract: (N, 6) axis-aligned detections give
 (M, 8) rows [x1, y1, x2, y2, id, conf, cls, det_ind]; (N, 7) oriented
 detections [cx, cy, w, h, theta, conf, cls] switch a tracker that supports
 them to OBB mode on the first frame and give (M, 9) rows
-[cx, cy, w, h, theta, id, conf, cls, det_ind].
+[cx, cy, w, h, theta, id, conf, cls, det_ind].  ``embs`` (N, F) are the
+detections' appearance embeddings, sliced with each class's mask when
+``per_class`` (the JAX shell slices them too, but its appearance trackers
+then read the whole frame's); an appearance tracker reads the frame's image
+and its embeddings from ``_frame_inputs``.  ``masks`` are accepted and
+ignored, as by every JAX tracker but sam2mot, which is not ported.
 """
 
 from __future__ import annotations
@@ -90,6 +95,8 @@ class BaseTracker:
         self.h = None
         self.w = None
         self._state = None
+        self._img = None
+        self._frame_inputs = (None, None, None)  # (img, embs, dets) of the step being run
         self._per_class_states = {} if per_class else None
         self._pc_ids = GlobalIdAllocator() if per_class else None
 
@@ -100,9 +107,9 @@ class BaseTracker:
         """Advance one frame: (state, out (K, output_cols), out_mask (K,))."""
         raise NotImplementedError
 
-    def update(self, dets, img=None, embs=None) -> TrackResults:
+    def update(self, dets, img=None, embs=None, masks=None) -> TrackResults:
         """Track one frame of (N, 6) or (N, 7) detections; ``embs`` is
-        ignored by motion-only trackers."""
+        ignored by motion-only trackers and ``masks`` by all."""
         if hasattr(dets, "data"):
             dets = dets.data
         dets = np.asarray(dets, dtype=np.float32) if dets is not None else None
@@ -116,7 +123,8 @@ class BaseTracker:
         if self.h is None and img is not None:
             self.h, self.w = img.shape[0:2]
             self._set_frame_size(float(self.w), float(self.h))
-        return TrackResults(self._do_update(dets))
+        self._img = img
+        return TrackResults(self._do_update(dets, embs))
 
     def _set_frame_size(self, w: float, h: float):
         """First-frame hook for trackers whose association needs the frame
@@ -158,18 +166,20 @@ class BaseTracker:
             padded[:n, -1] = np.arange(n, dtype=np.float32)
         return padded
 
-    def _do_update(self, dets):
+    def _do_update(self, dets, embs=None):
         if dets is None or len(dets) == 0:
             dets = np.empty((0, self.layout.det_cols), np.float32)
         self._validate(dets)
         if not self.per_class:
-            return self._run_class(None, dets)
+            return self._run_class(None, dets, embs)
 
         outputs = []
         frame_count = self.frame_count
         for cls_id in range(self.nr_classes):
             self.frame_count = frame_count
-            out = self._run_class(cls_id, dets[dets[:, self.layout.cls_idx] == cls_id])
+            cls_mask = dets[:, self.layout.cls_idx] == cls_id
+            out = self._run_class(cls_id, dets[cls_mask],
+                                  None if embs is None else np.asarray(embs)[cls_mask])
             if out.size > 0:
                 outputs.append(out)
         self.frame_count = frame_count + 1
@@ -177,7 +187,7 @@ class BaseTracker:
             return np.vstack(outputs)
         return np.empty((0, self.layout.output_cols), np.float32)
 
-    def _run_class(self, cls_id, dets):
+    def _run_class(self, cls_id, dets, embs=None):
         if cls_id is None:
             state = self._state if self._state is not None else self._init_state()
         else:
@@ -189,6 +199,7 @@ class BaseTracker:
                 state = dataclasses.replace(state, next_id=state.next_id + cls_id * 1_000_000)
             prev_next = int(state.next_id[0])
 
+        self._frame_inputs = (self._img, embs, dets)
         padded = torch.from_numpy(self._pad_dets(dets)).to(self.device)
         state, out, out_mask = self._step(state, padded, padded[:, self.layout.conf_idx] >= 0.0)
 

@@ -1,8 +1,8 @@
 """Tracker registry (counterpart of boxmot_tpu/trackers/zoo.py).
 
-ByteTrack, SFSORT and OC-SORT are ported, each for axis-aligned and
-oriented boxes; every other tracker name raises and names the ROADMAP slice
-that brings it.  Config resolution order, as in the JAX
+ByteTrack, SFSORT, OC-SORT and BoT-SORT are ported, each for axis-aligned
+and oriented boxes, and DeepOCSORT for axis-aligned boxes; every other
+tracker name raises and names the ROADMAP slice that brings it.  Config resolution order, as in the JAX
 zoo: built-in defaults < per-tracker config dict < kwargs.
 """
 
@@ -12,9 +12,7 @@ from boxmot_tpu_torch.configs import get_tracker_defaults
 
 # trackers of the JAX zoo that the port does not run yet -> ROADMAP Queue A slice
 NOT_PORTED = {
-    "botsort": "Slice 4",
     "occluboost": "Slice 4",
-    "deepocsort": "Slice 4",
     "strongsort": "Slice 4",
     "boosttrack": "Slice 4",
     "hybridsort": "Slice 4",
@@ -22,7 +20,7 @@ NOT_PORTED = {
 }
 
 
-PORTED = ("bytetrack", "sfsort", "ocsort")
+PORTED = ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort")
 
 
 def check_ported(name: str) -> None:
@@ -42,7 +40,9 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
     """Build a live tracker by name on ``device`` ("cpu", "cuda", "cuda:N");
     the card unless the caller asks for the CPU."""
     check_ported(tracker_type)
+    from boxmot_tpu_torch.trackers.botsort import BotSort
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrack
+    from boxmot_tpu_torch.trackers.deepocsort import DeepOcSort
     from boxmot_tpu_torch.trackers.ocsort import OcSort
     from boxmot_tpu_torch.trackers.sfsort import SFSORT
 
@@ -51,5 +51,6 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
         params.update(evolve_param_dict)
     params.update(kwargs)
     params["per_class"] = per_class
-    classes = {"bytetrack": ByteTrack, "sfsort": SFSORT, "ocsort": OcSort}
+    classes = {"bytetrack": ByteTrack, "sfsort": SFSORT, "ocsort": OcSort, "botsort": BotSort,
+               "deepocsort": DeepOcSort}
     return classes[tracker_type](device=device, **params)

@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      twin on the CPU, AABB and OBB, where every slot rejoins with gaps 2-31,
      on a ragged S with gaps past MAX_ORU, on its edges (no slot rejoining,
      5 x 13 slots, gaps of MAX_ORU and MAX_ORU + 1, tied alignment
-     candidates) and on a recorded OC-SORT step;
+     candidates) and on a recorded OC-SORT step and DeepOCSORT step (its
+     warped frozen state); K1 also on a recorded BoT-SORT step's inputs;
      the launch floor, an empty kernel's device time through K1's ctypes
      path on one block and on K1's grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
@@ -24,27 +25,43 @@ Phases, in order; any failure raises and the script exits non-zero:
      events around one call), its twin's, and its bound counted from the
      work those inputs need; the OBB Kalman bank's bits on the card against
      the CPU;
-  4. AABB evals: run_eval for ByteTrack, SFSORT and OC-SORT on MOT17-mini
-     and synth-long, held to the pinned HOTA/MOTA/IDF1, with their MOT rows
-     held against the same evals on the CPU;
-  5. OBB evals: run_eval_obb for ByteTrack, SFSORT and OC-SORT on mmot-mini,
-     held to the JAX package's values, with their tracks held against the
-     CPU's;
+  4. AABB evals: run_eval for ByteTrack, SFSORT, OC-SORT, BoT-SORT and
+     DeepOCSORT on MOT17-mini and synth-long, held to the pinned
+     HOTA/MOTA/IDF1, with their MOT rows held against the same evals on the
+     CPU (BoT-SORT's and DeepOCSORT's to the bit); then BoT-SORT's run_eval
+     with ``reid`` and ``cmc_method`` over seeded synth-long embedding and
+     warp caches (512-d), against the CPU: metrics equal, tracks with ids,
+     masks and det_ind exact and boxes within 1e-4 px, and the smallest
+     margin of an appearance distance to its threshold;
+  5. OBB evals: run_eval_obb for ByteTrack, SFSORT, OC-SORT and BoT-SORT on
+     mmot-mini, held to the JAX package's values, with their tracks held
+     against the CPU's;
   6. the live API: 50 frames of MOT17-04-FRCNN (ByteTrack, OC-SORT), the
-     mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT, OC-SORT), and
-     frames of 300 detections, each against the same tracker on the CPU;
+     mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT, OC-SORT,
+     BoT-SORT), frames of 300 detections, and seeded textured 1920 x 1080
+     frames of a camera panning by known sub-pixel steps with MOT17-04's
+     detections moved along: BoT-SORT with ECC on the card, BoT-SORT from
+     the zoo defaults (SOF, on the host) and DeepOCSORT with ECC and
+     embeddings; each against the same tracker on the CPU, with the warps
+     ECC recovered beside the known steps;
   7. replay throughput at the bench shape (8 sequences x 256 frames x 100
      detections, D = 128, capacity 256), timed with CUDA events: ByteTrack
-     AABB and OBB, and OC-SORT AABB with 5 % of the detections missed each
-     frame (so that the ORU runs), with the slots K4 replayed; and a profile
-     of 16 OC-SORT steps (kernels, device busy and host ms per step).
+     AABB and OBB, OC-SORT AABB with 5 % of the detections missed each
+     frame (so that the ORU runs), with the slots K4 replayed, and a profile
+     of 16 OC-SORT steps (kernels, device busy and host ms per step);
+     BoT-SORT AABB with 512-d embeddings and a per-frame translation warp
+     (``appearance_batch``: 0.54 GB of embeddings made on the card) and its
+     16-step profile with K1's, K2's and the embedding product's device ms;
+     DeepOCSORT AABB on the same kind of input with 5 % missed, and its
+     16-step profile; and ECC's ``apply`` at 1080p, scale 0.15 (host ms a
+     frame, kernels an apply).
 Every path of phases 4-7 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
-fixed (ByteTrack: 2 IoU launches to 3 auctions; SFSORT: 1 rotated IoU to 2
-auctions in OBB mode; OC-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 2
-auctions to 1 ORU) the counts must keep that ratio, so no step fell back
-to a twin.  The line before the last is {"kernels": [...]}, with each
+fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
+auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; OC-SORT and
+DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU) the counts must keep
+that ratio, so no step fell back to a twin.  The line before the last is {"kernels": [...]}, with each
 kernel's launches summed over those paths; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero before
 printing any result.
@@ -77,6 +94,7 @@ from boxmot_tpu_torch.engine.replay import (
     replay_sequences_outputs,
 )
 from boxmot_tpu_torch.motion import kalman
+from boxmot_tpu_torch.motion.cmc import create_cmc
 from boxmot_tpu_torch.ops.fused_iou_cost import (
     IOU_BATCH_EPS,
     empty_launch,
@@ -89,7 +107,7 @@ from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain,
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from boxmot_tpu_torch.trackers import bytetrack, ocsort
+from boxmot_tpu_torch.trackers import botsort, bytetrack, deepocsort, ocsort
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
 from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.utils import measure
@@ -99,8 +117,8 @@ ASSETS = ROOT / "assets"
 ROOTS = {"mot17_mini": ASSETS / "MOT17-mini" / "train", "synth_long": ASSETS / "synth-long" / "train"}
 MMOT_ROOT = ASSETS / "mmot-mini" / "train"
 LIVE_SEQ = ROOTS["mot17_mini"] / "MOT17-04-FRCNN"
-# the ByteTrack, SFSORT and OC-SORT pins of tests/test_pinned_metrics.py (a CPU
-# test holds them equal)
+# the ByteTrack, SFSORT, OC-SORT, BoT-SORT and DeepOCSORT pins of
+# tests/test_pinned_metrics.py (a CPU test holds them equal)
 PINNED = {
     ("mot17_mini", "bytetrack"): {"HOTA": 0.649859, "MOTA": 0.495283, "IDF1": 0.662461},
     ("mot17_mini", "ocsort"): {"HOTA": 0.651511, "MOTA": 0.488208, "IDF1": 0.656101},
@@ -108,12 +126,17 @@ PINNED = {
     ("synth_long", "bytetrack"): {"HOTA": 0.952785, "MOTA": 0.996300, "IDF1": 0.968698},
     ("synth_long", "ocsort"): {"HOTA": 0.885979, "MOTA": 0.933777, "IDF1": 0.935373},
     ("synth_long", "sfsort"): {"HOTA": 0.898791, "MOTA": 0.980762, "IDF1": 0.916468},
+    ("mot17_mini", "botsort"): {"HOTA": 0.652681, "MOTA": 0.495283, "IDF1": 0.662461},
+    ("mot17_mini", "deepocsort"): {"HOTA": 0.652269, "MOTA": 0.492925, "IDF1": 0.660348},
+    ("synth_long", "botsort"): {"HOTA": 0.952210, "MOTA": 0.996670, "IDF1": 0.968877},
+    ("synth_long", "deepocsort"): {"HOTA": 0.885492, "MOTA": 0.932667, "IDF1": 0.934837},
 }
 # the JAX package's run_eval_obb on mmot-mini (a CPU test holds them equal)
 OBB_EVAL = {
     "bytetrack": {"HOTA": 0.604123, "MOTA": 0.662654, "IDF1": 0.671799},
     "sfsort": {"HOTA": 0.898815, "MOTA": 0.942670, "IDF1": 0.924151},
     "ocsort": {"HOTA": 0.734300, "MOTA": 0.701753, "IDF1": 0.749516},
+    "botsort": {"HOTA": 0.575946, "MOTA": 0.606537, "IDF1": 0.663570},
 }
 # launches per step of each tracker's kernels, axis-aligned and oriented
 RATIOS = {
@@ -122,7 +145,15 @@ RATIOS = {
     "sfsort": ({"masked_assignment": 2}, {"rotated_iou": 1, "masked_assignment": 2}),
     "ocsort": ({"fused_iou_cost": 2, "masked_assignment": 2, "oru_replay": 1},
                {"rotated_iou": 2, "masked_assignment": 2, "oru_replay": 1}),
+    "botsort": ({"fused_iou_cost": 2, "masked_assignment": 3},
+                {"rotated_iou": 2, "masked_assignment": 3}),
+    "deepocsort": ({"fused_iou_cost": 2, "masked_assignment": 2, "oru_replay": 1}, None),
 }
+# trackers whose eval and live rows must equal the CPU's to the bit (no
+# embedding product enters them: the evals run without embeddings)
+BIT_EQUAL_EVALS = ("botsort", "deepocsort")
+FEAT_DIM = 512  # the OSNet width of the appearance trackers' configs
+REID, REID_DETECTOR = "seedreid", "seeddet"
 MISS = 0.05  # the OC-SORT bench line's share of detections missed each frame
 ATOL = 1e-4
 # the port evaluates cos/sin/log/sqrt in float64 and rounds once, so a cuda
@@ -164,6 +195,139 @@ def synthetic_frames_missed(n_frames, n_dets, seed=0, miss=MISS):
     rejoin: OC-SORT's OCR pass and its ORU then run."""
     rng = np.random.default_rng(seed + 1_000_003)
     return [f[rng.uniform(size=len(f)) >= miss] for f in synthetic_frames(n_frames, n_dets, seed)]
+
+
+def appearance_scene(n_frames, n_dets, seed=0, miss=0.0, pan=0.5):
+    """``synthetic_frames`` seen by a panning camera: the boxes shifted by the
+    camera's accumulated translation (a random walk of steps up to ``pan`` px
+    a frame) and a share ``miss`` of them dropped in each frame.  Returns
+    (frames, tracks, warps): per-frame (Ni, 6) detections, the (Ni,) track of
+    each row, and (n_frames, 2, 3) warps mapping the previous frame to this
+    one (the identity for the first)."""
+    rng = np.random.default_rng(seed + 2_000_003)
+    steps = rng.uniform(-pan, pan, (n_frames, 2))
+    steps[0] = 0.0
+    shift = np.cumsum(steps, axis=0)
+    warps = np.broadcast_to(np.eye(2, 3, dtype=np.float32), (n_frames, 2, 3)).copy()
+    warps[:, :, 2] = steps
+    frames, tracks = [], []
+    for f, dets in enumerate(synthetic_frames(n_frames, n_dets, seed)):
+        dets = dets.copy()
+        dets[:, [0, 2]] += np.float32(shift[f, 0])
+        dets[:, [1, 3]] += np.float32(shift[f, 1])
+        keep = rng.uniform(size=n_dets) >= miss
+        frames.append(dets[keep])
+        tracks.append(np.flatnonzero(keep))
+    return frames, tracks, warps
+
+
+def appearance_frames(n_frames, n_dets, seed=0, miss=0.0, feat_dim=512, pan=0.5, noise=0.3):
+    """``appearance_scene`` with each detection's embedding: its track's unit
+    vector plus Gaussian noise of norm about ``noise`` (before
+    normalisation).  Returns (frames, embs, warps), embs per-frame (Ni,
+    feat_dim), row-aligned with the detections."""
+    frames, tracks, warps = appearance_scene(n_frames, n_dets, seed, miss, pan)
+    rng = np.random.default_rng(seed + 3_000_017)
+    base = rng.normal(size=(n_dets, feat_dim))
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    sigma = noise / math.sqrt(feat_dim)
+    embs = [(base[t] + rng.normal(0, sigma, (len(t), feat_dim))).astype(np.float32)
+            for t in tracks]
+    return frames, embs, warps
+
+
+def appearance_batch(n_seqs, n_frames, n_dets, seed, miss, device, feat_dim=FEAT_DIM,
+                     noise=0.3):
+    """A batch of ``appearance_scene`` sequences at the bench's detection
+    bucket: packed detections (S, F, D_BENCH, 7), embeddings (S, F, D_BENCH,
+    feat_dim) made on ``device`` (each row its track's seeded unit vector
+    plus noise of norm about ``noise``, padding rows zero) and warps
+    (S, F, 2, 3), all on ``device``."""
+    packed, rows, warps = [], [], []
+    for s in range(n_seqs):
+        frames, tracks, w = appearance_scene(n_frames, n_dets, seed=seed + s, miss=miss)
+        packed.append(pack_frames(frames, D=D_BENCH, F=n_frames)[0])
+        idx = np.full((n_frames, D_BENCH), -1, np.int64)
+        for f, t in enumerate(tracks):
+            idx[f, :len(t)] = t
+        rows.append(idx)
+        warps.append(w)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((n_seqs, n_dets, feat_dim), generator=gen, device=device)
+    base = base / torch.linalg.vector_norm(base, dim=-1, keepdim=True)
+    idx = torch.from_numpy(np.stack(rows)).to(device)
+    embs = torch.gather(base, 1, idx.clamp(min=0).view(n_seqs, -1, 1).expand(-1, -1, feat_dim))
+    embs = embs.view(n_seqs, n_frames, D_BENCH, feat_dim)
+    embs += torch.randn(embs.shape, generator=gen, device=device) * (noise / math.sqrt(feat_dim))
+    embs = torch.where(idx[..., None] >= 0, embs, 0.0)
+    return (torch.from_numpy(np.stack(packed)).to(device), embs,
+            torch.from_numpy(np.stack(warps)).to(device))
+
+
+def reid_caches(root: Path, feat_dim: int = FEAT_DIM, seed: int = 8) -> Path:
+    """Seeded caches of synth-long under ``root``, in the caches' own layouts
+    (``data.cache``): its public detections as detector REID_DETECTOR's
+    cache; each detection's embedding under ReID model REID, the random
+    vector of its nearest ground-truth identity plus noise; and per-frame
+    translation warps of about 1 px under cmc method "ecc"."""
+    from boxmot_tpu_torch.data.cache import det_cache_path, emb_cache_path, warp_cache_path
+    from boxmot_tpu_torch.data.mot import MOTDataset
+
+    rng = np.random.default_rng(seed)
+    bases = {}
+    for seq in MOTDataset(ROOTS["synth_long"]):
+        gt = seq.gt()  # [frame, id, x, y, w, h, ...]
+        det_rows, emb_rows = [], []
+        for f, dets in enumerate(seq.dets_per_frame(), start=1):
+            if not len(dets):
+                continue
+            g = gt[gt[:, 0] == f]
+            gid = np.zeros(len(dets))
+            if len(g):  # the identity whose box centre is nearest in x
+                near = np.abs((dets[:, 0] + dets[:, 2])[:, None] - (2 * g[None, :, 2] + g[None, :, 4]))
+                gid = g[np.argmin(near, axis=1), 1]
+            e = np.stack([bases.setdefault(int(i), rng.normal(size=feat_dim)) for i in gid])
+            frame = np.full((len(dets), 1), f)
+            det_rows.append(np.concatenate([frame, dets[:, :6]], 1))
+            emb_rows.append(np.concatenate([frame, e + rng.normal(0, 0.3, e.shape)], 1))
+        n = seq.seq_length
+        warps = np.tile(np.eye(2, 3).reshape(1, 6), (n, 1))
+        warps[:, 2], warps[:, 5] = rng.normal(0, 1.0, n), rng.normal(0, 1.0, n)
+        for path, rows in (
+                (det_cache_path(root, REID_DETECTOR, seq.name), np.concatenate(det_rows)),
+                (emb_cache_path(root, REID_DETECTOR, REID, seq.name), np.concatenate(emb_rows)),
+                (warp_cache_path(root, "ecc", seq.name),
+                 np.concatenate([np.arange(1, n + 1)[:, None], warps], 1))):
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(path, rows.astype(np.float32))
+    return root
+
+
+def shifted_frames(n_frames, seed=0, size=(1080, 1920), step=1.5, sigma=20.0):
+    """Seeded textured BGR uint8 frames of a camera panning by known
+    sub-pixel steps: a smoothed-noise scene, each frame the scene moved by the
+    accumulated steps (bilinear).  Returns (frames, steps (n_frames, 2) px:
+    the translation from the previous frame, 0 for the first)."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    H, W = size
+    m = int(math.ceil(step * n_frames)) + 2
+    scene = gaussian_filter(rng.uniform(0, 255, (H + 2 * m, W + 2 * m)), sigma)
+    scene = (scene - scene.min()) / np.ptp(scene) * 255.0
+    steps = rng.uniform(-step, step, (n_frames, 2))
+    steps[0] = 0.0
+    frames = []
+    for sx, sy in np.cumsum(steps, axis=0):
+        # frame pixel p shows scene pixel p + m - shift
+        ox, oy = m - sx, m - sy
+        ix, iy = int(math.floor(ox)), int(math.floor(oy))
+        fx, fy = ox - ix, oy - iy
+        a = scene[iy:iy + H + 1, ix:ix + W + 1]
+        g = ((1 - fx) * (1 - fy) * a[:-1, :-1] + fx * (1 - fy) * a[:-1, 1:]
+             + (1 - fx) * fy * a[1:, :-1] + fx * fy * a[1:, 1:])
+        frames.append(np.repeat(np.clip(g, 0, 255).astype(np.uint8)[..., None], 3, axis=2))
+    return frames, steps
 
 
 def synthetic_obb_frames(n_frames, n_dets, seed=0, miss=0.05):
@@ -360,6 +524,17 @@ def check_k1(rng, step_calls):
           f"(iou_batch's)")
     if narrow[0] != 1.0 or wide == narrow:
         raise AssertionError("K1's union clamp does not act as the argument says")
+    # BoT-SORT's bench step (appearance inputs): its two launches, each in its mode
+    for args, kwargs in step_calls["botsort"]["fused_iou_cost"]:
+        args = list(args)
+        if len(args) == 2 and torch.equal(*args):
+            args = [args[0], args[0]]
+        got, want = fused_iou_cost(*args, **kwargs), fused_iou_cost_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        if not all(g is w or torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("K1 on BoT-SORT's bench step: not bit-equal to the twin")
+        print(f"K1 BoT-SORT bench step {'iou+cost' if len(args) == 3 else 'iou-only'} "
+              f"{tuple(args[0].shape)} x {args[1].shape[1]}: bit-equal to the twin")
     # the AABB bench step's own inputs (its two launches, each in its mode)
     calls = []
     for args, kwargs in step_calls["aabb"]["fused_iou_cost"]:
@@ -617,25 +792,39 @@ def check_k3(rng, step_calls):
 
 def bench_step_calls():
     """The arguments of every kernel launch of one steady bench step (frame
-    64 of 256), AABB and OBB ByteTrack at the bench shape, and of the ORU
+    64 of 256), AABB and OBB ByteTrack at the bench shape, of the ORU
     launch of an OC-SORT AABB bench step (with MISS of the detections
-    missed), recorded so that phase 3 times each kernel on the inputs the
-    main path gives it."""
-    calls = {}
-    for label, cfg, frames_fn, cols, module, names in (
-            ("aabb", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, bytetrack,
-             ("fused_iou_cost", "masked_assignment")),
-            ("obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
-             lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, bytetrack,
-             ("rotated_iou", "masked_assignment")),
-            ("ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, ocsort,
-             ("oru_replay",))):
+    missed), of BoT-SORT's IoU launches and of DeepOCSORT's ORU launch on
+    the appearance bench inputs (embeddings and warps; DeepOCSORT with MISS
+    missed), recorded so that phase 3 checks and times each kernel on the
+    inputs the main path gives it."""
+    def frames(frames_fn, cols):
         packed = [pack_frames(frames_fn(65, N_DETS, seed=100 + s), D=D_BENCH, F=65,
                               det_cols=cols)[0] for s in range(N_SEQS)]
-        batch = torch.from_numpy(np.stack(packed)).cuda()
-        states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64])
+        return torch.from_numpy(np.stack(packed)).cuda(), None, None
+
+    calls = {}
+    for label, cfg, inputs, module, names in (
+            ("aabb", ByteTrackConfig(capacity=CAPACITY), lambda: frames(synthetic_frames, 6),
+             bytetrack, ("fused_iou_cost", "masked_assignment")),
+            ("obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True), lambda: frames(
+                lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7),
+             bytetrack, ("rotated_iou", "masked_assignment")),
+            ("ocsort", OcSortConfig(capacity=CAPACITY), lambda: frames(synthetic_frames_missed, 6),
+             ocsort, ("oru_replay",)),
+            ("botsort", build_replay_config("botsort"),
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, 0.0, "cuda"), botsort,
+             ("fused_iou_cost",)),
+            ("deepocsort", build_replay_config("deepocsort"),
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, MISS, "cuda"), deepocsort,
+             ("oru_replay",))):
+        batch, embs, warps = inputs()
+        head = (None, None) if embs is None else (embs[:, :64], warps[:, :64])
+        tail = (None, None) if embs is None else (embs[:, 64:], warps[:, 64:])
+        states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64], None,
+                                    *head)
         with measure.record_calls(module, names) as rec:
-            batch_replay(cfg, states, batch[:, 64:])
+            batch_replay(cfg, states, batch[:, 64:], None, *tail)
         calls[label] = rec
         print(f"bench step {label}: " + ", ".join(
             f"{n} x {len(v)} {[tuple(next(x for x in a if torch.is_tensor(x)).shape) for a, _ in v]}"
@@ -739,6 +928,11 @@ def check_k4(rng, step_calls):
         _k4_same(f"OC-SORT bench step {i}", layout, [t.cpu() for t in tensors], rejoin.cpu(),
                  gap.cpu())
         sets[f"OC-SORT bench step {i}"] = (layout, list(args[1:9]))
+    for i, (args, _) in enumerate(step_calls["deepocsort"]["oru_replay"]):
+        n = _k4_same(f"DeepOCSORT bench step {i}", args[0], [t.cpu() for t in args[1:7]],
+                     args[7].cpu(), args[8].cpu())
+        if not n:
+            raise AssertionError("K4: no slot rejoined at the recorded DeepOCSORT step")
     timed = [k for k in sets if k.startswith("OC-SORT")][:1] + ["AABB all rejoin", "OBB all rejoin"]
     for label in timed:
         layout, card = sets[label]
@@ -850,6 +1044,66 @@ def run_aabb_evals():
                     raise AssertionError(f"{seq}: MOT boxes differ by {box} px between cuda and cpu")
                 print(f"{tracker} {seq} rows cuda vs cpu: {len(g)} rows, all equal: "
                       f"{np.array_equal(g, c)}")
+                if tracker in BIT_EQUAL_EVALS and not np.array_equal(g, c):
+                    raise AssertionError(f"{tracker} {seq}: MOT rows not bit-equal to the CPU's")
+
+
+def _reid_inputs(root: Path):
+    """run_eval's replay inputs from ``reid_caches``: per sequence the
+    detections, embeddings and warps, loaded by the port's cache loaders."""
+    from boxmot_tpu_torch.data.cache import (det_cache_path, emb_cache_path,
+                                             load_cached_dets_per_frame,
+                                             load_cached_embs_per_frame,
+                                             load_cached_warps_per_frame, warp_cache_path)
+    from boxmot_tpu_torch.data.mot import MOTDataset
+
+    return [{"dets": load_cached_dets_per_frame(det_cache_path(root, REID_DETECTOR, q.name),
+                                                q.seq_length),
+             "embs": load_cached_embs_per_frame(emb_cache_path(root, REID_DETECTOR, REID, q.name),
+                                                q.seq_length),
+             "warps": load_cached_warps_per_frame(warp_cache_path(root, "ecc", q.name),
+                                                  q.seq_length)}
+            for q in MOTDataset(ROOTS["synth_long"])]
+
+
+def run_reid_eval():
+    """Phase 4b: BoT-SORT's run_eval with ``reid`` and ``cmc_method`` over
+    seeded synth-long embedding and warp caches, held to the same eval on the
+    CPU; the replay's tracks on the card against the CPU's (ids, masks, conf,
+    cls and det_ind exact, boxes within 1e-4 px); and the smallest margin
+    between an appearance distance of the card's run and its threshold (the
+    card's product sums in another order than the CPU's)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = reid_caches(Path(tmp) / "cache")
+        kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc")
+        t0 = time.perf_counter()
+        res = drive("run_eval botsort synth_long reid + cmc", lambda: boxmot_tpu_torch.run_eval(
+            ROOTS["synth_long"], "botsort", device="cuda", **kw), RATIOS["botsort"][0])
+        seconds = time.perf_counter() - t0
+        cpu = boxmot_tpu_torch.run_eval(ROOTS["synth_long"], "botsort", device="cpu", **kw)
+        got, want = ({k: float(r["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
+                     for r in (res, cpu))
+        print(f"eval botsort synth_long with embeddings and warps on cuda: {got} in "
+              f"{seconds:.3f} s (cpu {want})")
+        if got != want:
+            raise AssertionError("BoT-SORT with embeddings and warps: cuda metrics differ from cpu")
+        cfg = build_replay_config("botsort")
+        seqs = _reid_inputs(root)
+    with measure.record_calls(botsort, ["appearance_distance"]) as rec:
+        gpu = replay_sequences_outputs(cfg, seqs, device="cuda")
+    cpu = replay_sequences_outputs(cfg, seqs, device="cpu")
+    for (go, gm), (co, cm) in zip(gpu, cpu):
+        box = float(np.abs(go[gm][:, :4] - co[cm][:, :4]).max(initial=0.0))
+        if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, 4:], co[cm][:, 4:])
+                and box <= 1e-4):
+            raise AssertionError(f"BoT-SORT with embeddings: tracks differ cuda vs cpu (box {box})")
+    thr, scale = cfg.appearance_thresh, cfg.unconfirmed_emb_scale
+    margin = min(float(torch.minimum(torch.abs(d - thr), torch.abs(d / scale - thr)).min())
+                 for d in (botsort.appearance_distance(*a) for a, _ in rec["appearance_distance"]))
+    rows = sum(int(m.sum()) for _, m in gpu)
+    print(f"BoT-SORT with embeddings replay tracks cuda vs cpu: {rows} rows, masks, ids, "
+          f"conf, cls, det_ind equal, max box diff {box:.3g} px; smallest margin of an appearance "
+          f"distance to its threshold over {len(rec['appearance_distance'])} steps: {margin:.3g}")
 
 
 def run_obb_evals():
@@ -880,7 +1134,7 @@ def run_obb_evals():
                 print(f"OBB {tracker} {seq} corner rows cuda vs cpu: {len(g)} rows, frame/id/"
                       f"conf/cls equal, max corner diff {corner:.3g} px")
             # det_ind is not in the corner rows: hold the replay's tracks
-            cfg = build_replay_config(tracker, is_obb=True)
+            cfg = build_replay_config(tracker, is_obb=True)  # BoT-SORT: with_reid, zero embeddings
             seqs = [{"dets": d} for d in dets.values()]
             for (go, gm), (co, cm) in zip(replay_sequences_outputs(cfg, seqs, device="cuda"),
                                           replay_sequences_outputs(cfg, seqs, device="cpu")):
@@ -955,6 +1209,57 @@ def run_live_obb(tracker):
           f"cls, conf exact; max xywha diff {worst:.3g})")
 
 
+def run_live_cmc(tracker, n_frames, with_embs=False, **kw):
+    """Phase 6d: the live tracker with CMC on seeded textured 1920 x 1080
+    frames of a camera panning by known sub-pixel steps (``shifted_frames``),
+    MOT17-04's detections moved with the camera, cuda against cpu: ids,
+    conf, cls and det_ind exact, boxes bit-equal where nothing summed in
+    another order enters them (SOF's warps come from the host; ECC's
+    reductions and an embedding product sum in another order on the card),
+    else within 1e-2 px.  Prints the warps the cuda tracker's CMC recovered
+    beside the known steps."""
+    frames, _ = _live_frames(n_frames)
+    imgs, steps = shifted_frames(n_frames)
+    pan = np.cumsum(steps, axis=0).astype(np.float32)
+    rng = np.random.default_rng(4)
+    base = rng.normal(size=(64, FEAT_DIM))
+    trackers = {d: boxmot_tpu_torch.create_tracker(tracker, device=d, **kw) for d in ("cuda", "cpu")}
+    cmc = trackers["cuda"].cmc
+    recovered, apply = [], cmc.apply
+    cmc.apply = lambda img, dets: recovered.append(apply(img, dets)) or recovered[-1]
+    exact = type(cmc).__name__ != "ECC" and not with_embs
+    n_rows, worst = 0, 0.0
+    for f, (dets, img) in enumerate(zip(frames, imgs), start=1):
+        dets = dets.copy()
+        dets[:, [0, 2]] += pan[f - 1, 0]
+        dets[:, [1, 3]] += pan[f - 1, 1]
+        embs = None
+        if with_embs:
+            embs = (base[:len(dets)] + rng.normal(0, 0.3 / math.sqrt(FEAT_DIM), (len(dets), FEAT_DIM)))
+            embs = embs.astype(np.float32)
+        g = np.asarray(trackers["cuda"].update(dets, img, embs))
+        c = np.asarray(trackers["cpu"].update(dets, img, embs))
+        if g.shape != c.shape or not np.array_equal(g[:, 4:], c[:, 4:]):
+            raise AssertionError(f"live {tracker} with CMC, frame {f}: tracks differ cuda vs cpu")
+        if len(g):
+            worst = max(worst, float(np.abs(g[:, :4] - c[:, :4]).max()))
+        if not (np.isfinite(g).all() and (worst == 0.0 if exact else worst <= 1e-2)):
+            raise AssertionError(f"live {tracker} with CMC, frame {f}: boxes differ by {worst} px")
+        n_rows += len(g)
+    cmc.apply = apply
+    got = np.stack([torch.as_tensor(w).cpu().numpy()[:, 2] for w in recovered])
+    err = np.abs(got[1:] - steps[1:]).max()
+    print(f"live {tracker} with {type(cmc).__name__} CMC{' and embeddings' if with_embs else ''}, "
+          f"{n_frames} panning 1080p frames: {n_rows} rows equal to cpu (ids, det_ind, cls, conf "
+          f"exact; max box diff {worst:.3g} px); recovered translation vs known step, px: " +
+          ", ".join(f"({a[0]:.3f}, {a[1]:.3f}) vs ({b[0]:.3f}, {b[1]:.3f})"
+                    for a, b in zip(got[1:4], steps[1:4])) + f"; max error {err:.3g} px")
+    if n_rows == 0:
+        raise AssertionError(f"live {tracker} with CMC: no track was emitted")
+    if type(cmc).__name__ == "ECC" and not err <= 0.1:
+        raise AssertionError(f"ECC on the card missed the known steps by {err} px")
+
+
 def run_live_crowded():
     """Phase 6c: frames of 300 detections (the 512 bucket), cuda against cpu."""
     frames = synthetic_frames(3, 300, seed=9)
@@ -970,21 +1275,26 @@ def run_live_crowded():
           f"largest det_ind {int(g[:, 7].max())}")
 
 
-def _bench(label, cfg, frames_fn, det_cols, card, launches=6):
+def _bench(label, cfg, frames_fn, det_cols, card, launches=6, miss=None):
     """frames/s of batch_replay at the bench shape; a distinct seeded input
-    per launch, the first launch a warm-up.  Returns the last launch's
-    input."""
+    per launch, the first launch a warm-up.  With ``miss`` (a float) the
+    inputs are ``appearance_batch``'s (embeddings and warps made on the card,
+    that share of detections missed) and ``frames_fn`` is unused.  Returns
+    the last launch's input (batch, embs, warps)."""
     batches = []
     for v in range(launches):
+        if miss is not None:
+            batches.append(appearance_batch(N_SEQS, N_FRAMES, N_DETS, v * N_SEQS, miss, "cuda"))
+            continue
         packed = [pack_frames(frames_fn(N_FRAMES, N_DETS, seed=v * N_SEQS + s), D=D_BENCH,
                               F=N_FRAMES, det_cols=det_cols)[0] for s in range(N_SEQS)]
-        batches.append(torch.from_numpy(np.stack(packed)).cuda())
+        batches.append((torch.from_numpy(np.stack(packed)).cuda(), None, None))
     ms, capped, replayed = [], 0, []
-    for i, b in enumerate(batches):
+    for i, (b, embs, warps) in enumerate(batches):
         states = init_states(cfg, N_SEQS, "cuda")
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        states, outs, masks = batch_replay(cfg, states, b)
+        states, outs, masks = batch_replay(cfg, states, b, None, embs, warps)
         end.record()
         end.synchronize()
         if not torch.isfinite(outs[masks]).all():
@@ -1006,35 +1316,73 @@ def _bench(label, cfg, frames_fn, det_cols, card, launches=6):
     return batches[-1]
 
 
-def profile_ocsort_step(card, batch):
-    """Kernels, device busy ms and host ms per OC-SORT AABB step at the
-    bench shape: 16 steady steps (frames 64-79) under torch.profiler, host
-    ms from the same 16 steps again without it (host clock, ending in a
-    synchronize); the idle share is 1 - busy / host ms."""
-    cfg = OcSortConfig(capacity=CAPACITY)
-    states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64])
-    prof = measure.profile_steps(lambda: batch_replay(cfg, states, batch[:, 64:80]), 16)
+def profile_step(label, cfg, card, inputs):
+    """Kernels, device busy ms and host ms per step of ``cfg`` at the bench
+    shape: 16 steady steps (frames 64-79) under torch.profiler, host ms from
+    the same 16 steps again without it (host clock, ending in a
+    synchronize); the idle share is 1 - busy / host ms.  ``inputs`` is
+    (batch, embs, warps) as ``_bench`` returns it; each kernel's device ms a
+    step: K1, K2, K4 and the embedding product (cuBLAS gemm kernels)."""
+    batch, embs, warps = inputs
+    head = (None, None) if embs is None else (embs[:, :64], warps[:, :64])
+    tail = (None, None) if embs is None else (embs[:, 64:80], warps[:, 64:80])
+    states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64], None, *head)
+    prof = measure.profile_steps(lambda: batch_replay(cfg, states, batch[:, 64:80], None, *tail),
+                                 16)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    batch_replay(cfg, states, batch[:, 64:80])
+    batch_replay(cfg, states, batch[:, 64:80], None, *tail)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / 16
+    by_kernel = {k: sum(ms for name, (_, ms) in prof["by_kernel"].items() if pick(name.lower()))
+                 for k, pick in (("K1", lambda n: "iou_cost_kernel" in n),
+                                 ("K2", lambda n: "auction_kernel" in n),
+                                 ("K4", lambda n: "oru_kernel" in n),
+                                 ("bmm", lambda n: "gemm" in n))}
     families = {}  # kernel name without namespace and template arguments -> (launches, ms)
     for name, (n, ms) in prof["by_kernel"].items():
         family = name.split("<")[0].split("::")[-1].split("(")[0].strip()
         launches, total = families.get(family, (0.0, 0.0))
         families[family] = (launches + n, total + ms)
     top = sorted(families.items(), key=lambda kv: -kv[1][1])[:8]
-    line = {"metric": "ocsort_step_profile", "kernels_per_step": prof["kernels_per_step"],
+    line = {"metric": f"{label}_step_profile", "kernels_per_step": prof["kernels_per_step"],
             "busy_ms_per_step": prof["busy_ms_per_step"], "host_ms_per_step": host_ms,
             "idle_share": 1.0 - prof["busy_ms_per_step"] / host_ms, "traces": prof["traces"],
+            "device_ms_per_step": by_kernel,
             "top_kernel_families_launches_ms_per_step": dict(top), "card": card}
+    print(json.dumps(line))
+
+
+def time_ecc(card):
+    """Phase 7e: ECC's ``apply`` on the card at 1080p, scale 0.15 (the
+    trackers' default): host ms a frame (the upload of the frame included,
+    ending in a synchronize), and the kernels one apply launches and their
+    device ms (torch.profiler)."""
+    imgs, steps = shifted_frames(8)
+    ecc = create_cmc("ecc", device="cuda")
+    ecc.apply(imgs[0])
+    ms = []
+    for img in imgs[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warp = ecc.apply(img)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    prof = measure.profile_steps(lambda: ecc.apply(imgs[1]), 1)
+    line = {"metric": "ecc_apply_1080p", "host_ms_per_frame": statistics.median(ms),
+            "host_ms": ms, "kernels_per_apply": prof["kernels_per_step"],
+            "busy_ms_per_apply": prof["busy_ms_per_step"], "traces": prof["traces"],
+            "last_warp_translation": warp[:, 2].tolist(), "known_step": steps[-1].tolist(),
+            "card": card}
     print(json.dumps(line))
 
 
 def run_throughput(card):
     """Phase 7: the AABB and OBB ByteTrack bench lines, the OC-SORT AABB
-    line with MISS of the detections missed, and the OC-SORT step profile."""
+    line with MISS of the detections missed and its step profile, the
+    BoT-SORT AABB line (embeddings and warps) and its step profile, the
+    DeepOCSORT AABB line (MISS missed, embeddings and warps) with the slots
+    K4 replayed and its step profile, and ECC's cost a frame."""
     drive("bench bytetrack AABB", lambda: _bench(
         "bytetrack", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, card),
         RATIOS["bytetrack"][0], sync_free=False)
@@ -1042,10 +1390,22 @@ def run_throughput(card):
         "bytetrack_obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
         lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, card, launches=4),
         RATIOS["bytetrack"][1], sync_free=False)
-    batch = drive("bench ocsort AABB", lambda: _bench(
+    inputs = drive("bench ocsort AABB", lambda: _bench(
         "ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, card, launches=4),
         RATIOS["ocsort"][0], sync_free=False)
-    profile_ocsort_step(card, batch)
+    profile_step("ocsort", OcSortConfig(capacity=CAPACITY), card, inputs)
+    cfg = build_replay_config("botsort", capacity=CAPACITY)
+    inputs = drive("bench botsort AABB", lambda: _bench(
+        "botsort", cfg, None, 6, card, launches=3, miss=0.0), RATIOS["botsort"][0], sync_free=False)
+    profile_step("botsort", cfg, card, inputs)
+    del inputs
+    cfg = build_replay_config("deepocsort", capacity=CAPACITY)
+    inputs = drive("bench deepocsort AABB", lambda: _bench(
+        "deepocsort", cfg, None, 6, card, launches=3, miss=MISS), RATIOS["deepocsort"][0],
+        sync_free=False)
+    profile_step("deepocsort", cfg, card, inputs)
+    del inputs
+    time_ecc(card)
 
 
 def build_kernels():
@@ -1084,13 +1444,20 @@ def main() -> int:
 
     check_sync_mode_is_live()
     run_aabb_evals()
+    run_reid_eval()
     run_obb_evals()
     for tracker in ("bytetrack", "ocsort"):
         drive(f"live {tracker} AABB", lambda: run_live(tracker), RATIOS[tracker][0],
               sync_free=False)
-    for tracker in ("bytetrack", "sfsort", "ocsort"):
+    for tracker in ("bytetrack", "sfsort", "ocsort", "botsort"):
         drive(f"live {tracker} OBB", lambda: run_live_obb(tracker), RATIOS[tracker][1],
               sync_free=False)
+    drive("live botsort ECC", lambda: run_live_cmc("botsort", 10, cmc_method="ecc"),
+          RATIOS["botsort"][0], sync_free=False)
+    drive("live botsort zoo defaults (SOF)", lambda: run_live_cmc("botsort", 4),
+          RATIOS["botsort"][0], sync_free=False)
+    drive("live deepocsort ECC + embeddings", lambda: run_live_cmc("deepocsort", 10, True),
+          RATIOS["deepocsort"][0], sync_free=False)
     drive("live bytetrack 300 detections", run_live_crowded, RATIOS["bytetrack"][0],
           sync_free=False)
     run_throughput(smi)

@@ -163,7 +163,7 @@ def test_live_update_equals_jax(per_class):
 
 def test_unported_paths_raise():
     with pytest.raises(ValueError, match="Slice 4"):
-        create_tracker("botsort", device="cpu")
+        create_tracker("strongsort", device="cpu")
     with pytest.raises(ValueError, match="Slice 4"):
         create_tracker("occluboost", device="cpu")
     with pytest.raises(ValueError, match="Unknown tracker"):

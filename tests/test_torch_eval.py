@@ -102,7 +102,8 @@ def test_chip_smoke_pins_equal_the_suite_pins():
     from tests.test_torch_obb import JAX_OBB_EVAL
 
     assert chip_smoke.PINNED == {k: v for k, v in PINNED.items()
-                                 if k[1] in ("bytetrack", "sfsort", "ocsort")}
+                                 if k[1] in ("bytetrack", "sfsort", "ocsort", "botsort",
+                                             "deepocsort")}
     assert chip_smoke.OBB_EVAL == JAX_OBB_EVAL
     assert chip_smoke.ATOL == ATOL
 
@@ -133,7 +134,8 @@ def test_chip_smoke_synthetic_frames_equal_bench():
 
 
 def test_mirrored_defaults_and_configs_equal_jax():
-    assert get_tracker_defaults("bytetrack") == jax_defaults("bytetrack")
+    for name in ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort"):
+        assert get_tracker_defaults(name) == jax_defaults(name), name
     assert get_tracker_defaults("nosuch") == jax_defaults("nosuch") == {}
     for params in ({}, {"match_thresh": 0.7, "max_time_lost": 40, "track_buffer": 5}):
         got = dataclasses.asdict(build_replay_config("bytetrack", **params))
@@ -142,7 +144,7 @@ def test_mirrored_defaults_and_configs_equal_jax():
     # YAML keys that are not fields are dropped: the replay keeps 0.45 and 25
     assert (cfg.track_thresh, cfg.match_thresh, cfg.det_thresh, cfg.max_time_lost) == (0.6, 0.9, 0.45, 25)
     with pytest.raises(ValueError, match="Slice"):
-        build_replay_config("botsort")
+        build_replay_config("strongsort")
 
 
 def test_pack_frames_and_buckets_equal_jax():
@@ -175,9 +177,10 @@ def test_unpack_mot_rows_equals_jax():
 
 
 def test_port_import_and_eval_leave_jax_out():
-    """The port, driven through its evals (ByteTrack, SFSORT OBB, OC-SORT)
-    and its live API (ByteTrack, OC-SORT), loads neither JAX nor any module
-    of the JAX package."""
+    """The port, driven through its evals (ByteTrack, SFSORT OBB, OC-SORT,
+    BoT-SORT, BoT-SORT OBB, DeepOCSORT) and its live API (ByteTrack, OC-SORT,
+    BoT-SORT with its default SOF and with ECC, DeepOCSORT with ECC and
+    embeddings), loads neither JAX nor any module of the JAX package."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
@@ -189,11 +192,21 @@ def test_port_import_and_eval_leave_jax_out():
         "assert abs(res['combined']['HOTA'] - 0.898815) <= 1e-4\n"
         "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'ocsort', device='cpu')\n"
         "assert abs(res['combined']['HOTA'] - 0.651511) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'botsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.652681) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'deepocsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.652269) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval_obb('assets/mmot-mini/train', 'botsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.575946) <= 1e-4\n"
         "dets = np.array([[10, 10, 50, 90, 0.9, 0], [200, 40, 260, 160, 0.8, 2]], np.float32)\n"
-        "for name in ('bytetrack', 'ocsort'):\n"
-        "    trk = boxmot_tpu_torch.create_tracker(name, device='cpu', per_class=True)\n"
+        "embs = np.random.default_rng(0).normal(size=(2, 512)).astype(np.float32)\n"
+        "img = np.random.default_rng(1).integers(0, 255, (480, 640, 3)).astype(np.uint8)\n"
+        "for name, kw in (('bytetrack', {}), ('ocsort', {}), ('botsort', {}),\n"
+        "                 ('botsort', {'cmc_method': 'ecc', 'per_class': False}),\n"
+        "                 ('deepocsort', {'per_class': False})):\n"
+        "    trk = boxmot_tpu_torch.create_tracker(name, device='cpu', **{'per_class': True, **kw})\n"
         "    for _ in range(3):\n"
-        "        out = trk.update(dets, np.zeros((480, 640, 3), np.uint8))\n"
+        "        out = trk.update(dets, img, embs if name != 'bytetrack' else None)\n"
         "    assert out.shape == (2, 8) and sorted(out.id) == [1, 2], out\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"

@@ -173,3 +173,60 @@ def test_id_allocator_and_track_results_equal_jax():
         for attr in ("xyxy", "xywh", "xywha", "id", "conf", "cls", "det_ind"):
             assert_identical(getattr(g, attr), getattr(w, attr), attr)
         assert (g.is_obb, g.to_json(), g.to_csv()) == (w.is_obb, w.to_json(), w.to_csv())
+
+
+def test_emb_and_warp_caches_equal_jax(tmp_path):
+    """The copied embedding and warp cache paths and loaders: the same files
+    give the same per-frame arrays (frames without rows, frames out of range
+    and an empty cache included)."""
+    rng = np.random.default_rng(4)
+    for args in (("root", "det", "osnet", "SEQ-1"), ("r", "d", "clip", "S", "crop")):
+        assert tcache.emb_cache_path(*args) == jcache.emb_cache_path(*args)
+    assert tcache.warp_cache_path("root", "ecc", "SEQ-1") == jcache.warp_cache_path("root", "ecc", "SEQ-1")
+    emb_rows = np.concatenate([np.repeat([1, 3, 3, 6], [2, 1, 3, 1])[:, None],
+                               rng.normal(size=(7, 16))], axis=1).astype(np.float32)
+    warp_rows = np.concatenate([np.array([[2], [5], [9], [0]]),
+                                rng.normal(size=(4, 6))], axis=1).astype(np.float32)
+    for name, rows in (("embs", emb_rows), ("warps", warp_rows),
+                       ("empty", np.zeros((0, 7), np.float32))):
+        np.save(tmp_path / f"{name}.npy", rows)
+    for name in ("embs", "empty"):
+        want = jcache.load_cached_embs_per_frame(tmp_path / f"{name}.npy", 7)
+        got = tcache.load_cached_embs_per_frame(tmp_path / f"{name}.npy", 7)
+        assert len(got) == len(want) == 7
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    for name in ("warps", "empty"):
+        want = jcache.load_cached_warps_per_frame(tmp_path / f"{name}.npy", 6)
+        got = tcache.load_cached_warps_per_frame(tmp_path / f"{name}.npy", 6)
+        assert got.dtype == want.dtype and got.shape == (6, 2, 3)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["sof", "orb", "sift"])
+def test_host_cmc_copies_equal_jax(name):
+    """The copied host CMC estimators (SOF on its OpenCV path where cv2 is
+    installed, ORB, SIFT with a working contrast threshold) give the JAX
+    copies' warps on frames cropped from a textured scene 5 px right and 3 px
+    down of each other; the numpy SOF path is held in tests/test_torch_cmc.py."""
+    pytest.importorskip("cv2")
+    from scipy.ndimage import gaussian_filter
+
+    from boxmot_tpu.motion import cmc as jcmc
+    from boxmot_tpu_torch.motion import cmc as tcmc
+
+    rng = np.random.default_rng(5)
+    scene = gaussian_filter(rng.uniform(0, 255, (900, 1300)), 4.0)
+    scene = ((scene - scene.min()) / np.ptp(scene) * 255).astype(np.uint8)
+    kw = {"contrast_threshold": 0.04} if name == "sift" else {}
+    jest, test = jcmc.create_cmc(name, **kw), tcmc.create_cmc(name, **kw)
+    dets = np.array([[300, 200, 420, 500]], np.float32)
+    moved = 0
+    for f in range(4):
+        y, x = 40 + 3 * f, 60 + 5 * f
+        img = np.ascontiguousarray(np.repeat(scene[y:y + 720, x:x + 1080, None], 3, axis=2))
+        want, got = jest.apply(img, dets), test.apply(img, dets)
+        np.testing.assert_array_equal(got, want)
+        moved += int(np.abs(got[:, 2] - (-5.0, -3.0)).max() < 1.5)  # the camera's step
+    assert moved >= 2

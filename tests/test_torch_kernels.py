@@ -232,3 +232,65 @@ def test_rotated_iou_kernel_slow_path_bit_equal_to_twin(card):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(counted, want)
     assert slow > 0 and int(ops.min()) > 0
+
+
+def _recorded(card, tracker, module, name, obb=False):
+    """The arguments of every ``name`` launch of 12 steps of ``tracker`` (the
+    YAML thresholds, capacity 256) on the card: the appearance scene at the
+    bench's detection bucket (embeddings and warps; 5 % of detections missed
+    so that DeepOCSORT's tracks rejoin), or turning rotated boxes for OBB."""
+    from boxmot_tpu_torch.engine.eval import build_replay_config
+    from boxmot_tpu_torch.engine.replay import batch_replay, init_states, pack_frames
+    from boxmot_tpu_torch.utils import measure
+    from chip_smoke import appearance_batch, synthetic_obb_frames
+
+    cfg = build_replay_config(tracker, capacity=256, **({"is_obb": True} if obb else {}))
+    if obb:
+        packed = [pack_frames(synthetic_obb_frames(12, 100, seed=s, miss=0.05), D=128, F=12,
+                              det_cols=7)[0] for s in range(2)]
+        batch, embs, warps = torch.from_numpy(np.stack(packed)).to(card), None, None
+    else:
+        batch, embs, warps = appearance_batch(2, 12, 100, 3, 0.05, card)
+    with measure.record_calls(module, [name]) as rec:
+        batch_replay(cfg, init_states(cfg, 2, card), batch, None, embs, warps)
+    return rec[name]
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb-k1", "obb-k3"])
+def test_iou_kernels_on_botsort_steps_bit_equal_to_twin(card, obb):
+    """K1 (both of its modes) and K3 at the inputs BoT-SORT's steps give them."""
+    from boxmot_tpu_torch.trackers import botsort
+
+    name = "rotated_iou" if obb else "fused_iou_cost"
+    calls = _recorded(card, "botsort", botsort, name, obb)
+    assert len(calls) == 24  # association and duplicate suppression, every step
+    for args, kwargs in calls:
+        if obb:
+            a, b = args[0], args[1]
+            c1, c2 = (args[2], args[3]) if len(args) > 2 else (obb_corners(a).contiguous(),
+                                                                obb_corners(b).contiguous())
+            got, want = rotated_iou(a, b, c1, c2), rotated_iou_plain(a, b, c1, c2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        else:
+            got, want = fused_iou_cost(*args, **kwargs), fused_iou_cost_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            assert all(g is w or torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_oru_kernel_on_deepocsort_steps_bit_equal_to_twin_on_the_cpu(card):
+    """K4 at the inputs DeepOCSORT's steps give it (the warped frozen state
+    included), against its twin run on the CPU."""
+    from boxmot_tpu_torch.trackers import deepocsort
+
+    calls = _recorded(card, "deepocsort", deepocsort, "oru_replay")
+    rejoined = 0
+    for args, _ in calls:
+        layout, tensors, rejoin, gap, replayed = args[0], args[1:7], args[7], args[8], args[9]
+        got = oru_replay(layout, *tensors, rejoin, gap, replayed.clone())
+        want = oru_replay_plain(layout, *(t.cpu() for t in (*tensors, rejoin, gap)),
+                                replayed.cpu().clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        rejoined += int(rejoin.sum())
+    assert len(calls) == 12 and rejoined > 0

@@ -50,6 +50,7 @@ JAX_OBB_EVAL = {
     "bytetrack": {"HOTA": 0.604123, "MOTA": 0.662654, "IDF1": 0.671799},
     "sfsort": {"HOTA": 0.898815, "MOTA": 0.942670, "IDF1": 0.924151},
     "ocsort": {"HOTA": 0.734300, "MOTA": 0.701753, "IDF1": 0.749516},
+    "botsort": {"HOTA": 0.575946, "MOTA": 0.606537, "IDF1": 0.663570},
 }
 ATOL = 1e-4
 RTOL = 1e-4
