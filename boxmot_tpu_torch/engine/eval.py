@@ -28,9 +28,11 @@ from boxmot_tpu_torch.engine.metrics.mot_metrics import evaluate_sequences, prep
 from boxmot_tpu_torch.engine.mot_io import write_mot_results
 from boxmot_tpu_torch.engine.replay import replay_sequences_batched
 from boxmot_tpu_torch.engine.results import ValidationResult
+from boxmot_tpu_torch.trackers.boosttrack import BoostTrackConfig
 from boxmot_tpu_torch.trackers.botsort import BotSortConfig
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
 from boxmot_tpu_torch.trackers.deepocsort import DeepOcSortConfig
+from boxmot_tpu_torch.trackers.occluboost import OccluBoostConfig
 from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
 from boxmot_tpu_torch.trackers.zoo import check_ported
@@ -38,7 +40,8 @@ from boxmot_tpu_torch.utils.device import resolve_device
 
 
 _TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig, "ocsort": OcSortConfig,
-                    "botsort": BotSortConfig, "deepocsort": DeepOcSortConfig}
+                    "botsort": BotSortConfig, "deepocsort": DeepOcSortConfig,
+                    "boosttrack": BoostTrackConfig, "occluboost": OccluBoostConfig}
 
 
 def build_replay_config(tracker_type: str, **params):
@@ -46,7 +49,8 @@ def build_replay_config(tracker_type: str, **params):
     name as in the JAX package.  The YAML keys that are not config fields
     (ByteTrack's and BoT-SORT's ``track_buffer`` and ``frame_rate``, SFSORT's
     margins, OC-SORT's and DeepOCSORT's ``Q_xy_scaling`` and ``Q_s_scaling``,
-    DeepOCSORT's ``iou_thresh``, BoT-SORT's ``cmc_method``) are dropped, so
+    DeepOCSORT's ``iou_thresh``, BoT-SORT's, BoostTrack's and OccluBoost's
+    ``use_cmc`` and ``cmc_method``, OccluBoost's ``gta_smooth_tau``) are dropped, so
     the ByteTrack replay keeps the config defaults ``det_thresh`` 0.45 and
     ``max_time_lost`` 25, BoT-SORT's ``max_time_lost`` stays 30 and
     DeepOCSORT's ``iou_threshold`` 0.3, which the pinned metrics depend on."""

@@ -16,11 +16,21 @@ host.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from boxmot_tpu_torch.engine.mot_io import convert_to_mot_format
-from boxmot_tpu_torch.trackers import botsort, bytetrack, deepocsort, ocsort, sfsort
+from boxmot_tpu_torch.trackers import (
+    boosttrack,
+    botsort,
+    bytetrack,
+    deepocsort,
+    occluboost,
+    ocsort,
+    sfsort,
+)
 from boxmot_tpu_torch.utils.device import resolve_device
 
 FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
@@ -49,20 +59,30 @@ def resolve_tracker(cfg):
         return botsort.init_state, botsort.botsort_step
     if isinstance(cfg, deepocsort.DeepOcSortConfig):
         return deepocsort.init_state, deepocsort.deepocsort_step
+    if isinstance(cfg, boosttrack.BoostTrackConfig):
+        return boosttrack.init_state, boosttrack.boosttrack_step
+    if isinstance(cfg, occluboost.OccluBoostConfig):
+        return occluboost.init_state, occluboost.occluboost_step
     raise TypeError(f"unknown tracker config type {type(cfg).__name__}")
 
 
 def wants_embs(cfg) -> bool:
     """Whether the config's step reads appearance embeddings: DeepOCSORT
-    always (zeros when none are given), BoT-SORT with ``with_reid``."""
-    if isinstance(cfg, botsort.BotSortConfig):
+    always (zeros when none are given), BoT-SORT, BoostTrack and OccluBoost
+    with ``with_reid``."""
+    if isinstance(cfg, (botsort.BotSortConfig, boosttrack.BoostTrackConfig,
+                        occluboost.OccluBoostConfig)):
         return cfg.with_reid
     return isinstance(cfg, deepocsort.DeepOcSortConfig)
 
 
 def wants_warps(cfg) -> bool:
-    """Whether the config's step applies camera-motion warps."""
-    return isinstance(cfg, (botsort.BotSortConfig, deepocsort.DeepOcSortConfig))
+    """Whether the config's step applies camera-motion warps (OccluBoost's
+    oriented mode applies none)."""
+    if isinstance(cfg, occluboost.OccluBoostConfig):
+        return not cfg.is_obb
+    return isinstance(cfg, (botsort.BotSortConfig, deepocsort.DeepOcSortConfig,
+                            boosttrack.BoostTrackConfig))
 
 
 def _det_cols(cfg) -> int:
@@ -196,19 +216,29 @@ def _to_host(*tensors: torch.Tensor):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def replay_sequences_outputs(cfg, seqs, *, device="cuda"):
+def _state_row(states, k: int):
+    """Sequence k of a batched tracker state, as a state of one sequence."""
+    return type(states)(**{f.name: getattr(states, f.name)[k:k + 1]
+                           for f in dataclasses.fields(states)})
+
+
+def replay_sequences_outputs(cfg, seqs, *, device="cuda", with_states: bool = False):
     """Replay many sequences; return (outs (n_frames, K, 8 or 9), masks
-    (n_frames, K)) on the host for each, in input order.
+    (n_frames, K)) on the host for each, in input order; with
+    ``with_states``, (outs, masks, state) with each sequence's final tracker
+    state (a batch of one, on ``device``), from which e.g. OccluBoost's
+    ``flush_gta_rows`` reads the gap rows.
 
     ``seqs`` is a list of dicts with key ``dets`` (list of per-frame (Ni, 6)
     or, for an OBB config, (Ni, 7) arrays) and, as in the JAX
     ``replay_sequences_batched``, optional ``embs`` (per-frame (Ni, feat_dim)
     arrays, read by the trackers that use appearance) and ``warps`` ((n, 2, 3)
-    camera-motion warps, the identity after them; read by BoT-SORT and
-    DeepOCSORT).  Sequences that share a (frame, det) bucket run as one
-    batch; where one of them has embeddings or warps, the others get zeros
-    or identities.  Raises if any assignment stopped at the auction's
-    iteration cap, since its matches would then be a truncated solve.
+    camera-motion warps, the identity after them; read by BoT-SORT,
+    DeepOCSORT, BoostTrack and axis-aligned OccluBoost).  Sequences that
+    share a (frame, det) bucket run as one batch; where one of them has
+    embeddings or warps, the others get zeros or identities.  Raises if any
+    assignment stopped at the auction's iteration cap, since its matches
+    would then be a truncated solve.
     """
     device = resolve_device(device)
     groups: dict[tuple[int, int], list[int]] = {}
@@ -246,6 +276,8 @@ def replay_sequences_outputs(cfg, seqs, *, device="cuda"):
             )
         for k, i in enumerate(idxs):
             results[i] = (outs[k, :n_frames_list[k]], masks[k, :n_frames_list[k]])
+            if with_states:
+                results[i] += (_state_row(states, k),)
     return results
 
 

@@ -1,5 +1,5 @@
-"""Batched, masked Kalman filter bank, XYAH, XYWH(-OBB) and XYSR(-OBB)
-layouts (counterpart of boxmot_tpu/motion/kalman.py).
+"""Batched, masked Kalman filter bank, XYAH, XYWH(-OBB), XYSR(-OBB) and
+XYHR(-OBB) layouts (counterpart of boxmot_tpu/motion/kalman.py).
 
 Track state is ``mean (..., dx)`` and ``cov (..., dx, dx)`` with any
 leading batch axes, here (S, K).  Every small product is written as
@@ -122,10 +122,13 @@ def predict(layout: KFLayout, mean: torch.Tensor, cov: torch.Tensor, mask: torch
     )
 
 
-def update(layout: KFLayout, mean, cov, meas, mask):
+def update(layout: KFLayout, mean, cov, meas, mask, gain_scale=None):
     """Masked correction step in Joseph form.
 
     meas (..., dz); slots where ``mask`` is False pass through unchanged.
+    ``gain_scale`` (...,), when given, scales each slot's mean correction
+    (OccluBoost's abnormal-motion suppression); the covariance still
+    contracts in full.
     """
     dz, dx = layout.dz, layout.dx
     r_var = torch.square(layout.meas_diag(mean))
@@ -140,6 +143,8 @@ def update(layout: KFLayout, mean, cov, meas, mask):
     delta = innov[..., 0, None] * gain[..., :, 0]
     for z in range(1, dz):
         delta = delta + innov[..., z, None] * gain[..., :, z]
+    if gain_scale is not None:
+        delta = delta * gain_scale[..., None]
     new_mean = layout.enforce(mean + delta)
 
     # Joseph form: P = (I - K H) P (I - K H)^T + K R K^T with H = [I 0].
@@ -294,6 +299,12 @@ def _const_row(values: tuple, device: torch.device) -> torch.Tensor:
     return row
 
 
+def _const(values: tuple, like: torch.Tensor) -> torch.Tensor:
+    """The constant row ``values`` on ``like``'s device, broadcast to its
+    leading axes."""
+    return _const_row(values, like.device).expand(like.shape[:-1] + (len(values),))
+
+
 def make_xysr_layout(obb: bool = False, q_xy_scaling: float = 0.01, q_s_scaling: float = 0.0001,
                      q_a_scaling: float = 0.0001) -> KFLayout:
     """[cx, cy, s=area, r=aspect] (+ theta) SORT-style filter with OC-SORT's
@@ -316,9 +327,6 @@ def make_xysr_layout(obb: bool = False, q_xy_scaling: float = 0.01, q_s_scaling:
               for a in range(dx))
     p0_std, q_std, r_std = _std_stds(p0), _std_stds(q), _std_stds(r)
 
-    def const(values, like):
-        return _const_row(values, like.device).expand(like.shape[:-1] + (len(values),))
-
     def init_mean(z):
         return torch.cat([z, z.new_zeros(z.shape[:-1] + (dx - dz,))], dim=-1)
 
@@ -335,9 +343,48 @@ def make_xysr_layout(obb: bool = False, q_xy_scaling: float = 0.01, q_s_scaling:
         dz=dz,
         motion_mat=F,
         init_mean=init_mean,
-        init_cov_diag=lambda z: const(p0_std, z),
-        process_diag=lambda mean: const(q_std, mean),
-        meas_diag=lambda mean: const(r_std, mean),
+        init_cov_diag=lambda z: _const(p0_std, z),
+        process_diag=lambda mean: _const(q_std, mean),
+        meas_diag=lambda mean: _const(r_std, mean),
+        enforce=enforce,
+    )
+
+
+def make_xyhr_layout(obb: bool = False) -> KFLayout:
+    """[x, y, h, r=w/h] (+ theta) constant-velocity filter with BoostTrack's
+    constant noise: P0 = 10 (10000 for the velocities), Q = 1 (0.01 for the
+    velocities and theta), R = [1, 1, 10, 0.01] (+ 0.01 for theta)."""
+    dz = 5 if obb else 4
+    dx = 2 * dz
+    p0 = [10.0] * dz + [10000.0] * dz
+    q = [1.0] * dz + [0.01] * dz
+    r = [1.0, 1.0, 10.0, 0.01]
+    if obb:
+        q[4] = 0.01
+        r.append(0.01)
+    p0_std, q_std, r_std = _std_stds(p0), _std_stds(q), _std_stds(r)
+
+    def init_mean(z):
+        if obb:
+            z = _set(z, 4, wrap_angle(z[..., 4]))
+        return torch.cat([z, torch.zeros_like(z)], dim=-1)
+
+    def enforce(mean):
+        mean = _set(mean, 2, torch.clamp_min(mean[..., 2], 1e-4))
+        mean = _set(mean, 3, torch.clamp_min(mean[..., 3], 1e-4))
+        if obb:
+            mean = _set(mean, 4, wrap_angle(mean[..., 4]))
+        return mean
+
+    return KFLayout(
+        name="xyhr_obb" if obb else "xyhr",
+        dx=dx,
+        dz=dz,
+        motion_mat=_cv_motion_mat(dz),
+        init_mean=init_mean,
+        init_cov_diag=lambda z: _const(p0_std, z),
+        process_diag=lambda mean: _const(q_std, mean),
+        meas_diag=lambda mean: _const(r_std, mean),
         enforce=enforce,
     )
 

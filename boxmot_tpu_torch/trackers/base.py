@@ -11,11 +11,13 @@ detection bucket, per-class states renumbered by the shared
 detections [cx, cy, w, h, theta, conf, cls] switch a tracker that supports
 them to OBB mode on the first frame and give (M, 9) rows
 [cx, cy, w, h, theta, id, conf, cls, det_ind].  ``embs`` (N, F) are the
-detections' appearance embeddings, sliced with each class's mask when
-``per_class`` (the JAX shell slices them too, but its appearance trackers
-then read the whole frame's); an appearance tracker reads the frame's image
-and its embeddings from ``_frame_inputs``.  ``masks`` are accepted and
-ignored, as by every JAX tracker but sam2mot, which is not ported.
+detections' appearance embeddings; an appearance tracker reads the frame's
+image and its embeddings from ``_frame_inputs``.  With ``per_class`` every
+class bank gets the whole frame's ``embs`` and reads its first n rows for
+its n detections, as the JAX appearance trackers do (their ``update`` keeps
+the frame's embeddings, which their ``_step`` reads in every class bank).
+``masks`` are accepted and ignored, as by every JAX tracker but sam2mot,
+which is not ported.
 """
 
 from __future__ import annotations
@@ -178,8 +180,7 @@ class BaseTracker:
         for cls_id in range(self.nr_classes):
             self.frame_count = frame_count
             cls_mask = dets[:, self.layout.cls_idx] == cls_id
-            out = self._run_class(cls_id, dets[cls_mask],
-                                  None if embs is None else np.asarray(embs)[cls_mask])
+            out = self._run_class(cls_id, dets[cls_mask], embs)
             if out.size > 0:
                 outputs.append(out)
         self.frame_count = frame_count + 1

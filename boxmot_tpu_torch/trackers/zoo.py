@@ -1,7 +1,8 @@
 """Tracker registry (counterpart of boxmot_tpu/trackers/zoo.py).
 
-ByteTrack, SFSORT, OC-SORT and BoT-SORT are ported, each for axis-aligned
-and oriented boxes, and DeepOCSORT for axis-aligned boxes; every other
+ByteTrack, SFSORT, OC-SORT, BoT-SORT and OccluBoost are ported, each for
+axis-aligned and oriented boxes, and DeepOCSORT and BoostTrack for
+axis-aligned boxes; every other
 tracker name raises and names the ROADMAP slice that brings it.  Config resolution order, as in the JAX
 zoo: built-in defaults < per-tracker config dict < kwargs.
 """
@@ -12,15 +13,13 @@ from boxmot_tpu_torch.configs import get_tracker_defaults
 
 # trackers of the JAX zoo that the port does not run yet -> ROADMAP Queue A slice
 NOT_PORTED = {
-    "occluboost": "Slice 4",
     "strongsort": "Slice 4",
-    "boosttrack": "Slice 4",
     "hybridsort": "Slice 4",
     "sam2mot": "Slice 4",
 }
 
 
-PORTED = ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort")
+PORTED = ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort", "boosttrack", "occluboost")
 
 
 def check_ported(name: str) -> None:
@@ -40,9 +39,11 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
     """Build a live tracker by name on ``device`` ("cpu", "cuda", "cuda:N");
     the card unless the caller asks for the CPU."""
     check_ported(tracker_type)
+    from boxmot_tpu_torch.trackers.boosttrack import BoostTrack
     from boxmot_tpu_torch.trackers.botsort import BotSort
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrack
     from boxmot_tpu_torch.trackers.deepocsort import DeepOcSort
+    from boxmot_tpu_torch.trackers.occluboost import OccluBoost
     from boxmot_tpu_torch.trackers.ocsort import OcSort
     from boxmot_tpu_torch.trackers.sfsort import SFSORT
 
@@ -52,5 +53,5 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
     params.update(kwargs)
     params["per_class"] = per_class
     classes = {"bytetrack": ByteTrack, "sfsort": SFSORT, "ocsort": OcSort, "botsort": BotSort,
-               "deepocsort": DeepOcSort}
+               "deepocsort": DeepOcSort, "boosttrack": BoostTrack, "occluboost": OccluBoost}
     return classes[tracker_type](device=device, **params)

@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      on a ragged S with gaps past MAX_ORU, on its edges (no slot rejoining,
      5 x 13 slots, gaps of MAX_ORU and MAX_ORU + 1, tied alignment
      candidates) and on a recorded OC-SORT step and DeepOCSORT step (its
-     warped frozen state); K1 also on a recorded BoT-SORT step's inputs;
+     warped frozen state); K1 also on a recorded BoT-SORT step's inputs,
+     and K1, K2 (the graveyard's detections x 64 slots among its problems)
+     and K3 on a recorded OccluBoost bench step, AABB and OBB;
      the launch floor, an empty kernel's device time through K1's ctypes
      path on one block and on K1's grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
@@ -25,25 +27,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      events around one call), its twin's, and its bound counted from the
      work those inputs need; the OBB Kalman bank's bits on the card against
      the CPU;
-  4. AABB evals: run_eval for ByteTrack, SFSORT, OC-SORT, BoT-SORT and
-     DeepOCSORT on MOT17-mini and synth-long, held to the pinned
-     HOTA/MOTA/IDF1, with their MOT rows held against the same evals on the
-     CPU (BoT-SORT's and DeepOCSORT's to the bit); then BoT-SORT's run_eval
-     with ``reid`` and ``cmc_method`` over seeded synth-long embedding and
-     warp caches (512-d), against the CPU: metrics equal, tracks with ids,
-     masks and det_ind exact and boxes within 1e-4 px, and the smallest
-     margin of an appearance distance to its threshold;
-  5. OBB evals: run_eval_obb for ByteTrack, SFSORT, OC-SORT and BoT-SORT on
-     mmot-mini, held to the JAX package's values, with their tracks held
-     against the CPU's;
+  4. AABB evals: run_eval for ByteTrack, SFSORT, OC-SORT, BoT-SORT,
+     DeepOCSORT, BoostTrack and OccluBoost on MOT17-mini and synth-long,
+     held to the pinned HOTA/MOTA/IDF1, with their MOT rows held against the
+     same evals on the CPU (those of BoT-SORT, DeepOCSORT, BoostTrack and
+     OccluBoost to the bit); then BoT-SORT's run_eval with ``reid`` and
+     ``cmc_method`` over seeded synth-long embedding and warp caches
+     (512-d), against the CPU: metrics equal, tracks with ids, masks and
+     det_ind exact and boxes within 1e-4 px, and the smallest margin of an
+     appearance distance to its threshold; and OccluBoost's on the same
+     caches with GTA on, against the CPU and a motion-only run, with the
+     graveyard resurrections and gap rows it made;
+  5. OBB evals: run_eval_obb for ByteTrack, SFSORT, OC-SORT, BoT-SORT and
+     OccluBoost on mmot-mini, held to the JAX package's values, with their
+     tracks held against the CPU's;
   6. the live API: 50 frames of MOT17-04-FRCNN (ByteTrack, OC-SORT), the
      mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT, OC-SORT,
-     BoT-SORT), frames of 300 detections, and seeded textured 1920 x 1080
-     frames of a camera panning by known sub-pixel steps with MOT17-04's
-     detections moved along: BoT-SORT with ECC on the card, BoT-SORT from
-     the zoo defaults (SOF, on the host) and DeepOCSORT with ECC and
-     embeddings; each against the same tracker on the CPU, with the warps
-     ECC recovered beside the known steps;
+     BoT-SORT, OccluBoost), frames of 300 detections, and seeded textured
+     1920 x 1080 frames of a camera panning by known sub-pixel steps with
+     MOT17-04's detections moved along: BoT-SORT with ECC on the card,
+     BoT-SORT from the zoo defaults (SOF, on the host), DeepOCSORT with ECC
+     and embeddings, BoostTrack and OccluBoost with ECC; each against the
+     same tracker on the CPU, with the warps ECC recovered beside the known
+     steps;
   7. replay throughput at the bench shape (8 sequences x 256 frames x 100
      detections, D = 128, capacity 256), timed with CUDA events: ByteTrack
      AABB and OBB, OC-SORT AABB with 5 % of the detections missed each
@@ -53,15 +59,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      (``appearance_batch``: 0.54 GB of embeddings made on the card) and its
      16-step profile with K1's, K2's and the embedding product's device ms;
      DeepOCSORT AABB on the same kind of input with 5 % missed, and its
-     16-step profile; and ECC's ``apply`` at 1080p, scale 0.15 (host ms a
-     frame, kernels an apply).
+     16-step profile; BoostTrack AABB (the YAML tier) and OccluBoost AABB
+     (``OccluBoostConfig()``, as bench.py runs it) on the same kind of input,
+     with their 16-step profiles; and ECC's ``apply`` at 1080p, scale 0.15
+     (host ms a frame, kernels an apply).
 Every path of phases 4-7 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; OC-SORT and
-DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU) the counts must keep
-that ratio, so no step fell back to a twin.  The line before the last is {"kernels": [...]}, with each
+DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; BoostTrack and
+OccluBoost: as ``boost_ratio`` counts them from the config's options) the
+counts must keep that ratio, so no step fell back to a twin.  The line
+before the last is {"kernels": [...]}, with each
 kernel's launches summed over those paths; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero before
 printing any result.
@@ -71,6 +81,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import configparser
+import contextlib
 import json
 import math
 import statistics
@@ -107,8 +118,10 @@ from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain,
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from boxmot_tpu_torch.trackers import botsort, bytetrack, deepocsort, ocsort
+from boxmot_tpu_torch.trackers import boosttrack, botsort, bytetrack, deepocsort, occluboost, ocsort
+from boxmot_tpu_torch.trackers.boosttrack import BoostTrackConfig
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+from boxmot_tpu_torch.trackers.occluboost import OccluBoostConfig
 from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.utils import measure
 
@@ -117,8 +130,8 @@ ASSETS = ROOT / "assets"
 ROOTS = {"mot17_mini": ASSETS / "MOT17-mini" / "train", "synth_long": ASSETS / "synth-long" / "train"}
 MMOT_ROOT = ASSETS / "mmot-mini" / "train"
 LIVE_SEQ = ROOTS["mot17_mini"] / "MOT17-04-FRCNN"
-# the ByteTrack, SFSORT, OC-SORT, BoT-SORT and DeepOCSORT pins of
-# tests/test_pinned_metrics.py (a CPU test holds them equal)
+# the ByteTrack, SFSORT, OC-SORT, BoT-SORT, DeepOCSORT, BoostTrack and
+# OccluBoost pins of tests/test_pinned_metrics.py (a CPU test holds them equal)
 PINNED = {
     ("mot17_mini", "bytetrack"): {"HOTA": 0.649859, "MOTA": 0.495283, "IDF1": 0.662461},
     ("mot17_mini", "ocsort"): {"HOTA": 0.651511, "MOTA": 0.488208, "IDF1": 0.656101},
@@ -130,6 +143,10 @@ PINNED = {
     ("mot17_mini", "deepocsort"): {"HOTA": 0.652269, "MOTA": 0.492925, "IDF1": 0.660348},
     ("synth_long", "botsort"): {"HOTA": 0.952210, "MOTA": 0.996670, "IDF1": 0.968877},
     ("synth_long", "deepocsort"): {"HOTA": 0.885492, "MOTA": 0.932667, "IDF1": 0.934837},
+    ("mot17_mini", "boosttrack"): {"HOTA": 0.649366, "MOTA": 0.495283, "IDF1": 0.662461},
+    ("mot17_mini", "occluboost"): {"HOTA": 0.649804, "MOTA": 0.492925, "IDF1": 0.660348},
+    ("synth_long", "boosttrack"): {"HOTA": 0.940187, "MOTA": 0.984832, "IDF1": 0.962756},
+    ("synth_long", "occluboost"): {"HOTA": 0.970771, "MOTA": 0.995930, "IDF1": 0.997963},
 }
 # the JAX package's run_eval_obb on mmot-mini (a CPU test holds them equal)
 OBB_EVAL = {
@@ -137,7 +154,27 @@ OBB_EVAL = {
     "sfsort": {"HOTA": 0.898815, "MOTA": 0.942670, "IDF1": 0.924151},
     "ocsort": {"HOTA": 0.734300, "MOTA": 0.701753, "IDF1": 0.749516},
     "botsort": {"HOTA": 0.575946, "MOTA": 0.606537, "IDF1": 0.663570},
+    "occluboost": {"HOTA": 0.612130, "MOTA": 0.584943, "IDF1": 0.669023},
 }
+
+
+def boost_ratio(cfg) -> dict:
+    """Launches per step of a BoostTrack or OccluBoost config's kernels, which
+    depend on its options: an IoU launch for the association (it also feeds
+    the DLO boost and the passes on tracks x detections), one for DUO, one for
+    the oriented recovery and second passes, one for duplicate suppression;
+    an auction for the first pass, the recovery, the second pass, GTA and
+    the graveyard."""
+    if isinstance(cfg, BoostTrackConfig):
+        return {"fused_iou_cost": 1 + cfg.use_duo_boost, "masked_assignment": 1}
+    obb, reid = cfg.is_obb, cfg.with_reid
+    gta = cfg.gta_enabled and reid
+    iou = (1 + (not obb and cfg.use_duo_boost) + (obb and (reid or cfg.use_second_pass))
+           + (0.0 < cfg.duplicate_iou_thresh < 1.0))
+    return {"rotated_iou" if obb else "fused_iou_cost": iou,
+            "masked_assignment": 1 + reid + cfg.use_second_pass + 2 * gta}
+
+
 # launches per step of each tracker's kernels, axis-aligned and oriented
 RATIOS = {
     "bytetrack": ({"fused_iou_cost": 2, "masked_assignment": 3},
@@ -148,10 +185,19 @@ RATIOS = {
     "botsort": ({"fused_iou_cost": 2, "masked_assignment": 3},
                 {"rotated_iou": 2, "masked_assignment": 3}),
     "deepocsort": ({"fused_iou_cost": 2, "masked_assignment": 2, "oru_replay": 1}, None),
+    # the YAML tiers as the evals run them: run_eval without embeddings
+    # (with_reid off), run_eval_obb with zero ones (with_reid on)
+    "boosttrack": (boost_ratio(build_replay_config("boosttrack", with_reid=False)), None),
+    "occluboost": (boost_ratio(build_replay_config("occluboost", with_reid=False)),
+                   boost_ratio(build_replay_config("occluboost", is_obb=True))),
 }
+# the live OccluBoost without a ReID model: with_reid off in both modes
+LIVE_OBB_RATIOS = {**{t: r[1] for t, r in RATIOS.items() if r[1]},
+                   "occluboost": boost_ratio(build_replay_config("occluboost", with_reid=False,
+                                                                 is_obb=True))}
 # trackers whose eval and live rows must equal the CPU's to the bit (no
 # embedding product enters them: the evals run without embeddings)
-BIT_EQUAL_EVALS = ("botsort", "deepocsort")
+BIT_EQUAL_EVALS = ("botsort", "deepocsort", "boosttrack", "occluboost")
 FEAT_DIM = 512  # the OSNet width of the appearance trackers' configs
 REID, REID_DETECTOR = "seedreid", "seeddet"
 MISS = 0.05  # the OC-SORT bench line's share of detections missed each frame
@@ -352,6 +398,51 @@ def synthetic_obb_frames(n_frames, n_dets, seed=0, miss=0.05):
     return frames
 
 
+def occlusion_frames(n_frames, n_ids, seed=0, feat_dim=32, obb=False, speed=2.0):
+    """Seeded identities that vanish and come back: each walks over a
+    1920 x 1080 frame (up to ``speed`` px a frame on each axis); half of
+    them are hidden for 12-22 frames once (long enough for a tracker with
+    max_age 10 to bury them), every one misses 5 % of its frames, is cut to
+    55 % of its height now and then (a speed and shrink spike for
+    OccluBoost's AMS), and takes a low confidence in 20 % of its frames.  Rows come in a shuffled order.  Returns (frames, embs): per
+    frame (Ni, 6) [x1, y1, x2, y2, conf, cls] or, with ``obb``, (Ni, 7)
+    [cx, cy, w, h, theta, conf, cls], and (Ni, feat_dim) embeddings, each its
+    identity's unit vector plus noise of norm about 0.1."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform([100, 100], [1800, 900], (n_ids, 2))
+    vel = rng.uniform(-speed, speed, (n_ids, 2))
+    size = np.stack([rng.uniform(40, 100, n_ids), rng.uniform(90, 200, n_ids)], 1)
+    theta = rng.uniform(-np.pi, np.pi, n_ids)
+    hide = np.full((n_ids, 2), -1)
+    for i in range(0, n_ids, 2):
+        start = rng.integers(8, max(9, n_frames - 25))
+        hide[i] = start, start + rng.integers(12, 23)
+    base = rng.normal(size=(n_ids, feat_dim))
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    frames, embs = [], []
+    for f in range(n_frames):
+        rows, feats = [], []
+        for i in range(n_ids):
+            if hide[i, 0] <= f < hide[i, 1] or rng.uniform() < 0.05:
+                continue
+            c = pos[i] + vel[i] * f + rng.normal(0, 0.7, 2)
+            w, h = size[i]
+            if rng.uniform() < 0.06:
+                c = c - [0, 0.225 * h]
+                h = 0.55 * h
+            conf = rng.uniform(0.15, 0.5) if rng.uniform() < 0.2 else rng.uniform(0.6, 0.95)
+            if obb:
+                rows.append([c[0], c[1], w, h, theta[i] + 0.01 * f, conf, i % 3])
+            else:
+                rows.append([c[0] - w / 2, c[1] - h / 2, c[0] + w / 2, c[1] + h / 2, conf, i % 3])
+            feats.append(base[i] + rng.normal(0, 0.1 / math.sqrt(feat_dim), feat_dim))
+        order = rng.permutation(len(rows))
+        cols = 7 if obb else 6
+        frames.append(np.asarray(rows, np.float32).reshape(-1, cols)[order])
+        embs.append(np.asarray(feats, np.float32).reshape(-1, feat_dim)[order])
+    return frames, embs
+
+
 def oru_inputs(rng, S, K, obb, p_rejoin=1.0, gap_max=31):
     """Inputs of the ORU (kernel K4) for S x K slots, made with the port's
     XYSR Kalman bank on the CPU: tracks initiated and updated four times
@@ -535,6 +626,15 @@ def check_k1(rng, step_calls):
             raise AssertionError("K1 on BoT-SORT's bench step: not bit-equal to the twin")
         print(f"K1 BoT-SORT bench step {'iou+cost' if len(args) == 3 else 'iou-only'} "
               f"{tuple(args[0].shape)} x {args[1].shape[1]}: bit-equal to the twin")
+    # OccluBoost's bench step: the association IoU (which DLO and the recovery
+    # read too), DUO's detections x detections and the duplicate suppression's
+    for args, kwargs in step_calls["occluboost"]["fused_iou_cost"]:
+        got, want = fused_iou_cost(*args, **kwargs), fused_iou_cost_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        if not (got[1] is None and torch.equal(got[0], want[0])):
+            raise AssertionError("K1 on OccluBoost's bench step: not bit-equal to the twin")
+        print(f"K1 OccluBoost bench step iou-only {tuple(args[0].shape)} x {args[1].shape[1]}: "
+              f"bit-equal to the twin")
     # the AABB bench step's own inputs (its two launches, each in its mode)
     calls = []
     for args, kwargs in step_calls["aabb"]["fused_iou_cost"]:
@@ -635,6 +735,12 @@ def check_k2(rng, step_calls):
         thresh = torch.linspace(0.3, 0.9, S, device="cuda")
         _k2_same(f"S={S} {R}x{C} per-problem thresholds",
                  *_problem(rng, "iou-like", S=S, R=R, C=C), thresh)
+    # OccluBoost's bench step: the first pass, the recovery, GTA and the
+    # graveyard (detections x 64 slots), with the per-problem thresholds of
+    # the full assignment
+    for args, kwargs in step_calls["occluboost"]["masked_assignment"]:
+        cost, rm, cm, thresh = args[:4]
+        _k2_same(f"OccluBoost bench step {tuple(cost.shape)}", cost, rm, cm, thresh)
     rows = []
     for label in ("aabb", "obb"):
         for args, kwargs in step_calls[label]["masked_assignment"]:
@@ -767,6 +873,15 @@ def check_k3(rng, step_calls):
                 raise AssertionError("K3: self-IoU <= 0.999 or a disjoint pair > 0")
         if kind == "4096^2":
             timed[kind] = (a, b, c1, c2, ops)
+    # OccluBoost's oriented bench step: the association (detections x tracks),
+    # the recovery's tracks x detections and the duplicate suppression's
+    for args, _ in step_calls["occluboost_obb"]["rotated_iou"]:
+        got, want = rotated_iou(*args), rotated_iou_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("K3 on OccluBoost's oriented bench step: not bit-equal")
+        print(f"K3 OccluBoost OBB bench step {tuple(args[0].shape)} x {args[1].shape[1]}: "
+              f"bit-equal to the twin")
     # the OBB bench step's own inputs (its two launches), with their corners
     for args, _ in step_calls["obb"]["rotated_iou"]:
         a, b = args[0], args[1]
@@ -796,35 +911,51 @@ def bench_step_calls():
     launch of an OC-SORT AABB bench step (with MISS of the detections
     missed), of BoT-SORT's IoU launches and of DeepOCSORT's ORU launch on
     the appearance bench inputs (embeddings and warps; DeepOCSORT with MISS
-    missed), recorded so that phase 3 checks and times each kernel on the
-    inputs the main path gives it."""
+    missed), and of OccluBoost's IoU launches and auctions (the graveyard's
+    detections x 64 slots among them) at ``OccluBoostConfig()``, the bench's,
+    on the appearance inputs and, oriented, on turning rotated boxes, recorded
+    so that phase 3 checks and times each kernel on the inputs the main path
+    gives it."""
     def frames(frames_fn, cols):
         packed = [pack_frames(frames_fn(65, N_DETS, seed=100 + s), D=D_BENCH, F=65,
                               det_cols=cols)[0] for s in range(N_SEQS)]
         return torch.from_numpy(np.stack(packed)).cuda(), None, None
 
+    def obb_frames():
+        return frames(lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7)
+
     calls = {}
-    for label, cfg, inputs, module, names in (
+    auctions = ((ocsort, ("masked_assignment",)), (occluboost, ("masked_assignment",)))
+    for label, cfg, inputs, records in (
             ("aabb", ByteTrackConfig(capacity=CAPACITY), lambda: frames(synthetic_frames, 6),
-             bytetrack, ("fused_iou_cost", "masked_assignment")),
-            ("obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True), lambda: frames(
-                lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7),
-             bytetrack, ("rotated_iou", "masked_assignment")),
+             [(bytetrack, ("fused_iou_cost", "masked_assignment"))]),
+            ("obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True), obb_frames,
+             [(bytetrack, ("rotated_iou", "masked_assignment"))]),
             ("ocsort", OcSortConfig(capacity=CAPACITY), lambda: frames(synthetic_frames_missed, 6),
-             ocsort, ("oru_replay",)),
+             [(ocsort, ("oru_replay",))]),
             ("botsort", build_replay_config("botsort"),
-             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, 0.0, "cuda"), botsort,
-             ("fused_iou_cost",)),
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, 0.0, "cuda"),
+             [(botsort, ("fused_iou_cost",))]),
             ("deepocsort", build_replay_config("deepocsort"),
-             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, MISS, "cuda"), deepocsort,
-             ("oru_replay",))):
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, MISS, "cuda"),
+             [(deepocsort, ("oru_replay",))]),
+            ("occluboost", OccluBoostConfig(capacity=CAPACITY),
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, MISS, "cuda"),
+             [(boosttrack, ("fused_iou_cost",)), *auctions]),
+            ("occluboost_obb", OccluBoostConfig(capacity=CAPACITY, is_obb=True), obb_frames,
+             [(occluboost, ("rotated_iou",))])):
         batch, embs, warps = inputs()
         head = (None, None) if embs is None else (embs[:, :64], warps[:, :64])
         tail = (None, None) if embs is None else (embs[:, 64:], warps[:, 64:])
         states, _, _ = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"), batch[:, :64], None,
                                     *head)
-        with measure.record_calls(module, names) as rec:
+        rec = {}
+        with contextlib.ExitStack() as stack:
+            recs = [stack.enter_context(measure.record_calls(m, names)) for m, names in records]
             batch_replay(cfg, states, batch[:, 64:], None, *tail)
+        for r in recs:
+            for name, v in r.items():
+                rec.setdefault(name, []).extend(v)
         calls[label] = rec
         print(f"bench step {label}: " + ", ".join(
             f"{n} x {len(v)} {[tuple(next(x for x in a if torch.is_tensor(x)).shape) for a, _ in v]}"
@@ -1066,13 +1197,26 @@ def _reid_inputs(root: Path):
             for q in MOTDataset(ROOTS["synth_long"])]
 
 
+def _replay_metrics(outputs) -> dict:
+    """HOTA/MOTA/IDF1 of synth-long from replay outputs, as run_eval scores
+    its MOT rows."""
+    from boxmot_tpu_torch.data.mot import MOTDataset
+    from boxmot_tpu_torch.engine.metrics.mot_metrics import evaluate_sequences, preprocess_sequence
+    from boxmot_tpu_torch.engine.replay import _unpack_mot_rows
+
+    data = {q.name: preprocess_sequence(q.gt(), _unpack_mot_rows(o[0], o[1], len(o[0])).astype(
+        np.float64), q.seq_length) for q, o in zip(MOTDataset(ROOTS["synth_long"]), outputs)}
+    c = evaluate_sequences(data)["combined"]
+    return {k: float(c[k]) for k in ("HOTA", "MOTA", "IDF1")}
+
+
 def run_reid_eval():
     """Phase 4b: BoT-SORT's run_eval with ``reid`` and ``cmc_method`` over
-    seeded synth-long embedding and warp caches, held to the same eval on the
-    CPU; the replay's tracks on the card against the CPU's (ids, masks, conf,
-    cls and det_ind exact, boxes within 1e-4 px); and the smallest margin
-    between an appearance distance of the card's run and its threshold (the
-    card's product sums in another order than the CPU's)."""
+    seeded synth-long embedding and warp caches, held to the same replay on
+    the CPU (metrics equal; ids, masks, conf, cls and det_ind exact, boxes
+    within 1e-4 px); and the smallest margin between an appearance distance
+    of the card's run and its threshold (the card's product sums in another
+    order than the CPU's)."""
     with tempfile.TemporaryDirectory() as tmp:
         root = reid_caches(Path(tmp) / "cache")
         kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc")
@@ -1080,18 +1224,17 @@ def run_reid_eval():
         res = drive("run_eval botsort synth_long reid + cmc", lambda: boxmot_tpu_torch.run_eval(
             ROOTS["synth_long"], "botsort", device="cuda", **kw), RATIOS["botsort"][0])
         seconds = time.perf_counter() - t0
-        cpu = boxmot_tpu_torch.run_eval(ROOTS["synth_long"], "botsort", device="cpu", **kw)
-        got, want = ({k: float(r["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
-                     for r in (res, cpu))
-        print(f"eval botsort synth_long with embeddings and warps on cuda: {got} in "
-              f"{seconds:.3f} s (cpu {want})")
-        if got != want:
-            raise AssertionError("BoT-SORT with embeddings and warps: cuda metrics differ from cpu")
         cfg = build_replay_config("botsort")
         seqs = _reid_inputs(root)
     with measure.record_calls(botsort, ["appearance_distance"]) as rec:
         gpu = replay_sequences_outputs(cfg, seqs, device="cuda")
     cpu = replay_sequences_outputs(cfg, seqs, device="cpu")
+    got = {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
+    want = _replay_metrics(cpu)
+    print(f"eval botsort synth_long with embeddings and warps on cuda: {got} in "
+          f"{seconds:.3f} s (cpu replay {want})")
+    if got != want:
+        raise AssertionError("BoT-SORT with embeddings and warps: cuda metrics differ from cpu")
     for (go, gm), (co, cm) in zip(gpu, cpu):
         box = float(np.abs(go[gm][:, :4] - co[cm][:, :4]).max(initial=0.0))
         if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, 4:], co[cm][:, 4:])
@@ -1104,6 +1247,70 @@ def run_reid_eval():
     print(f"BoT-SORT with embeddings replay tracks cuda vs cpu: {rows} rows, masks, ids, "
           f"conf, cls, det_ind equal, max box diff {box:.3g} px; smallest margin of an appearance "
           f"distance to its threshold over {len(rec['appearance_distance'])} steps: {margin:.3g}")
+
+
+# OccluBoost's cache-fed configuration of tests/test_emb_cache_eval.py: GTA on
+GTA_PARAMS = {"gta_enabled": True, "max_age": 10, "gta_min_track_length": 3}
+
+
+def run_occluboost_gta_eval():
+    """Phase 4c: OccluBoost's run_eval over the seeded synth-long embedding
+    (512-d) and warp caches with GTA on (``GTA_PARAMS``), against the same
+    replay on the CPU (metrics equal; ids, masks, cls and det_ind exact,
+    boxes and conf within 1e-4) and a motion-only run, which must differ;
+    the graveyard resurrections and gap rows of the final states
+    (``flush_gta_rows``), and the smallest margin between a similarity of
+    the card's run and an appearance gate."""
+    cfg = build_replay_config("occluboost", **GTA_PARAMS)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = reid_caches(Path(tmp) / "cache")
+        kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc",
+                  tracker_params=GTA_PARAMS)
+        t0 = time.perf_counter()
+        res = drive("run_eval occluboost synth_long reid + cmc + GTA",
+                    lambda: boxmot_tpu_torch.run_eval(ROOTS["synth_long"], "occluboost",
+                                                      device="cuda", **kw), boost_ratio(cfg))
+        seconds = time.perf_counter() - t0
+        motion = boxmot_tpu_torch.run_eval(
+            ROOTS["synth_long"], "occluboost", device="cuda",
+            **{**kw, "tracker_params": {**GTA_PARAMS, "with_reid": False}})
+        seqs = _reid_inputs(root)
+    with measure.record_calls(occluboost, ["emb_products"]) as rec:
+        gpu = replay_sequences_outputs(cfg, seqs, device="cuda", with_states=True)
+    cpu = replay_sequences_outputs(cfg, seqs, device="cpu", with_states=True)
+    got, want, plain = ({k: float(r["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
+                        for r in (res, {"combined": _replay_metrics(cpu)}, motion))
+    print(f"eval occluboost synth_long with embeddings, warps and GTA on cuda: {got} in "
+          f"{seconds:.3f} s (cpu replay {want}; motion-only {plain})")
+    if got != want:
+        raise AssertionError("OccluBoost with GTA: cuda metrics differ from cpu")
+    if got == plain:
+        raise AssertionError("OccluBoost with GTA: the same metrics as the motion-only run")
+    resurrected = gap_rows = 0
+    for (go, gm, gs), (co, cm, cs) in zip(gpu, cpu):
+        box = float(np.abs(go[gm][:, :4] - co[cm][:, :4]).max(initial=0.0))
+        conf = float(np.abs(go[gm][:, 5] - co[cm][:, 5]).max(initial=0.0))
+        exact = [4, 6, 7]  # id, cls, det_ind
+        if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, exact], co[cm][:, exact])
+                and box <= 1e-4 and conf <= 1e-4):
+            raise AssertionError(f"OccluBoost with GTA: tracks differ cuda vs cpu (box {box})")
+        rows_g, rows_c = occluboost.flush_gta_rows(gs), occluboost.flush_gta_rows(cs)
+        if rows_g.shape != rows_c.shape or not np.array_equal(rows_g[:, :2], rows_c[:, :2]):
+            raise AssertionError("OccluBoost with GTA: gap rows differ cuda vs cpu")
+        resurrected += int(gs.resurrections.sum())
+        gap_rows += len(rows_g)
+    if resurrected == 0:
+        raise AssertionError("OccluBoost with GTA: no track was resurrected")
+    thresholds = (cfg.recovery_appearance_thresh, cfg.second_appearance_thresh,
+                  cfg.gta_appearance_thresh, 0.75)
+    margin = min(float(min(torch.abs(p - t).min() for t in thresholds))
+                 for p in (occluboost.emb_products(*a) for a, _ in rec["emb_products"]))
+    rows = sum(int(m.sum()) for _, m, _ in gpu)
+    print(f"OccluBoost with GTA replay tracks cuda vs cpu: {rows} rows, masks, ids, cls, det_ind "
+          f"equal, max box diff {box:.3g} px; {resurrected} graveyard resurrections, {gap_rows} "
+          f"gap rows (GP-smoothed), equal frames and ids on both; smallest margin of a "
+          f"similarity to an appearance gate over {len(rec['emb_products'])} products: "
+          f"{margin:.3g}")
 
 
 def run_obb_evals():
@@ -1209,15 +1416,17 @@ def run_live_obb(tracker):
           f"cls, conf exact; max xywha diff {worst:.3g})")
 
 
-def run_live_cmc(tracker, n_frames, with_embs=False, **kw):
+def run_live_cmc(tracker, n_frames, with_embs=False, conf_rtol=0.0, **kw):
     """Phase 6d: the live tracker with CMC on seeded textured 1920 x 1080
     frames of a camera panning by known sub-pixel steps (``shifted_frames``),
-    MOT17-04's detections moved with the camera, cuda against cpu: ids,
-    conf, cls and det_ind exact, boxes bit-equal where nothing summed in
-    another order enters them (SOF's warps come from the host; ECC's
-    reductions and an embedding product sum in another order on the card),
-    else within 1e-2 px.  Prints the warps the cuda tracker's CMC recovered
-    beside the known steps."""
+    MOT17-04's detections moved with the camera, cuda against cpu: ids, cls
+    and det_ind exact, conf within ``conf_rtol`` (exact by default; BoostTrack
+    and OccluBoost boost it from IoUs of the warped state, so ECC's warps
+    move it by ulps), boxes bit-equal where nothing summed in another order
+    enters them (SOF's warps come from the host; ECC's reductions and an
+    embedding product sum in another order on the card), else within 1e-2
+    px.  Prints the warps the cuda tracker's CMC recovered beside the known
+    steps."""
     frames, _ = _live_frames(n_frames)
     imgs, steps = shifted_frames(n_frames)
     pan = np.cumsum(steps, axis=0).astype(np.float32)
@@ -1228,7 +1437,7 @@ def run_live_cmc(tracker, n_frames, with_embs=False, **kw):
     recovered, apply = [], cmc.apply
     cmc.apply = lambda img, dets: recovered.append(apply(img, dets)) or recovered[-1]
     exact = type(cmc).__name__ != "ECC" and not with_embs
-    n_rows, worst = 0, 0.0
+    n_rows, worst, conf_err = 0, 0.0, 0.0
     for f, (dets, img) in enumerate(zip(frames, imgs), start=1):
         dets = dets.copy()
         dets[:, [0, 2]] += pan[f - 1, 0]
@@ -1239,10 +1448,15 @@ def run_live_cmc(tracker, n_frames, with_embs=False, **kw):
             embs = embs.astype(np.float32)
         g = np.asarray(trackers["cuda"].update(dets, img, embs))
         c = np.asarray(trackers["cpu"].update(dets, img, embs))
-        if g.shape != c.shape or not np.array_equal(g[:, 4:], c[:, 4:]):
-            raise AssertionError(f"live {tracker} with CMC, frame {f}: tracks differ cuda vs cpu")
+        if g.shape != c.shape or not np.array_equal(g[:, [4, 6, 7]], c[:, [4, 6, 7]]):
+            raise AssertionError(f"live {tracker} with CMC, frame {f}: tracks differ cuda vs cpu "
+                                 f"(rows {len(g)} vs {len(c)})")
         if len(g):
             worst = max(worst, float(np.abs(g[:, :4] - c[:, :4]).max()))
+            conf_err = max(conf_err, float((np.abs(g[:, 5] - c[:, 5]) / c[:, 5]).max()))
+        if not conf_err <= conf_rtol:
+            raise AssertionError(f"live {tracker} with CMC, frame {f}: conf differs by {conf_err} "
+                                 f"(relative) cuda vs cpu")
         if not (np.isfinite(g).all() and (worst == 0.0 if exact else worst <= 1e-2)):
             raise AssertionError(f"live {tracker} with CMC, frame {f}: boxes differ by {worst} px")
         n_rows += len(g)
@@ -1250,8 +1464,9 @@ def run_live_cmc(tracker, n_frames, with_embs=False, **kw):
     got = np.stack([torch.as_tensor(w).cpu().numpy()[:, 2] for w in recovered])
     err = np.abs(got[1:] - steps[1:]).max()
     print(f"live {tracker} with {type(cmc).__name__} CMC{' and embeddings' if with_embs else ''}, "
-          f"{n_frames} panning 1080p frames: {n_rows} rows equal to cpu (ids, det_ind, cls, conf "
-          f"exact; max box diff {worst:.3g} px); recovered translation vs known step, px: " +
+          f"{n_frames} panning 1080p frames: {n_rows} rows equal to cpu (ids, det_ind, cls "
+          f"exact; max conf diff {conf_err:.3g} relative, box diff {worst:.3g} px); recovered "
+          f"translation vs known step, px: " +
           ", ".join(f"({a[0]:.3f}, {a[1]:.3f}) vs ({b[0]:.3f}, {b[1]:.3f})"
                     for a, b in zip(got[1:4], steps[1:4])) + f"; max error {err:.3g} px")
     if n_rows == 0:
@@ -1382,29 +1597,38 @@ def run_throughput(card):
     line with MISS of the detections missed and its step profile, the
     BoT-SORT AABB line (embeddings and warps) and its step profile, the
     DeepOCSORT AABB line (MISS missed, embeddings and warps) with the slots
-    K4 replayed and its step profile, and ECC's cost a frame."""
+    K4 replayed and its step profile, the BoostTrack AABB line (the YAML
+    tier, embeddings and warps) and the OccluBoost AABB line
+    (``OccluBoostConfig()``, as bench.py runs it, with 512-d embeddings and
+    warps) with their step profiles, and ECC's cost a frame."""
     drive("bench bytetrack AABB", lambda: _bench(
-        "bytetrack", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, card),
+        "bytetrack", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, card, launches=3),
         RATIOS["bytetrack"][0], sync_free=False)
     drive("bench bytetrack OBB", lambda: _bench(
         "bytetrack_obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
-        lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, card, launches=4),
+        lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, card, launches=2),
         RATIOS["bytetrack"][1], sync_free=False)
     inputs = drive("bench ocsort AABB", lambda: _bench(
-        "ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, card, launches=4),
+        "ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, card, launches=2),
         RATIOS["ocsort"][0], sync_free=False)
     profile_step("ocsort", OcSortConfig(capacity=CAPACITY), card, inputs)
     cfg = build_replay_config("botsort", capacity=CAPACITY)
     inputs = drive("bench botsort AABB", lambda: _bench(
-        "botsort", cfg, None, 6, card, launches=3, miss=0.0), RATIOS["botsort"][0], sync_free=False)
+        "botsort", cfg, None, 6, card, launches=2, miss=0.0), RATIOS["botsort"][0], sync_free=False)
     profile_step("botsort", cfg, card, inputs)
     del inputs
     cfg = build_replay_config("deepocsort", capacity=CAPACITY)
     inputs = drive("bench deepocsort AABB", lambda: _bench(
-        "deepocsort", cfg, None, 6, card, launches=3, miss=MISS), RATIOS["deepocsort"][0],
+        "deepocsort", cfg, None, 6, card, launches=2, miss=MISS), RATIOS["deepocsort"][0],
         sync_free=False)
     profile_step("deepocsort", cfg, card, inputs)
     del inputs
+    for label, cfg in (("boosttrack", build_replay_config("boosttrack", capacity=CAPACITY)),
+                       ("occluboost", OccluBoostConfig(capacity=CAPACITY))):
+        inputs = drive(f"bench {label} AABB", lambda: _bench(
+            label, cfg, None, 6, card, launches=2, miss=0.0), boost_ratio(cfg), sync_free=False)
+        profile_step(label, cfg, card, inputs)
+        del inputs
     time_ecc(card)
 
 
@@ -1433,6 +1657,9 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     build_kernels()
 
+    def lap(label):
+        print(f"{label} done at {time.perf_counter() - t_start:.1f} s")
+
     rng = np.random.default_rng(0)
     step_calls = bench_step_calls()
     checks = {"fused_iou_cost": check_k1(rng, step_calls),
@@ -1441,16 +1668,21 @@ def main() -> int:
               "oru_replay": check_k4(rng, step_calls)}
     del step_calls
     check_kalman_obb(rng)
+    lap("phase 3 (kernels against their twins)")
 
     check_sync_mode_is_live()
     run_aabb_evals()
+    lap("phase 4a (pinned evals)")
     run_reid_eval()
+    run_occluboost_gta_eval()
+    lap("phase 4b-c (cache-fed evals)")
     run_obb_evals()
+    lap("phase 5 (OBB evals)")
     for tracker in ("bytetrack", "ocsort"):
         drive(f"live {tracker} AABB", lambda: run_live(tracker), RATIOS[tracker][0],
               sync_free=False)
-    for tracker in ("bytetrack", "sfsort", "ocsort", "botsort"):
-        drive(f"live {tracker} OBB", lambda: run_live_obb(tracker), RATIOS[tracker][1],
+    for tracker in ("bytetrack", "sfsort", "ocsort", "botsort", "occluboost"):
+        drive(f"live {tracker} OBB", lambda: run_live_obb(tracker), LIVE_OBB_RATIOS[tracker],
               sync_free=False)
     drive("live botsort ECC", lambda: run_live_cmc("botsort", 10, cmc_method="ecc"),
           RATIOS["botsort"][0], sync_free=False)
@@ -1458,8 +1690,13 @@ def main() -> int:
           RATIOS["botsort"][0], sync_free=False)
     drive("live deepocsort ECC + embeddings", lambda: run_live_cmc("deepocsort", 10, True),
           RATIOS["deepocsort"][0], sync_free=False)
+    for tracker in ("boosttrack", "occluboost"):
+        drive(f"live {tracker} ECC", lambda: run_live_cmc(tracker, 6, cmc_method="ecc",
+                                                          conf_rtol=1e-5),
+              RATIOS[tracker][0], sync_free=False)
     drive("live bytetrack 300 detections", run_live_crowded, RATIOS["bytetrack"][0],
           sync_free=False)
+    lap("phase 6 (live)")
     run_throughput(smi)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")

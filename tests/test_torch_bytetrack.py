@@ -165,7 +165,7 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="Slice 4"):
         create_tracker("strongsort", device="cpu")
     with pytest.raises(ValueError, match="Slice 4"):
-        create_tracker("occluboost", device="cpu")
+        create_tracker("hybridsort", device="cpu")
     with pytest.raises(ValueError, match="Unknown tracker"):
         create_tracker("nosuch", device="cpu")
     with pytest.raises(AssertionError):

@@ -1,4 +1,5 @@
-"""The port's XYAH Kalman bank against the JAX bank and the float64 oracle.
+"""The port's Kalman bank (XYAH, and XYHR with OccluBoost's gain scale)
+against the JAX bank and the float64 oracle.
 
 The same numpy tracks and measurements go through ``boxmot_tpu.motion.kalman``
 and ``boxmot_tpu_torch.motion.kalman``.  The predict's transition products
@@ -134,3 +135,79 @@ def test_inv_psd_small_close_to_jax_and_numpy():
         scale = float(np.abs(w).max())
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=RTOL * scale)
         np.testing.assert_allclose(g, e, rtol=1e-4, atol=1e-4 * scale)
+
+
+def _xyhr_bank(rng, n, obb):
+    """An XYHR (+ theta) bank after initiate and three predict/update rounds
+    on the JAX layout, with its last measurements."""
+    jl = jk.make_xyhr_layout(obb=obb)
+    z = np.concatenate([rng.uniform(50, 1800, (n, 2)), rng.uniform(20, 300, (n, 1)),
+                        rng.uniform(0.25, 0.7, (n, 1))]
+                       + ([rng.uniform(-4, 4, (n, 1))] if obb else []), 1).astype(np.float32)
+    mean, cov = jk.initiate(jl, jnp.asarray(z))
+    ones = jnp.ones((n,), bool)
+    for _ in range(3):
+        mean, cov = jk.predict(jl, mean, cov, ones)
+        step = rng.normal(0, 2, z.shape) * ([1, 1, 1, 0.001] + ([0.01] if obb else []))
+        z = (z + step).astype(np.float32)
+        mean, cov = jk.update(jl, mean, cov, jnp.asarray(z), jnp.zeros((n,)), ones)
+    return np.array(mean), np.array(cov), z
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["xyhr", "xyhr-obb"])
+def test_xyhr_layout_equals_jax(obb):
+    """BoostTrack's and OccluBoost's XYHR layout: the structure and constant
+    noise rows equal, initiate and predict bit-equal, update at rtol 1e-5."""
+    jl, tl = jk.make_xyhr_layout(obb=obb), tk.make_xyhr_layout(obb=obb)
+    assert (tl.name, tl.dx, tl.dz, tl.motion_mat) == (jl.name, jl.dx, jl.dz, jl.motion_mat)
+    rng = np.random.default_rng(5 + obb)
+    mean, cov, z = _xyhr_bank(rng, 48, obb)
+    probe = np.zeros((2, tl.dx), np.float32)
+    for fn in ("init_cov_diag", "process_diag", "meas_diag"):
+        arg = probe[:, :tl.dz] if fn == "init_cov_diag" else probe
+        np.testing.assert_array_equal(getattr(tl, fn)(torch.from_numpy(arg)).numpy(),
+                                      np.asarray(getattr(jl, fn)(jnp.asarray(arg))), err_msg=fn)
+    z0 = z.copy()
+    if obb:
+        z0[:, 4] += 7.0  # initiate wraps theta
+    jm, jc = jk.initiate(jl, jnp.asarray(z0))
+    tm, tc = tk.initiate(tl, torch.from_numpy(z0))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    mask = rng.uniform(size=48) < 0.7
+    jm, jc = jk.predict(jl, jnp.asarray(mean), jnp.asarray(cov), jnp.asarray(mask))
+    tm, tc = tk.predict(tl, torch.from_numpy(mean), torch.from_numpy(cov), torch.from_numpy(mask))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    jm, jc = jk.update(jl, *map(jnp.asarray, (mean, cov, z, np.zeros(48, np.float32), mask)))
+    tm, tc = tk.update(tl, *map(torch.from_numpy, (mean, cov, z, mask)))
+    for i in range(48):
+        _close(tm[i].numpy(), np.asarray(jm[i]), float(np.abs(mean[i]).max()))
+        _close(tc[i].numpy(), np.asarray(jc[i]), float(np.abs(cov[i]).max()))
+
+
+def test_update_gain_scale_equals_jax():
+    """OccluBoost's AMS gain: a per-slot scale of the mean's correction only,
+    against the JAX update; without it the update's bits are unchanged."""
+    rng = np.random.default_rng(7)
+    mean, cov, z = _xyhr_bank(rng, 48, False)
+    z = (z + rng.normal(0, 6, z.shape) * [1, 1, 1, 0.001]).astype(np.float32)
+    mask = rng.uniform(size=48) < 0.8
+    scale = np.where(rng.uniform(size=48) < 0.5, 1.0, rng.uniform(0.2, 1.0, 48)).astype(np.float32)
+    jl, tl = jk.make_xyhr_layout(), tk.make_xyhr_layout()
+    jm, jc = jk.update(jl, *map(jnp.asarray, (mean, cov, z, np.zeros(48, np.float32), mask)),
+                       gain_scale=jnp.asarray(scale))
+    tm, tc = tk.update(tl, *map(torch.from_numpy, (mean, cov, z, mask)),
+                       gain_scale=torch.from_numpy(scale))
+    for i in range(48):
+        _close(tm[i].numpy(), np.asarray(jm[i]), float(np.abs(mean[i]).max()))
+        _close(tc[i].numpy(), np.asarray(jc[i]), float(np.abs(cov[i]).max()))
+    um, uc = tk.update(tl, *map(torch.from_numpy, (mean, cov, z, mask)))
+    np.testing.assert_array_equal(tc.numpy(), uc.numpy())  # the covariance contracts in full
+    ones = torch.ones(48)
+    np.testing.assert_array_equal(
+        tk.update(tl, *map(torch.from_numpy, (mean, cov, z, mask)), gain_scale=ones)[0].numpy(),
+        um.numpy())
+    damped = mask & (scale < 1)
+    assert damped.sum() > 10
+    assert not np.allclose(tm.numpy()[damped], um.numpy()[damped])

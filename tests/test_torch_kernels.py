@@ -294,3 +294,25 @@ def test_oru_kernel_on_deepocsort_steps_bit_equal_to_twin_on_the_cpu(card):
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
         rejoined += int(rejoin.sum())
     assert len(calls) == 12 and rejoined > 0
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb-k1", "obb-k3"])
+def test_iou_kernels_on_occluboost_steps_bit_equal_to_twin(card, obb):
+    """K1 (IoU-only) and K3 at the inputs OccluBoost's steps give them (the
+    YAML tier with appearance): the association IoU and the duplicate
+    suppression's, and for oriented boxes the tracks x detections IoU of the
+    recovery and second passes."""
+    from boxmot_tpu_torch.trackers import boosttrack, occluboost
+
+    name = "rotated_iou" if obb else "fused_iou_cost"
+    calls = _recorded(card, "occluboost", occluboost if obb else boosttrack, name, obb)
+    assert len(calls) == (36 if obb else 24)
+    for args, kwargs in calls:
+        if obb:
+            got, want = rotated_iou(*args), rotated_iou_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        else:
+            got, want = fused_iou_cost(*args, **kwargs), fused_iou_cost_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            assert got[1] is None and torch.equal(got[0], want[0])

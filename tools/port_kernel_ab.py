@@ -38,7 +38,9 @@ measured the same way.  On one CUDA card it:
    thresholds: 16 steps under the profiler (kernels, device busy, and K1's,
    K2's and the embedding product's device ms per step), host ms per step
    without it, and frames/s of the whole bench replay (3 launches after a
-   warm-up).
+   warm-up);
+7. where the checkout has OccluBoost: the same for its AABB step
+   at ``OccluBoostConfig()``, the configuration bench.py runs.
 
 It prints one JSON object and appends it to chiprun_out/port_kernel_ab.jsonl.
 Compare two checkouts only within one run on one card, in turns
@@ -180,7 +182,15 @@ def main() -> int:
         lambda: rotated_iou(a, b, c1, c2), "rotated_iou_kernel", reps=5, warmup=2)
     result.update(_ocsort(cs, measure))
     if hasattr(cs, "appearance_batch"):
-        result.update(_botsort(cs, measure))
+        from boxmot_tpu_torch.engine.eval import build_replay_config
+
+        result.update(_appearance(cs, measure, "botsort",
+                                  build_replay_config("botsort", capacity=cs.CAPACITY)))
+    if importlib.util.find_spec("boxmot_tpu_torch.trackers.occluboost") is not None:
+        from boxmot_tpu_torch.trackers.occluboost import OccluBoostConfig
+
+        result.update(_appearance(cs, measure, "occluboost",
+                                  OccluBoostConfig(capacity=cs.CAPACITY)))
     line = json.dumps(result)
     print(line)
     out = HERE / "chiprun_out"
@@ -240,31 +250,30 @@ def _ocsort(cs, measure) -> dict:
     return result
 
 
-def _botsort(cs, measure) -> dict:
-    """Step 6: the BoT-SORT AABB step profile and bench frames/s, with the
-    checkout's port (``main`` has put it first on the path)."""
-    from boxmot_tpu_torch.engine.eval import build_replay_config
+def _appearance(cs, measure, label, cfg) -> dict:
+    """Steps 6 and 7: an appearance tracker's AABB step profile and bench
+    frames/s at ``cfg``, with the checkout's port (``main`` has put it first
+    on the path); keys start with ``label``."""
     from boxmot_tpu_torch.engine.replay import batch_replay, init_states
 
-    cfg = build_replay_config("botsort", capacity=cs.CAPACITY)
     batch, embs, warps = cs.appearance_batch(cs.N_SEQS, cs.N_FRAMES, cs.N_DETS, 0, 0.0, "cuda")
     st, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64], None,
                             embs[:, :64], warps[:, :64])
     prof = measure.profile_steps(
         lambda: batch_replay(cfg, st, batch[:, 64:80], None, embs[:, 64:80], warps[:, 64:80]), 16)
-    result = {"botsort_kernels_per_step": prof["kernels_per_step"],
-              "botsort_busy_ms_per_step": prof["busy_ms_per_step"],
-              "botsort_profile_traces": prof["traces"]}
+    result = {f"{label}_kernels_per_step": prof["kernels_per_step"],
+              f"{label}_busy_ms_per_step": prof["busy_ms_per_step"],
+              f"{label}_profile_traces": prof["traces"]}
     for key, pick in (("k1", "iou_cost_kernel"), ("k2", "auction_kernel"), ("bmm", "gemm")):
-        result[f"botsort_{key}_ms_per_step"] = sum(
+        result[f"{label}_{key}_ms_per_step"] = sum(
             ms for name, (_, ms) in prof["by_kernel"].items() if pick in name.lower())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch_replay(cfg, st, batch[:, 80:96], None, embs[:, 80:96], warps[:, 80:96])
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / 16
-    result["botsort_host_ms_per_step"] = host_ms
-    result["botsort_idle_share"] = 1.0 - prof["busy_ms_per_step"] / host_ms
+    result[f"{label}_host_ms_per_step"] = host_ms
+    result[f"{label}_idle_share"] = 1.0 - prof["busy_ms_per_step"] / host_ms
     ms = []
     for i in range(4):
         s0 = init_states(cfg, cs.N_SEQS, "cuda")
@@ -275,7 +284,7 @@ def _botsort(cs, measure) -> dict:
         end.synchronize()
         if i:
             ms.append(start.elapsed_time(end))
-    result["botsort_replay_fps"] = cs.N_SEQS * cs.N_FRAMES / (statistics.median(ms) / 1e3)
+    result[f"{label}_replay_fps"] = cs.N_SEQS * cs.N_FRAMES / (statistics.median(ms) / 1e3)
     return result
 
 
