@@ -1,10 +1,12 @@
 """boxmot_tpu_torch: the PyTorch + CUDA port of boxmot_tpu.
 
-It runs ByteTrack, SFSORT, OC-SORT and BoT-SORT replay, eval and live
-tracking, for axis-aligned and oriented boxes, and DeepOCSORT for
-axis-aligned ones, with appearance embeddings and camera-motion
+It runs the ten trackers of the JAX zoo: replay, eval and live tracking
+with ByteTrack, SFSORT, OC-SORT, BoT-SORT and OccluBoost for axis-aligned
+and oriented boxes, and DeepOCSORT, BoostTrack, StrongSORT and HybridSORT
+for axis-aligned ones, with appearance embeddings and camera-motion
 compensation (ECC on the device), on one NVIDIA H100, or on the CPU
-through each kernel's plain PyTorch twin.  The hot ops of the tracker steps are
+through each kernel's plain PyTorch twin; and sam2mot, a host tracker in
+both packages.  The hot ops of the tracker steps are
 kernels written by hand for Hopper (``csrc/``), built with nvcc on first
 use.  The package imports torch, numpy, scipy and cv2 (the OBB metric),
 and nothing of JAX or of the JAX package: it keeps its own copies of the

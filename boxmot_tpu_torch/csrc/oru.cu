@@ -1,17 +1,27 @@
-// OC-SORT's observation-centric re-update (ORU), batched over S x K slots.
+// The observation-centric re-update (ORU), batched over S x K slots.
 //
 // Replaces the ORU block of boxmot_tpu/trackers/ocsort.py::ocsort_step (a
-// lax.cond around a lax.fori_loop, lines 310-391), which has no Pallas
-// kernel: a slot that rejoins (matched again after misses) restores the mean
-// and covariance frozen at its first miss and replays the XYSR Kalman filter
-// over measurements interpolated between its last real measurement and the
-// new one, for i = 1 .. min(gap, MAX_ORU): a predict from i = 2 on, the i-th
-// interpolated measurement (x, y, w, h stepped linearly, then s = w h and
-// r = w / h with their clamps; for oriented boxes the angle stepped along the
-// wrapped delta and the measurement aligned to the replay's own mean), the
-// masked Joseph-form update and, for oriented boxes, the angular velocity
-// damped x0.8.  Eager PyTorch could only bound that loop by reading the
-// largest gap on the host; here one launch a step does it on the device.
+// lax.cond around a lax.fori_loop, lines 310-391), repeated in
+// deepocsort.py and, over the XYSCR filter, in hybridsort.py (lines
+// 339-388); none has a Pallas kernel.  A slot that rejoins (matched again
+// after misses) restores the mean and covariance frozen at its first miss
+// and replays the Kalman filter over measurements interpolated between its
+// last real measurement and the new one, for i = 1 .. min(gap, MAX_ORU): a
+// predict from i = 2 on, the i-th interpolated measurement (x, y, w, h
+// stepped linearly, w and h from s and r, then s = w h and r = w / h with
+// their clamps; for oriented boxes the angle stepped along the wrapped delta
+// and the measurement aligned to the replay's own mean; for XYSCR the
+// confidence c stepped linearly), the masked Joseph-form update and, for
+// oriented boxes, the angular velocity damped x0.8.  Eager PyTorch could
+// only bound that loop by reading the largest gap on the host; here one
+// launch a step does it on the device.
+//
+// Three layouts, a template tag each (ops/oru.py::LAYOUT_TAGS): XYSR, the
+// 7-state [x, y, s, r, vx, vy, vs]; XYSR_OBB, the 9-state [x, y, s, r,
+// theta, vx, vy, vs, vtheta]; XYSCR, HybridSORT's 9-state [x, y, s, c, r,
+// vx, vy, vs, vc].  They differ in which rows have a velocity, which are
+// clamped or wrapped, where s and r sit in a measurement, and in OBB's
+// alignment and damping.
 //
 // Design: one warp per slot, blocks of four warps (ops/oru.py::
 // launch_geometry gives the grid and the shared memory).  A warp whose slot
@@ -68,6 +78,18 @@ constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kHalfPi = 1.57079632679489661923f;
 
+// the layout tags (ops/oru.py::LAYOUT_TAGS)
+constexpr int kXysr = 0;
+constexpr int kXysrObb = 1;
+constexpr int kXyscr = 2;
+
+template <int L>
+struct Dims {
+  static constexpr int DX = L == kXysr ? 7 : 9;
+  static constexpr int DZ = L == kXysr ? 4 : 5;
+  static constexpr int R = L == kXyscr ? 4 : 3;  // the aspect r's row
+};
+
 struct Noise {
   float q[9];  // process variances (dx of them)
   float r[5];  // measurement variances (dz of them)
@@ -98,7 +120,7 @@ struct Tile {
   float z[DZ];  // this iteration's measurement
   float innov[DZ];
   float m1[DZ];  // the last real measurement
-  float step[8];  // w1, h1, then the steps of x, y, w, h and the angle
+  float step[8];  // w1, h1, then the steps of x, y, w, h and the angle or c
   float cand[3][4];  // the OBB alignment: each candidate's cost, angle and r
   float M[DZ][DZ];  // L^-1 of S's Cholesky factor L; the upper triangle stays 0
   float Si[DZ][DZ];
@@ -162,18 +184,19 @@ __device__ __forceinline__ float exact_log(const float x) {
 }
 
 // the velocity index of state row a, or -1 (XYSR: x, y, s have velocities,
-// r has none; oriented: theta too)
-template <int DX>
+// r has none; oriented: theta too; XYSCR: x, y, s and c, r none)
+template <int L>
 __device__ __forceinline__ int vel_of(const int a) {
-  if (DX == 7) return a < 3 ? a + 4 : -1;
+  if (L == kXysr) return a < 3 ? a + 4 : -1;
+  if (L == kXyscr) return a < 4 ? a + 5 : -1;
   return a < 3 ? a + 5 : (a == 4 ? 8 : -1);
 }
 
 // the layout's constraint on mean element a: s and r clamped, theta wrapped
-template <int DX>
+template <int L>
 __device__ __forceinline__ float enforce(const int a, const float x) {
-  if (a == 2 || a == 3) return clamp_min(x, 1e-6f);
-  if (DX == 9 && a == 4) return wrap_angle(x);
+  if (a == 2 || a == Dims<L>::R) return clamp_min(x, 1e-6f);
+  if (L == kXysrObb && a == 4) return wrap_angle(x);
   return x;
 }
 
@@ -184,9 +207,11 @@ __device__ __forceinline__ void meas_wh(const float s, const float r, float& w, 
 }
 
 // one lane: the start and steps of the interpolation between the last real
-// measurement and the new one
-template <int DX, int DZ>
+// measurement and the new one (the fifth step: OBB's wrapped angle, XYSCR's
+// confidence)
+template <int L, int DX, int DZ>
 __device__ void interpolation(Tile<DX, DZ>& t, const Args& a, const size_t zo, const int g) {
+  constexpr int R = Dims<L>::R;
   float m1[DZ], zz[DZ];
 #pragma unroll
   for (int c = 0; c < DZ; ++c) {
@@ -195,8 +220,8 @@ __device__ void interpolation(Tile<DX, DZ>& t, const Args& a, const size_t zo, c
     t.m1[c] = m1[c];
   }
   float w1, h1, w2, h2;
-  meas_wh(m1[2], m1[3], w1, h1);
-  meas_wh(zz[2], zz[3], w2, h2);
+  meas_wh(m1[2], m1[R], w1, h1);
+  meas_wh(zz[2], zz[R], w2, h2);
   const float gapf = clamp_min(static_cast<float>(g), 1.0f);
   t.step[0] = w1;
   t.step[1] = h1;
@@ -204,20 +229,24 @@ __device__ void interpolation(Tile<DX, DZ>& t, const Args& a, const size_t zo, c
   t.step[3] = div_rn(__fsub_rn(zz[1], m1[1]), gapf);
   t.step[4] = div_rn(__fsub_rn(w2, w1), gapf);
   t.step[5] = div_rn(__fsub_rn(h2, h1), gapf);
-  t.step[6] = DZ == 5 ? div_rn(wrap_angle(__fsub_rn(zz[DZ - 1], m1[DZ - 1])), gapf) : 0.0f;
+  t.step[6] = L == kXysrObb ? div_rn(wrap_angle(__fsub_rn(zz[4], m1[4])), gapf)
+              : L == kXyscr ? div_rn(__fsub_rn(zz[3], m1[3]), gapf)
+                            : 0.0f;
 }
 
 // one lane: the i-th interpolated measurement
-template <int DX, int DZ>
+template <int L, int DX, int DZ>
 __device__ void measurement(Tile<DX, DZ>& t, const int i) {
+  constexpr int R = Dims<L>::R;
   const float fi = static_cast<float>(i);
   const float wi = __fadd_rn(t.step[0], __fmul_rn(fi, t.step[4]));
   const float hi = __fadd_rn(t.step[1], __fmul_rn(fi, t.step[5]));
   t.z[0] = __fadd_rn(t.m1[0], __fmul_rn(fi, t.step[2]));
   t.z[1] = __fadd_rn(t.m1[1], __fmul_rn(fi, t.step[3]));
   t.z[2] = clamp_min(__fmul_rn(wi, hi), 1e-6f);
-  t.z[3] = clamp_min(div_rn(wi, clamp_min(hi, 1e-12f)), 1e-6f);
-  if (DZ == 5) t.z[DZ - 1] = wrap_angle(__fadd_rn(t.m1[DZ - 1], __fmul_rn(fi, t.step[6])));
+  t.z[R] = clamp_min(div_rn(wi, clamp_min(hi, 1e-12f)), 1e-6f);
+  if (L == kXysrObb) t.z[4] = wrap_angle(__fadd_rn(t.m1[4], __fmul_rn(fi, t.step[6])));
+  if (L == kXyscr) t.z[3] = __fadd_rn(t.m1[3], __fmul_rn(fi, t.step[6]));
 }
 
 // motion/kalman.py::align_obb_xysr against the replay's mean, candidate c of
@@ -289,12 +318,12 @@ __device__ void factor(Tile<DX, DZ>& t, const float (&P)[DX][DX], const Noise& n
 }
 
 // The replay of one rejoining slot by one warp: motion/kalman.py::predict
-// with the XYSR transition (F x, F P F^T by rows then columns with one add
+// with the layout's transition (F x, F P F^T by rows then columns with one add
 // where F has an off-diagonal 1, the process noise on the diagonal and an
 // exact zero added off it, the mean's constraints) and ::update (the
 // Cholesky of S, M = L^-1, Sinv = M^T M summed over every k, zeros
 // included, the gain, the mean, P = (I - K H) P (I - K H)^T + K R K^T).
-template <int DX, int DZ, class W>
+template <int L, class W, int DX = Dims<L>::DX, int DZ = Dims<L>::DZ>
 __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, const int slot) {
   const Noise& nz = a.nz;
   const size_t mo = static_cast<size_t>(slot) * DX;
@@ -306,8 +335,8 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
     for (int e = lane; e < DX * DX; e += kWarp) (&t.P[0][0][0])[e] = a.frozen_cov[co + e];
     for (int e = lane; e < DZ * DZ; e += kWarp) (&t.M[0][0])[e] = 0.0f;
     if (lane == kStepLane) {
-      interpolation(t, a, zo, g);
-      measurement(t, 1);
+      interpolation<L>(t, a, zo, g);
+      measurement<L>(t, 1);
     }
   });
   const int n = min(g, a.max_oru);
@@ -321,16 +350,16 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
       // its element needs), the measurement
       lanes.stage([&](const int lane) {
         if (lane < DZ) {
-          const int v = vel_of<DX>(lane);
-          t.m[lane] = enforce<DX>(lane, v >= 0 ? __fadd_rn(t.m[lane], t.m[v]) : t.m[lane]);
+          const int v = vel_of<L>(lane);
+          t.m[lane] = enforce<L>(lane, v >= 0 ? __fadd_rn(t.m[lane], t.m[v]) : t.m[lane]);
         }
         each<DX * DX>(lane, [&](const int e) {
-          const int r = e / DX, c = e % DX, vr = vel_of<DX>(r), vc = vel_of<DX>(c);
+          const int r = e / DX, c = e % DX, vr = vel_of<L>(r), vc = vel_of<L>(c);
           float x = vr >= 0 ? __fadd_rn(P[r][c], P[vr][c]) : P[r][c];
           if (vc >= 0) x = __fadd_rn(x, vr >= 0 ? __fadd_rn(P[r][vc], P[vr][vc]) : P[r][vc]);
           return __fadd_rn(x, r == c ? nz.q[c] : 0.0f);
         }, [&](const int e, const float x) { (&Q[0][0])[e] = x; });
-        if (lane == kStepLane) measurement(t, i);
+        if (lane == kStepLane) measurement<L>(t, i);
       });
       cur ^= 1;
     }
@@ -338,7 +367,7 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
     float(&AP)[DX][DX] = t.P[cur ^ 1];
     lanes.stage([&](const int lane) {  // S's factor and inverse; the alignment's candidates
       if (lane == 0) factor(t, P, nz);
-      if (DZ == 5 && lane >= kCandLane) candidate(t, lane - kCandLane);
+      if (L == kXysrObb && lane >= kCandLane) candidate(t, lane - kCandLane);
     });
     lanes.stage([&](const int lane) {  // Sinv = M^T M; the aligned measurement
       each<DZ * DZ>(lane, [&](const int e) {
@@ -348,7 +377,7 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
         for (int k = 1; k < DZ; ++k) s = __fadd_rn(s, __fmul_rn(t.M[k][r], t.M[k][c]));
         return s;
       }, [&](const int e, const float x) { (&t.Si[0][0])[e] = x; });
-      if (DZ == 5 && lane == kStepLane) pick(t);
+      if (L == kXysrObb && lane == kStepLane) pick(t);
     });
     lanes.stage([&](const int lane) {  // the gain, and the innovation
       each<DX * DZ>(lane, [&](const int e) {
@@ -365,8 +394,8 @@ __device__ void replay_slot(const W& lanes, Tile<DX, DZ>& t, const Args& a, cons
         float delta = __fmul_rn(t.innov[0], t.G[lane][0]);
 #pragma unroll
         for (int c = 1; c < DZ; ++c) delta = __fadd_rn(delta, __fmul_rn(t.innov[c], t.G[lane][c]));
-        float x = enforce<DX>(lane, __fadd_rn(t.m[lane], delta));
-        if (DX == 9 && lane == 8) x = __fmul_rn(x, 0.8f);  // the angular velocity damped
+        float x = enforce<L>(lane, __fadd_rn(t.m[lane], delta));
+        if (L == kXysrObb && lane == 8) x = __fmul_rn(x, 0.8f);  // the angular velocity damped
         t.m[lane] = x;
       }
       each<DX * DX>(lane, [&](const int e) {
@@ -415,26 +444,28 @@ __device__ void copy_slot(const int lane, const Args& a, const int slot) {
   for (int e = lane; e < DX * DX; e += kWarp) a.cov_out[co + e] = __ldg(a.cov_in + co + e);
 }
 
-template <int DX, int DZ>
+template <int L>
 __global__ void __launch_bounds__(kMaxThreads) oru_kernel(const Args a) {
+  constexpr int DX = Dims<L>::DX, DZ = Dims<L>::DZ;
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
   const int slot = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (slot >= a.S * a.K) return;  // the whole warp
   const int lane = threadIdx.x % kWarp;
   if (a.rejoin[slot]) {
-    replay_slot<DX, DZ>(Lanes{lane}, reinterpret_cast<Tile<DX, DZ>*>(smem)[warp], a, slot);
+    replay_slot<L>(Lanes{lane}, reinterpret_cast<Tile<DX, DZ>*>(smem)[warp], a, slot);
   } else {
     copy_slot<DX>(lane, a, slot);
   }
 }
 
-template <int DX, int DZ>
+template <int L>
 int launch(const Args& a, const int blocks, const int threads, const int smem_bytes,
            cudaStream_t st) {
-  if (smem_bytes < (threads / kWarp) * static_cast<int>(sizeof(Tile<DX, DZ>)))
+  using T = Tile<Dims<L>::DX, Dims<L>::DZ>;
+  if (smem_bytes < (threads / kWarp) * static_cast<int>(sizeof(T)))
     return static_cast<int>(cudaErrorInvalidValue);
-  oru_kernel<DX, DZ><<<blocks, threads, smem_bytes, st>>>(a);
+  oru_kernel<L><<<blocks, threads, smem_bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,22 +476,24 @@ int launch(const Args& a, const int blocks, const int threads, const int smem_by
 // (S, K, dz), rejoin (S, K) bool, gap (S, K) int32; writes mean_out/cov_out
 // and adds each sequence's rejoining slots to replayed (S,) int32.  noise:
 // a host array of the dx process variances, then the dz measurement ones.
-// obb: 0 for the 7-state XYSR filter, 1 for the 9-state oriented one.
+// layout: the tag, 0 for the 7-state XYSR filter, 1 for the 9-state
+// oriented one, 2 for the 9-state XYSCR one.
 // blocks, threads, smem_bytes: ops/oru.py::launch_geometry, a warp a slot
 // (threads a multiple of 32, at most 128) and a tile of shared memory a warp.
 extern "C" int bmt_oru(const void* mean_in, const void* cov_in, const void* frozen_mean,
                        const void* frozen_cov, const void* last_meas, const void* z2,
                        const void* rejoin, const void* gap, void* mean_out, void* cov_out,
-                       void* replayed, const float* noise, int S, int K, int obb, int max_oru,
+                       void* replayed, const float* noise, int S, int K, int layout, int max_oru,
                        int blocks, int threads, int smem_bytes, void* stream) {
   if (S <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
   const long slots = static_cast<long>(S) * K;
-  if (noise == nullptr || max_oru < 0 || slots > (1L << 30) || threads <= 0 ||
+  if (noise == nullptr || layout < kXysr || layout > kXyscr || max_oru < 0 ||
+      slots > (1L << 30) || threads <= 0 ||
       threads > kMaxThreads || threads % kWarp != 0 ||
       static_cast<long>(blocks) * (threads / kWarp) < slots || smem_bytes > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dx = obb ? 9 : 7;
-  const int dz = obb ? 5 : 4;
+  const int dx = layout == kXysr ? 7 : 9;
+  const int dz = layout == kXysr ? 4 : 5;
   Args a{};
   a.mean_in = static_cast<const float*>(mean_in);
   a.cov_in = static_cast<const float*>(cov_in);
@@ -479,8 +512,14 @@ extern "C" int bmt_oru(const void* mean_in, const void* cov_in, const void* froz
   a.K = K;
   a.max_oru = max_oru;
   const auto st = static_cast<cudaStream_t>(stream);
-  return obb ? launch<9, 5>(a, blocks, threads, smem_bytes, st)
-             : launch<7, 4>(a, blocks, threads, smem_bytes, st);
+  switch (layout) {
+    case kXysr:
+      return launch<kXysr>(a, blocks, threads, smem_bytes, st);
+    case kXysrObb:
+      return launch<kXysrObb>(a, blocks, threads, smem_bytes, st);
+    default:
+      return launch<kXyscr>(a, blocks, threads, smem_bytes, st);
+  }
 }
 
 extern "C" const char* bmt_cuda_error_string(int err) {

@@ -1,10 +1,13 @@
 """Benchmark evaluation: replay cached detections -> MOT rows -> metrics
-(counterpart of the device branch of boxmot_tpu/engine/eval.py::run_eval).
+(counterpart of the device branch and the host-tracker branch of
+boxmot_tpu/engine/eval.py::run_eval).
 
 Detections, ground truth and the HOTA/CLEAR/Identity metric stack are the
 port's own copies of the JAX package's host modules (``data``,
 ``engine.metrics``, ``engine.mot_io``, ``engine.results``); the replay runs
-on ``device``, the card unless the caller asks for the CPU.
+on ``device``, the card unless the caller asks for the CPU.  sam2mot, a
+host tracker in both packages, runs its per-frame ``update`` loop instead,
+with segmentation masks from the mask cache when there is one.
 """
 
 from __future__ import annotations
@@ -20,28 +23,33 @@ from boxmot_tpu_torch.data.cache import (
     emb_cache_path,
     load_cached_dets_per_frame,
     load_cached_embs_per_frame,
+    load_cached_masks_per_frame,
     load_cached_warps_per_frame,
+    mask_cache_path,
     warp_cache_path,
 )
 from boxmot_tpu_torch.data.mot import MOTDataset
 from boxmot_tpu_torch.engine.metrics.mot_metrics import evaluate_sequences, preprocess_sequence
-from boxmot_tpu_torch.engine.mot_io import write_mot_results
+from boxmot_tpu_torch.engine.mot_io import convert_to_mot_format, write_mot_results
 from boxmot_tpu_torch.engine.replay import replay_sequences_batched
 from boxmot_tpu_torch.engine.results import ValidationResult
 from boxmot_tpu_torch.trackers.boosttrack import BoostTrackConfig
 from boxmot_tpu_torch.trackers.botsort import BotSortConfig
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
 from boxmot_tpu_torch.trackers.deepocsort import DeepOcSortConfig
+from boxmot_tpu_torch.trackers.hybridsort import HybridSortConfig
 from boxmot_tpu_torch.trackers.occluboost import OccluBoostConfig
 from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
-from boxmot_tpu_torch.trackers.zoo import check_ported
+from boxmot_tpu_torch.trackers.strongsort import StrongSortConfig
+from boxmot_tpu_torch.trackers.zoo import check_ported, create_tracker
 from boxmot_tpu_torch.utils.device import resolve_device
 
 
 _TRACKER_CONFIGS = {"bytetrack": ByteTrackConfig, "sfsort": SFSortConfig, "ocsort": OcSortConfig,
                     "botsort": BotSortConfig, "deepocsort": DeepOcSortConfig,
-                    "boosttrack": BoostTrackConfig, "occluboost": OccluBoostConfig}
+                    "boosttrack": BoostTrackConfig, "occluboost": OccluBoostConfig,
+                    "strongsort": StrongSortConfig, "hybridsort": HybridSortConfig}
 
 
 def build_replay_config(tracker_type: str, **params):
@@ -53,8 +61,12 @@ def build_replay_config(tracker_type: str, **params):
     ``use_cmc`` and ``cmc_method``, OccluBoost's ``gta_smooth_tau``) are dropped, so
     the ByteTrack replay keeps the config defaults ``det_thresh`` 0.45 and
     ``max_time_lost`` 25, BoT-SORT's ``max_time_lost`` stays 30 and
-    DeepOCSORT's ``iou_threshold`` 0.3, which the pinned metrics depend on."""
+    DeepOCSORT's ``iou_threshold`` 0.3, which the pinned metrics depend on.
+    A host tracker (sam2mot) has no replay config: it raises, as in JAX."""
     check_ported(tracker_type)
+    if tracker_type not in _TRACKER_CONFIGS:
+        raise ValueError(f"No replay config for tracker {tracker_type!r}; "
+                         f"available: {sorted(_TRACKER_CONFIGS)}")
     cfg_cls = _TRACKER_CONFIGS[tracker_type]
     merged = {**get_tracker_defaults(tracker_type), **params}
     fields = {f.name for f in dataclasses.fields(cfg_cls)}
@@ -85,7 +97,10 @@ def run_eval(
     ReID model (and ``preprocess``), row-aligned with the detections, and
     without it ``with_reid`` defaults to False, as in the JAX ``run_eval``.
     ``cmc_method`` replays the cached camera-motion warps of that method
-    (sequences without a warp file replay identities).  Returns the metric
+    (sequences without a warp file replay identities).  A host tracker
+    (sam2mot) runs ``create_tracker(...).update`` frame by frame on the host,
+    with each frame's masks from the mask cache under ``cache_root`` where
+    there is one, as the JAX ``run_eval`` does.  Returns the metric
     dicts ({"per_seq": ..., "combined": ...}) with HOTA, MOTA, IDF1.
     """
     device = resolve_device(device)
@@ -93,10 +108,12 @@ def run_eval(
     if len(dataset) == 0:
         raise ValueError(f"no MOT sequences found under {data_root}")
     tracker_params = dict(tracker_params or {})
-    if reid is None:
+    check_ported(tracker_type)
+    host_tracker = tracker_type not in _TRACKER_CONFIGS
+    if reid is None and not host_tracker:
         # no embedding cache: the appearance terms off
         tracker_params.setdefault("with_reid", False)
-    cfg = build_replay_config(tracker_type, **tracker_params)
+    cfg = None if host_tracker else build_replay_config(tracker_type, **tracker_params)
     # motion-only configs carry no feat_dim; their cached embeddings are not read
     load_embs = reid is not None and cache_root is not None and hasattr(cfg, "feat_dim")
 
@@ -126,8 +143,13 @@ def run_eval(
                 warps = load_cached_warps_per_frame(wpath, seq.seq_length)
         inputs.append({"dets": dets, "embs": embs, "warps": warps})
 
+    if host_tracker:
+        all_rows = [_host_rows(tracker_type, tracker_params, seq, inp["dets"], cache_root,
+                               detector, device) for seq, inp in zip(seqs, inputs)]
+    else:
+        all_rows = replay_sequences_batched(cfg, inputs, device=device)
     seq_data = {}
-    for seq, mot_rows in zip(seqs, replay_sequences_batched(cfg, inputs, device=device)):
+    for seq, mot_rows in zip(seqs, all_rows):
         if output_dir is not None:
             write_mot_results(Path(output_dir) / f"{seq.name}.txt", mot_rows)
         seq_data[seq.name] = preprocess_sequence(
@@ -140,3 +162,24 @@ def run_eval(
         c = results["combined"]
         print(f"HOTA {100 * c['HOTA']:.2f}  MOTA {100 * c['MOTA']:.2f}  IDF1 {100 * c['IDF1']:.2f}")
     return ValidationResult(results)
+
+
+def _host_rows(tracker_type, tracker_params, seq, dets, cache_root, detector, device):
+    """MOT rows of a host tracker (sam2mot) over one sequence: a per-frame
+    ``update`` on a blank image of the sequence's size, with the frame's
+    cached segmentation masks where the mask cache has the sequence."""
+    masks = None
+    if cache_root is not None:
+        path = mask_cache_path(cache_root, detector, seq.name)
+        if path.exists():
+            masks = load_cached_masks_per_frame(path, seq.seq_length,
+                                                (seq.info.im_height, seq.info.im_width))
+    tracker = create_tracker(tracker_type, device=device, tracker_config=tracker_params)
+    img = np.zeros((seq.info.im_height, seq.info.im_width, 3), np.uint8)
+    rows = []
+    for f, d in enumerate(dets):
+        kw = {} if masks is None else {"masks": masks[f]}
+        out = np.asarray(tracker.update(d, img, **kw))
+        if len(out):
+            rows.append(convert_to_mot_format(out, frame_idx=f + 1))
+    return np.concatenate(rows) if rows else np.zeros((0, 9), np.float32)

@@ -27,9 +27,11 @@ from boxmot_tpu_torch.trackers import (
     botsort,
     bytetrack,
     deepocsort,
+    hybridsort,
     occluboost,
     ocsort,
     sfsort,
+    strongsort,
 )
 from boxmot_tpu_torch.utils.device import resolve_device
 
@@ -63,17 +65,23 @@ def resolve_tracker(cfg):
         return boosttrack.init_state, boosttrack.boosttrack_step
     if isinstance(cfg, occluboost.OccluBoostConfig):
         return occluboost.init_state, occluboost.occluboost_step
+    if isinstance(cfg, strongsort.StrongSortConfig):
+        return strongsort.init_state, strongsort.strongsort_step
+    if isinstance(cfg, hybridsort.HybridSortConfig):
+        return hybridsort.init_state, hybridsort.hybridsort_step
     raise TypeError(f"unknown tracker config type {type(cfg).__name__}")
 
 
 def wants_embs(cfg) -> bool:
-    """Whether the config's step reads appearance embeddings: DeepOCSORT
-    always (zeros when none are given), BoT-SORT, BoostTrack and OccluBoost
-    with ``with_reid``."""
+    """Whether the config's step reads appearance embeddings: DeepOCSORT,
+    StrongSORT and HybridSORT always (zeros when none are given; HybridSORT
+    writes them to a newborn track's features even without ReID), BoT-SORT,
+    BoostTrack and OccluBoost with ``with_reid``."""
     if isinstance(cfg, (botsort.BotSortConfig, boosttrack.BoostTrackConfig,
                         occluboost.OccluBoostConfig)):
         return cfg.with_reid
-    return isinstance(cfg, deepocsort.DeepOcSortConfig)
+    return isinstance(cfg, (deepocsort.DeepOcSortConfig, strongsort.StrongSortConfig,
+                            hybridsort.HybridSortConfig))
 
 
 def wants_warps(cfg) -> bool:
@@ -82,7 +90,8 @@ def wants_warps(cfg) -> bool:
     if isinstance(cfg, occluboost.OccluBoostConfig):
         return not cfg.is_obb
     return isinstance(cfg, (botsort.BotSortConfig, deepocsort.DeepOcSortConfig,
-                            boosttrack.BoostTrackConfig))
+                            boosttrack.BoostTrackConfig, strongsort.StrongSortConfig,
+                            hybridsort.HybridSortConfig))
 
 
 def _det_cols(cfg) -> int:
@@ -234,7 +243,8 @@ def replay_sequences_outputs(cfg, seqs, *, device="cuda", with_states: bool = Fa
     ``replay_sequences_batched``, optional ``embs`` (per-frame (Ni, feat_dim)
     arrays, read by the trackers that use appearance) and ``warps`` ((n, 2, 3)
     camera-motion warps, the identity after them; read by BoT-SORT,
-    DeepOCSORT, BoostTrack and axis-aligned OccluBoost).  Sequences that
+    DeepOCSORT, BoostTrack, axis-aligned OccluBoost, StrongSORT and
+    HybridSORT).  Sequences that
     share a (frame, det) bucket run as one batch; where one of them has
     embeddings or warps, the others get zeros or identities.  Raises if any
     assignment stopped at the auction's iteration cap, since its matches

@@ -1,5 +1,6 @@
-"""Batched, masked Kalman filter bank, XYAH, XYWH(-OBB), XYSR(-OBB) and
-XYHR(-OBB) layouts (counterpart of boxmot_tpu/motion/kalman.py).
+"""Batched, masked Kalman filter bank, XYAH (with NSA), XYWH(-OBB),
+XYSR(-OBB), XYHR(-OBB) and XYSCR layouts (counterpart of
+boxmot_tpu/motion/kalman.py).
 
 Track state is ``mean (..., dx)`` and ``cov (..., dx, dx)`` with any
 leading batch axes, here (S, K).  Every small product is written as
@@ -26,8 +27,7 @@ from boxmot_tpu_torch.ops.geometry import exact, wrap_angle
 @dataclasses.dataclass(frozen=True)
 class KFLayout:
     """Static description of one Kalman parameterization (mirror of the JAX
-    ``KFLayout`` without its NSA option, which no ported tracker uses).  The
-    callables act on batched tensors."""
+    ``KFLayout``).  The callables act on batched tensors."""
 
     name: str
     dx: int  # state dimension
@@ -38,6 +38,7 @@ class KFLayout:
     process_diag: Callable  # (..., dx) mean -> (..., dx) std
     meas_diag: Callable  # (..., dx) mean -> (..., dz) std
     enforce: Callable  # (..., dx) mean -> (..., dx)
+    nsa: bool = False  # scale the measurement noise by (1 - conf) on update
 
 
 def _const_matmul(F: tuple, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -122,16 +123,23 @@ def predict(layout: KFLayout, mean: torch.Tensor, cov: torch.Tensor, mask: torch
     )
 
 
-def update(layout: KFLayout, mean, cov, meas, mask, gain_scale=None):
+def update(layout: KFLayout, mean, cov, meas, mask, gain_scale=None, conf=None):
     """Masked correction step in Joseph form.
 
     meas (..., dz); slots where ``mask`` is False pass through unchanged.
     ``gain_scale`` (...,), when given, scales each slot's mean correction
     (OccluBoost's abnormal-motion suppression); the covariance still
-    contracts in full.
+    contracts in full.  ``conf`` (...,), the detections' confidences, scales
+    the measurement noise's std by (1 - conf) under an NSA layout
+    (StrongSORT's); other layouts ignore it.
     """
     dz, dx = layout.dz, layout.dx
-    r_var = torch.square(layout.meas_diag(mean))
+    r_std = layout.meas_diag(mean)
+    if layout.nsa:
+        if conf is None:
+            raise ValueError("update: an NSA layout needs each slot's conf")
+        r_std = r_std * (1.0 - conf)[..., None]
+    r_var = torch.square(r_std)
 
     Sinv = inv_psd_small(cov[..., :dz, :dz] + torch.diag_embed(r_var))
     # gain[a, z] = sum_d cov[a, d] Sinv[d, z]
@@ -168,6 +176,24 @@ def update(layout: KFLayout, mean, cov, meas, mask, gain_scale=None):
     )
 
 
+def gating_distance(layout: KFLayout, mean, cov, meas):
+    """Squared Mahalanobis distance of every measurement to every projected
+    state: mean (..., K, dx), cov (..., K, dx, dx), meas (..., N, dz) ->
+    (..., K, N), d^T S^-1 d with S = H P H^T + R (no NSA scaling), summed as
+    t_y = sum_z d_z Sinv[z, y], then sum_y t_y d_y."""
+    dz = layout.dz
+    r_var = torch.square(layout.meas_diag(mean))
+    Sinv = inv_psd_small(cov[..., :dz, :dz] + torch.diag_embed(r_var))
+    d = meas[..., None, :, :dz] - mean[..., :, None, :dz]  # (..., K, N, dz)
+    out = None
+    for y in range(dz):
+        t = d[..., 0] * Sinv[..., 0, y, None]
+        for z in range(1, dz):
+            t = t + d[..., z] * Sinv[..., z, y, None]
+        out = t * d[..., y] if out is None else out + t * d[..., y]
+    return out
+
+
 _SWP = 1.0 / 20  # std weight of the position
 _SWV = 1.0 / 160  # std weight of the velocity
 
@@ -185,8 +211,9 @@ def _set(x: torch.Tensor, i: int, v: torch.Tensor) -> torch.Tensor:
 
 
 def make_xyah_layout(std_weight_position: float = _SWP,
-                     std_weight_velocity: float = _SWV) -> KFLayout:
-    """[cx, cy, a=w/h, h] constant-velocity filter (ByteTrack lineage).
+                     std_weight_velocity: float = _SWV, nsa: bool = False) -> KFLayout:
+    """[cx, cy, a=w/h, h] constant-velocity filter (ByteTrack and StrongSORT
+    lineage); ``nsa`` scales the measurement noise by (1 - conf) on update.
 
     The JAX factory's ``obb`` branch is not ported: OBB ByteTrack runs on
     ``make_xywh_layout(obb=True)``.
@@ -226,6 +253,7 @@ def make_xyah_layout(std_weight_position: float = _SWP,
         process_diag=process_diag,
         meas_diag=meas_diag,
         enforce=enforce,
+        nsa=nsa,
     )
 
 
@@ -389,9 +417,44 @@ def make_xyhr_layout(obb: bool = False) -> KFLayout:
     )
 
 
-def xysr_noise(layout: KFLayout) -> tuple[list, list]:
+def make_xyscr_layout() -> KFLayout:
+    """[x, y, s=area, c=confidence, r=aspect] score-aware filter of HybridSORT:
+    9-D state [x, y, s, c, r, vx, vy, vs, vc] with velocities on x, y, s and
+    c and none on r; constant P0 = 10 (10000 for the velocities), Q = 1 (0.01
+    for vx and vy, 1e-4 for vs and vc) and R = [1, 1, 10, 10, 10]; s and r
+    clamped at 1e-6."""
+    dz, dx = 5, 9
+    vel_of = {0: 5, 1: 6, 2: 7, 3: 8}  # position index -> its velocity
+    F = tuple(tuple(1.0 if (b == a or vel_of.get(a) == b) else 0.0 for b in range(dx))
+              for a in range(dx))
+    p0 = [10.0] * 5 + [10000.0] * 4
+    q = [1.0] * 5 + [0.01, 0.01, 1e-4, 1e-4]
+    r = [1.0, 1.0, 10.0, 10.0, 10.0]
+    p0_std, q_std, r_std = _std_stds(p0), _std_stds(q), _std_stds(r)
+
+    def init_mean(z):
+        return torch.cat([z, z.new_zeros(z.shape[:-1] + (dx - dz,))], dim=-1)
+
+    def enforce(mean):
+        mean = _set(mean, 2, torch.clamp_min(mean[..., 2], 1e-6))
+        return _set(mean, 4, torch.clamp_min(mean[..., 4], 1e-6))
+
+    return KFLayout(
+        name="xyscr",
+        dx=dx,
+        dz=dz,
+        motion_mat=F,
+        init_mean=init_mean,
+        init_cov_diag=lambda z: _const(p0_std, z),
+        process_diag=lambda mean: _const(q_std, mean),
+        meas_diag=lambda mean: _const(r_std, mean),
+        enforce=enforce,
+    )
+
+
+def const_noise(layout: KFLayout) -> tuple[list, list]:
     """(process variances (dx,), measurement variances (dz,)) of a constant-
-    noise layout as float32 values: each std rounded to float32 and squared
+    noise layout (XYSR, XYSR-OBB, XYHR, XYSCR) as float32 values: each std rounded to float32 and squared
     in float32, as ``predict`` and ``update`` square them."""
     probe = torch.zeros(1, layout.dx)
     q_var = torch.square(layout.process_diag(probe))[0]

@@ -1,14 +1,17 @@
-"""OC-SORT's observation-centric re-update (ORU): kernel K4 and its plain twin.
+"""The observation-centric re-update (ORU): kernel K4 and its plain twin.
 
 Counterpart of the ORU block of ``boxmot_tpu/trackers/ocsort.py::ocsort_step``
-(a ``lax.cond`` around a ``lax.fori_loop``), which has no Pallas kernel.  A
-track that is matched again after misses ("rejoins") restores the mean and
-covariance frozen at its first miss and replays the XYSR Kalman filter over
+(a ``lax.cond`` around a ``lax.fori_loop``), repeated in ``deepocsort.py``
+and, over the XYSCR filter, in ``hybridsort.py``; none has a Pallas kernel.
+A track that is matched again after misses ("rejoins") restores the mean and
+covariance frozen at its first miss and replays the Kalman filter over
 measurements interpolated between its last real measurement and the new
 one: for i = 1 .. min(gap, MAX_ORU), a predict (from i = 2 on), then an
 update with the i-th interpolated measurement (for oriented boxes the angle
 follows the wrapped delta, the measurement is aligned to the replay's own
-mean, and the angular velocity is damped x0.8 after the update).  The loop's
+mean, and the angular velocity is damped x0.8 after the update; for XYSCR
+the confidence c is stepped linearly).  Three layouts: XYSR, XYSR-OBB and
+XYSCR (``LAYOUT_TAGS``, the kernel's template tags).  The loop's
 trip count depends on the data, so in eager PyTorch it would need a host
 read; on a CUDA tensor ``oru_replay`` launches ``csrc/oru.cu`` once per step
 instead, one warp per slot (``launch_geometry``): a warp whose slot does not
@@ -38,6 +41,8 @@ WARPS = 4  # warps a block of K4, one slot each
 THREADS = 32 * WARPS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the layouts K4 replays -> (its tag in csrc/oru.cu, dx, dz)
+LAYOUT_TAGS = {"xysr": (0, 7, 4), "xysr_obb": (1, 9, 5), "xyscr": (2, 9, 5)}
 
 
 class Launch(NamedTuple):
@@ -58,19 +63,28 @@ def tile_floats(dx: int, dz: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def launch_geometry(S: int, K: int, obb: bool) -> Launch:
+def launch_geometry(S: int, K: int, layout: str) -> Launch:
     """One warp per slot of the S x K, ``WARPS`` to a block, and a tile of
-    shared memory a warp (7-state XYSR, or 9-state oriented with ``obb``)."""
-    dx, dz = (9, 5) if obb else (7, 4)
+    shared memory a warp, sized by the layout's name (``LAYOUT_TAGS``)."""
+    _, dx, dz = LAYOUT_TAGS[layout]
     return Launch(-(-S * K // WARPS), THREADS, 4 * WARPS * tile_floats(dx, dz))
 
 
-def _interpolation(last_meas, z2, gap):
-    """Per slot: the start (w1, h1) and the steps (dx, dy, dw, dh) of the
-    interpolated measurements, as the JAX step forms them."""
+def _aspect(layout) -> int:
+    """The measurement column of the aspect r: 4 in XYSCR's [x, y, s, c, r],
+    else 3."""
+    return 4 if layout.name == "xyscr" else 3
+
+
+def _interpolation(layout, last_meas, z2, gap):
+    """Per slot: the start (w1, h1) and the steps (dx, dy, dw, dh, and the
+    oriented layout's wrapped angle or XYSCR's confidence) of the
+    interpolated measurements, as the JAX steps form them."""
+    r = _aspect(layout)
+
     def wh(m):
-        w = exact(torch.sqrt, torch.clamp_min(m[..., 2] * m[..., 3], 1e-12))
-        h = exact(torch.sqrt, torch.clamp_min(m[..., 2] / torch.clamp_min(m[..., 3], 1e-12),
+        w = exact(torch.sqrt, torch.clamp_min(m[..., 2] * m[..., r], 1e-12))
+        h = exact(torch.sqrt, torch.clamp_min(m[..., 2] / torch.clamp_min(m[..., r], 1e-12),
                                               1e-12))
         return w, h
 
@@ -78,16 +92,36 @@ def _interpolation(last_meas, z2, gap):
     gapf = torch.clamp_min(gap.to(torch.float32), 1.0)
     steps = [(z2[..., 0] - last_meas[..., 0]) / gapf, (z2[..., 1] - last_meas[..., 1]) / gapf,
              (w2 - w1) / gapf, (h2 - h1) / gapf]
-    if z2.shape[-1] == 5:
+    if layout.name == "xysr_obb":
         steps.append(wrap_angle(z2[..., 4] - last_meas[..., 4]) / gapf)
+    elif layout.name == "xyscr":
+        steps.append((z2[..., 3] - last_meas[..., 3]) / gapf)
     return w1, h1, steps
 
 
+def _measurement(layout, last_meas, w1, h1, steps, i, mean):
+    """The i-th interpolated measurement of every slot (oriented: aligned to
+    the replay's mean)."""
+    fi = float(i)
+    xi = last_meas[..., 0] + fi * steps[0]
+    yi = last_meas[..., 1] + fi * steps[1]
+    wi = w1 + fi * steps[2]
+    hi = h1 + fi * steps[3]
+    si = torch.clamp_min(wi * hi, 1e-6)
+    ri = torch.clamp_min(wi / torch.clamp_min(hi, 1e-12), 1e-6)
+    if layout.name == "xyscr":
+        return torch.stack([xi, yi, si, last_meas[..., 3] + fi * steps[4], ri], -1)
+    if layout.name == "xysr_obb":
+        zi = torch.stack([xi, yi, si, ri, wrap_angle(last_meas[..., 4] + fi * steps[4])], -1)
+        return kalman.align_obb_xysr(zi, mean[..., :5])
+    return torch.stack([xi, yi, si, ri], -1)
+
+
 def masked_update(layout, mean, cov, z, act):
-    """OC-SORT's masked update: ``kalman.update``, then, for oriented boxes,
-    the angular velocity damped x0.8 where ``act``."""
+    """The ORU's masked update: ``kalman.update``, then, for oriented boxes,
+    the angular velocity damped x0.8 where ``act`` (OC-SORT's)."""
     mean, cov = kalman.update(layout, mean, cov, z, act)
-    if layout.dz == 5:
+    if layout.name == "xysr_obb":
         theta_v = torch.where(act, mean[..., 8] * 0.8, mean[..., 8])
         mean = torch.cat([mean[..., :8], theta_v[..., None]], -1)
     return mean, cov
@@ -111,24 +145,12 @@ def oru_replay_plain(layout, mean, cov, frozen_mean, frozen_cov, last_meas, z2, 
     n_steps = min(int(torch.where(rejoin, gap, 0).max()), MAX_ORU) if rejoin.numel() else 0
     if n_steps == 0:
         return mean, cov
-    obb = layout.dz == 5
-    w1, h1, steps = _interpolation(last_meas, z2, gap)
+    w1, h1, steps = _interpolation(layout, last_meas, z2, gap)
     for i in range(1, n_steps + 1):
         act = rejoin & (i <= gap)
         if i > 1:
             mean, cov = kalman.predict(layout, mean, cov, act)
-        fi = float(i)
-        xi = last_meas[..., 0] + fi * steps[0]
-        yi = last_meas[..., 1] + fi * steps[1]
-        wi = w1 + fi * steps[2]
-        hi = h1 + fi * steps[3]
-        si = torch.clamp_min(wi * hi, 1e-6)
-        ri = torch.clamp_min(wi / torch.clamp_min(hi, 1e-12), 1e-6)
-        if obb:
-            zi = torch.stack([xi, yi, si, ri, wrap_angle(last_meas[..., 4] + fi * steps[4])], -1)
-            zi = kalman.align_obb_xysr(zi, mean[..., :5])
-        else:
-            zi = torch.stack([xi, yi, si, ri], -1)
+        zi = _measurement(layout, last_meas, w1, h1, steps, i, mean)
         mean, cov = masked_update(layout, mean, cov, zi, act)
     return mean, cov
 
@@ -137,13 +159,14 @@ def oru_replay_plain(layout, mean, cov, frozen_mean, frozen_cov, last_meas, z2, 
 def _noise(layout) -> ctypes.Array:
     """The layout's process and measurement variances as the kernel takes
     them: a float[dx + dz] of float32 values."""
-    q_var, r_var = kalman.xysr_noise(layout)
+    q_var, r_var = kalman.const_noise(layout)
     return (ctypes.c_float * (len(q_var) + len(r_var)))(*q_var, *r_var)
 
 
 def _check(layout, tensors, rejoin, gap, replayed):
-    if layout.name not in ("xysr", "xysr_obb"):
-        raise ValueError(f"oru_replay: needs an XYSR layout, got {layout.name!r}")
+    if layout.name not in LAYOUT_TAGS:
+        raise ValueError(f"oru_replay: needs an XYSR, XYSR-OBB or XYSCR layout, got "
+                         f"{layout.name!r}")
     dx, dz = layout.dx, layout.dz
     S, K = rejoin.shape
     shapes = {"mean": (S, K, dx), "cov": (S, K, dx, dx), "frozen_mean": (S, K, dx),
@@ -181,13 +204,12 @@ def oru_replay(layout, mean, cov, frozen_mean, frozen_cov, last_meas, z2, rejoin
     out_mean, out_cov = torch.empty_like(mean), torch.empty_like(cov)
     if rejoin.numel() == 0:
         return out_mean, out_cov
-    obb = layout.dz == 5
     fn = build.entry("oru", "bmt_oru", [_P] * 11 + [_P] + [_I] * 7 + [_P])
     with torch.cuda.device(dev):
         rc = fn(mean.data_ptr(), cov.data_ptr(), frozen_mean.data_ptr(), frozen_cov.data_ptr(),
                 last_meas.data_ptr(), z2.data_ptr(), rejoin.data_ptr(), gap.data_ptr(),
                 out_mean.data_ptr(), out_cov.data_ptr(), replayed.data_ptr(), _noise(layout),
-                S, K, int(obb), MAX_ORU, *launch_geometry(S, K, obb),
+                S, K, LAYOUT_TAGS[layout.name][0], MAX_ORU, *launch_geometry(S, K, layout.name),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("oru", "bmt_oru", rc)
     oru_replay.launches += 1

@@ -17,7 +17,7 @@ class bank gets the whole frame's ``embs`` and reads its first n rows for
 its n detections, as the JAX appearance trackers do (their ``update`` keeps
 the frame's embeddings, which their ``_step`` reads in every class bank).
 ``masks`` are accepted and ignored, as by every JAX tracker but sam2mot,
-which is not ported.
+which overrides ``update`` and takes only ``_preprocess`` from here.
 """
 
 from __future__ import annotations
@@ -73,9 +73,12 @@ def infer_detection_layout(dets):
 
 class BaseTracker:
     """Shared host shell; subclasses provide ``_init_state`` and ``_step``,
-    and set ``supports_obb`` when their step has an OBB branch."""
+    and set ``supports_obb`` when their step has an OBB branch and
+    ``_id_emit_offset`` when they emit ids that differ from their internal
+    ``next_id`` counter (HybridSORT emits tid + 1)."""
 
     supports_obb = False
+    _id_emit_offset = 0
 
     def __init__(self, device, det_thresh: float = 0.3, max_age: int = 30, min_hits: int = 3,
                  iou_threshold: float = 0.3, per_class: bool = False, nr_classes: int = 80,
@@ -112,6 +115,14 @@ class BaseTracker:
     def update(self, dets, img=None, embs=None, masks=None) -> TrackResults:
         """Track one frame of (N, 6) or (N, 7) detections; ``embs`` is
         ignored by motion-only trackers and ``masks`` by all."""
+        dets, img = self._preprocess(dets, img)
+        self._img = img
+        return TrackResults(self._do_update(dets, embs))
+
+    def _preprocess(self, dets, img):
+        """Unwrap the detections to float32 numpy and, on the first frame,
+        set the detection layout (refusing OBB where unsupported) and the
+        frame size."""
         if hasattr(dets, "data"):
             dets = dets.data
         dets = np.asarray(dets, dtype=np.float32) if dets is not None else None
@@ -125,8 +136,7 @@ class BaseTracker:
         if self.h is None and img is not None:
             self.h, self.w = img.shape[0:2]
             self._set_frame_size(float(self.w), float(self.h))
-        self._img = img
-        return TrackResults(self._do_update(dets, embs))
+        return dets, img
 
     def _set_frame_size(self, w: float, h: float):
         """First-frame hook for trackers whose association needs the frame
@@ -198,7 +208,7 @@ class BaseTracker:
                 # GlobalIdAllocator renumbers them at emission
                 state = self._init_state()
                 state = dataclasses.replace(state, next_id=state.next_id + cls_id * 1_000_000)
-            prev_next = int(state.next_id[0])
+            prev_next = int(state.next_id[0]) + self._id_emit_offset
 
         self._frame_inputs = (self._img, embs, dets)
         padded = torch.from_numpy(self._pad_dets(dets)).to(self.device)
@@ -212,7 +222,7 @@ class BaseTracker:
 
         out_np = out.cpu().numpy()[out_mask.cpu().numpy()]
         if cls_id is not None:
-            self._pc_ids.observe_created(prev_next, int(state.next_id[0]))
+            self._pc_ids.observe_created(prev_next, int(state.next_id[0]) + self._id_emit_offset)
             if out_np.size:
                 out_np = out_np.copy()
                 id_col = self.layout.box_cols

@@ -481,10 +481,11 @@ def warp_tensor(warp, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(warp, np.float32)).to(device)
 
 
-def padded_embs(embs, n: int, D: int, feat_dim: int, device) -> torch.Tensor:
+def padded_embs(embs, n: int, D: int, feat_dim: int, device, fill: float = 0.0) -> torch.Tensor:
     """(D, feat_dim) float32 embeddings on ``device``: the first n rows from
-    ``embs`` (None or an (N, F) array), the rest zero, as the JAX shell pads."""
-    pad = np.zeros((D, feat_dim), np.float32)
+    ``embs`` (None or an (N, F) array), the rest ``fill``, as the JAX shells
+    pad (zeros; StrongSORT's and HybridSORT's ones)."""
+    pad = np.full((D, feat_dim), fill, np.float32)
     if embs is not None and n:
         pad[:n] = np.asarray(embs, np.float32)[:n]
     return torch.from_numpy(pad).to(device)

@@ -5,6 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device report: torch's card name and nvidia-smi's name and power limit;
+     the CPU references of phases 4-5 start in worker processes (spawned)
+     that run beside phases 2-5;
   2. build the four hand-written kernels from csrc/, one nvcc each, in
      parallel;
   3. each kernel against its plain PyTorch twin on the card, at the main
@@ -13,68 +15,79 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the TPU kernel's 1e-9, iou_batch's 1e-12), K2 on both of its paths (w
      in shared memory, cost read from global memory), K3 also on crossed
      quadrilaterals that overflow its fast path, K4 (the ORU) against its
-     twin on the CPU, AABB and OBB, where every slot rejoins with gaps 2-31,
-     on a ragged S with gaps past MAX_ORU, on its edges (no slot rejoining,
-     5 x 13 slots, gaps of MAX_ORU and MAX_ORU + 1, tied alignment
-     candidates) and on a recorded OC-SORT step and DeepOCSORT step (its
-     warped frozen state); K1 also on a recorded BoT-SORT step's inputs,
-     and K1, K2 (the graveyard's detections x 64 slots among its problems)
-     and K3 on a recorded OccluBoost bench step, AABB and OBB;
+     twin on the CPU on each of its three layouts (XYSR, XYSR-OBB and
+     HybridSORT's XYSCR), where every slot rejoins with gaps 2-31, on a
+     ragged S with gaps past MAX_ORU, on its edges (no slot rejoining, 5 x
+     13 slots, gaps of MAX_ORU and MAX_ORU + 1, tied alignment candidates)
+     and on a recorded OC-SORT, DeepOCSORT (its warped frozen state) and
+     HybridSORT step; K1 also on a recorded BoT-SORT step's inputs, K1, K2
+     (the graveyard's detections x 64 slots among its problems) and K3 on a
+     recorded OccluBoost bench step, AABB and OBB, and K1 and K2 on a
+     recorded StrongSORT step (pass 1's costs mostly at the clamp);
      the launch floor, an empty kernel's device time through K1's ctypes
      path on one block and on K1's grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
      device time per launch (torch.profiler), its wrapper's time (CUDA
      events around one call), its twin's, and its bound counted from the
-     work those inputs need; the OBB Kalman bank's bits on the card against
-     the CPU;
-  4. AABB evals: run_eval for ByteTrack, SFSORT, OC-SORT, BoT-SORT,
-     DeepOCSORT, BoostTrack and OccluBoost on MOT17-mini and synth-long,
+     work those inputs need (K4's XYSCR instance too, on its all-rejoin set
+     and the HybridSORT step); the OBB Kalman bank's bits on the card
+     against the CPU;
+  4. AABB evals: run_eval for the ten trackers (ByteTrack, SFSORT, OC-SORT,
+     BoT-SORT, DeepOCSORT, BoostTrack, OccluBoost, StrongSORT, HybridSORT
+     and sam2mot, the last a host tracker) on MOT17-mini and synth-long,
      held to the pinned HOTA/MOTA/IDF1, with their MOT rows held against the
-     same evals on the CPU (those of BoT-SORT, DeepOCSORT, BoostTrack and
-     OccluBoost to the bit); then BoT-SORT's run_eval with ``reid`` and
-     ``cmc_method`` over seeded synth-long embedding and warp caches
-     (512-d), against the CPU: metrics equal, tracks with ids, masks and
-     det_ind exact and boxes within 1e-4 px, and the smallest margin of an
-     appearance distance to its threshold; and OccluBoost's on the same
-     caches with GTA on, against the CPU and a motion-only run, with the
-     graveyard resurrections and gap rows it made;
+     same evals on the CPU (all but ByteTrack's, SFSORT's and OC-SORT's to
+     the bit; sam2mot's equal by construction); then BoT-SORT's run_eval
+     with ``reid`` and ``cmc_method`` over seeded synth-long embedding and
+     warp caches (512-d), against the CPU: metrics equal, tracks with ids,
+     masks and det_ind exact and boxes within 1e-4 px, and the smallest
+     margin of an appearance distance to its threshold; OccluBoost's on the
+     same caches with GTA on, against the CPU and a motion-only run, with
+     the graveyard resurrections and gap rows it made; and StrongSORT's and
+     HybridSORT's on the same caches against their CPU replays, with the
+     smallest margin of an appearance distance to the decision it feeds;
   5. OBB evals: run_eval_obb for ByteTrack, SFSORT, OC-SORT, BoT-SORT and
      OccluBoost on mmot-mini, held to the JAX package's values, with their
      tracks held against the CPU's;
-  6. the live API: 50 frames of MOT17-04-FRCNN (ByteTrack, OC-SORT), the
-     mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT, OC-SORT,
-     BoT-SORT, OccluBoost), frames of 300 detections, and seeded textured
-     1920 x 1080 frames of a camera panning by known sub-pixel steps with
-     MOT17-04's detections moved along: BoT-SORT with ECC on the card,
-     BoT-SORT from the zoo defaults (SOF, on the host), DeepOCSORT with ECC
-     and embeddings, BoostTrack and OccluBoost with ECC; each against the
-     same tracker on the CPU, with the warps ECC recovered beside the known
-     steps;
-  7. replay throughput at the bench shape (8 sequences x 256 frames x 100
-     detections, D = 128, capacity 256), timed with CUDA events: ByteTrack
-     AABB and OBB, OC-SORT AABB with 5 % of the detections missed each
-     frame (so that the ORU runs), with the slots K4 replayed, and a profile
-     of 16 OC-SORT steps (kernels, device busy and host ms per step);
-     BoT-SORT AABB with 512-d embeddings and a per-frame translation warp
-     (``appearance_batch``: 0.54 GB of embeddings made on the card) and its
-     16-step profile with K1's, K2's and the embedding product's device ms;
-     DeepOCSORT AABB on the same kind of input with 5 % missed, and its
-     16-step profile; BoostTrack AABB (the YAML tier) and OccluBoost AABB
-     (``OccluBoostConfig()``, as bench.py runs it) on the same kind of input,
-     with their 16-step profiles; and ECC's ``apply`` at 1080p, scale 0.15
-     (host ms a frame, kernels an apply).
+  6. the live API: 50 frames of MOT17-04-FRCNN (ByteTrack, OC-SORT,
+     sam2mot), the mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT,
+     OC-SORT, BoT-SORT, OccluBoost), frames of 300 detections, and seeded
+     textured 1920 x 1080 frames of a camera panning by known sub-pixel
+     steps with MOT17-04's detections moved along: BoT-SORT with ECC on the
+     card, BoT-SORT from the zoo defaults (SOF, on the host), DeepOCSORT,
+     StrongSORT and HybridSORT with ECC and embeddings, BoostTrack and
+     OccluBoost with ECC; each against the same tracker on the CPU, with the
+     warps ECC recovered beside the known steps;
+  7. replay throughput at the bench shape (8 sequences x 100 detections,
+     D = 128, capacity 256; the lines of earlier slices at EARLIER_FRAMES =
+     128 frames a sequence, StrongSORT's and HybridSORT's at 256), timed
+     with CUDA events: ByteTrack AABB and OBB, OC-SORT AABB with 5 % of the
+     detections missed each frame (so that the ORU runs), with the slots K4
+     replayed, and a profile of 16 OC-SORT steps (kernels, device busy and
+     host ms per step); BoT-SORT AABB with 512-d embeddings and a per-frame
+     translation warp (``appearance_batch``: embeddings made on the card)
+     and its 16-step profile with K1's, K2's, K4's and the embedding
+     product's device ms; DeepOCSORT AABB on the same kind of input with 5 %
+     missed, and its 16-step profile; BoostTrack AABB (the YAML tier) and
+     OccluBoost AABB (``OccluBoostConfig()``, as bench.py runs it) on the
+     same kind of input, with their 16-step profiles; ECC's ``apply`` at
+     1080p, scale 0.15 (host ms a frame, kernels an apply); StrongSORT AABB
+     and HybridSORT AABB (their YAML tiers, HybridSORT with 5 % missed so
+     that K4 replays) on the same kind of input, with their 16-step
+     profiles.
 Every path of phases 4-7 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; OC-SORT and
-DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; BoostTrack and
-OccluBoost: as ``boost_ratio`` counts them from the config's options) the
-counts must keep that ratio, so no step fell back to a twin.  The line
-before the last is {"kernels": [...]}, with each
-kernel's launches summed over those paths; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA card it exits non-zero before
-printing any result.
+DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; StrongSORT: 1 IoU launch
+to 2 auctions; BoostTrack, OccluBoost and HybridSORT: as ``boost_ratio`` and
+``hybrid_ratio`` count them from the config's options; sam2mot: none) the
+counts must keep that ratio, so no step fell back to a twin.  Phase laps
+are printed.  The line before the last is {"kernels": [...]}, with each
+kernel's launches summed over those paths (K4's over its three layouts);
+the last line is {"ok": true, "device": {...}}.  Without a CUDA card it
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -118,7 +131,16 @@ from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain,
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from boxmot_tpu_torch.trackers import boosttrack, botsort, bytetrack, deepocsort, occluboost, ocsort
+from boxmot_tpu_torch.trackers import (
+    boosttrack,
+    botsort,
+    bytetrack,
+    deepocsort,
+    hybridsort,
+    occluboost,
+    ocsort,
+    strongsort,
+)
 from boxmot_tpu_torch.trackers.boosttrack import BoostTrackConfig
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
 from boxmot_tpu_torch.trackers.occluboost import OccluBoostConfig
@@ -130,8 +152,8 @@ ASSETS = ROOT / "assets"
 ROOTS = {"mot17_mini": ASSETS / "MOT17-mini" / "train", "synth_long": ASSETS / "synth-long" / "train"}
 MMOT_ROOT = ASSETS / "mmot-mini" / "train"
 LIVE_SEQ = ROOTS["mot17_mini"] / "MOT17-04-FRCNN"
-# the ByteTrack, SFSORT, OC-SORT, BoT-SORT, DeepOCSORT, BoostTrack and
-# OccluBoost pins of tests/test_pinned_metrics.py (a CPU test holds them equal)
+# the pins of tests/test_pinned_metrics.py of the ten trackers (a CPU test
+# holds them equal)
 PINNED = {
     ("mot17_mini", "bytetrack"): {"HOTA": 0.649859, "MOTA": 0.495283, "IDF1": 0.662461},
     ("mot17_mini", "ocsort"): {"HOTA": 0.651511, "MOTA": 0.488208, "IDF1": 0.656101},
@@ -147,6 +169,12 @@ PINNED = {
     ("mot17_mini", "occluboost"): {"HOTA": 0.649804, "MOTA": 0.492925, "IDF1": 0.660348},
     ("synth_long", "boosttrack"): {"HOTA": 0.940187, "MOTA": 0.984832, "IDF1": 0.962756},
     ("synth_long", "occluboost"): {"HOTA": 0.970771, "MOTA": 0.995930, "IDF1": 0.997963},
+    ("mot17_mini", "strongsort"): {"HOTA": 0.466670, "MOTA": 0.341981, "IDF1": 0.509666},
+    ("mot17_mini", "hybridsort"): {"HOTA": 0.653064, "MOTA": 0.497642, "IDF1": 0.664567},
+    ("mot17_mini", "sam2mot"): {"HOTA": 0.658509, "MOTA": 0.504717, "IDF1": 0.672897},
+    ("synth_long", "strongsort"): {"HOTA": 0.861006, "MOTA": 0.910840, "IDF1": 0.853037},
+    ("synth_long", "hybridsort"): {"HOTA": 0.851414, "MOTA": 0.892342, "IDF1": 0.882638},
+    ("synth_long", "sam2mot"): {"HOTA": 0.845008, "MOTA": 0.914909, "IDF1": 0.848808},
 }
 # the JAX package's run_eval_obb on mmot-mini (a CPU test holds them equal)
 OBB_EVAL = {
@@ -175,6 +203,17 @@ def boost_ratio(cfg) -> dict:
             "masked_assignment": 1 + reid + cfg.use_second_pass + 2 * gta}
 
 
+def hybrid_ratio(cfg) -> dict:
+    """Launches per step of a HybridSORT config's kernels: an auction for the
+    first pass, the BYTE pass (with ``use_byte``) and the final chance; the
+    ORU once; K1 for the first pass's and the final chance's similarity when
+    the association is ``"iou"`` (the YAML tier's ``"diou"`` is plain)."""
+    ratio = {"masked_assignment": 2 + cfg.use_byte, "oru_replay": 1}
+    if cfg.asso_func == "iou":
+        ratio["fused_iou_cost"] = 2
+    return ratio
+
+
 # launches per step of each tracker's kernels, axis-aligned and oriented
 RATIOS = {
     "bytetrack": ({"fused_iou_cost": 2, "masked_assignment": 3},
@@ -190,14 +229,20 @@ RATIOS = {
     "boosttrack": (boost_ratio(build_replay_config("boosttrack", with_reid=False)), None),
     "occluboost": (boost_ratio(build_replay_config("occluboost", with_reid=False)),
                    boost_ratio(build_replay_config("occluboost", is_obb=True))),
+    "strongsort": ({"fused_iou_cost": 1, "masked_assignment": 2}, None),
+    "hybridsort": (hybrid_ratio(build_replay_config("hybridsort", with_reid=False)), None),
+    "sam2mot": ({}, None),  # a host tracker: no kernel
 }
 # the live OccluBoost without a ReID model: with_reid off in both modes
 LIVE_OBB_RATIOS = {**{t: r[1] for t, r in RATIOS.items() if r[1]},
                    "occluboost": boost_ratio(build_replay_config("occluboost", with_reid=False,
                                                                  is_obb=True))}
 # trackers whose eval and live rows must equal the CPU's to the bit (no
-# embedding product enters them: the evals run without embeddings)
-BIT_EQUAL_EVALS = ("botsort", "deepocsort", "boosttrack", "occluboost")
+# embedding product enters them: the evals run without embeddings; sam2mot's
+# rows are the host's on both, equal by construction)
+BIT_EQUAL_EVALS = ("botsort", "deepocsort", "boosttrack", "occluboost", "strongsort",
+                   "hybridsort", "sam2mot")
+HOST_TRACKERS = ("sam2mot",)
 FEAT_DIM = 512  # the OSNet width of the appearance trackers' configs
 REID, REID_DETECTOR = "seedreid", "seeddet"
 MISS = 0.05  # the OC-SORT bench line's share of detections missed each frame
@@ -445,18 +490,24 @@ def occlusion_frames(n_frames, n_ids, seed=0, feat_dim=32, obb=False, speed=2.0)
 
 def oru_inputs(rng, S, K, obb, p_rejoin=1.0, gap_max=31):
     """Inputs of the ORU (kernel K4) for S x K slots, made with the port's
-    XYSR Kalman bank on the CPU: tracks initiated and updated four times
-    (the frozen state and the last measurement), then predicted through gaps
-    of 2 .. gap_max frames (the current state), and a new measurement where
-    the motion has carried each box (for oriented boxes with a turned
-    angle, a fifth of them with r inverted, aligned to the predicted mean).
-    A share ``p_rejoin`` of the slots rejoins.  Returns (layout, [mean, cov,
+    Kalman bank on the CPU: tracks initiated and updated four times (the
+    frozen state and the last measurement), then predicted through gaps of
+    2 .. gap_max frames (the current state), and a new measurement where the
+    motion has carried each box (for oriented boxes with a turned angle, a
+    fifth of them with r inverted, aligned to the predicted mean).  ``obb``:
+    False for XYSR, True for XYSR-OBB, or "xyscr" for HybridSORT's XYSCR,
+    whose measurements [x, y, s, c, r] carry a confidence that drifts.  A
+    share ``p_rejoin`` of the slots rejoins.  Returns (layout, [mean, cov,
     frozen_mean, frozen_cov, last_meas, z2], rejoin, gap), on the CPU."""
-    layout = kalman.make_xysr_layout(obb, 0.01, 1e-4, 1e-4)
+    xyscr = obb == "xyscr"
+    obb = obb is True
+    layout = kalman.make_xyscr_layout() if xyscr else kalman.make_xysr_layout(obb, 0.01, 1e-4, 1e-4)
     w, h = rng.uniform(20, 200, (S, K)), rng.uniform(20, 200, (S, K))
     cols = [rng.uniform(0, 1800, (S, K)), rng.uniform(0, 1000, (S, K)), w * h, w / h]
     if obb:
         cols.append(rng.uniform(-np.pi, np.pi, (S, K)))
+    if xyscr:
+        cols.insert(3, rng.uniform(0.3, 0.95, (S, K)))
     z = torch.from_numpy(np.stack(cols, -1).astype(np.float32))
     mean, cov = kalman.initiate(layout, z)
     every = torch.ones((S, K), dtype=torch.bool)
@@ -469,6 +520,8 @@ def oru_inputs(rng, S, K, obb, p_rejoin=1.0, gap_max=31):
         if obb:
             z[..., 4] += torch.from_numpy(rng.normal(0, 0.02, (S, K)).astype(np.float32))
             z = kalman.align_obb_xysr(z, mean[..., :5])
+        if xyscr:
+            z[..., 3] += torch.from_numpy(rng.normal(0, 0.03, (S, K)).astype(np.float32))
         mean, cov = kalman.update(layout, mean, cov, z, every)
     frozen_mean, frozen_cov, last_meas = mean, cov, z
     gap = torch.from_numpy(rng.integers(2, gap_max + 1, (S, K)).astype(np.int32))
@@ -480,15 +533,21 @@ def oru_inputs(rng, S, K, obb, p_rejoin=1.0, gap_max=31):
         z2[..., 4] += torch.from_numpy(rng.normal(0, 0.3, (S, K)).astype(np.float32))
         z2[:, ::5, 3] = 1.0 / z2[:, ::5, 3]
         z2 = kalman.align_obb_xysr(z2, mean[..., :5])
+    if xyscr:
+        z2[..., 3] = torch.from_numpy(rng.uniform(0.3, 0.95, (S, K)).astype(np.float32))
+        z2[:, ::5, 4] = 1.0 / z2[:, ::5, 4]
     rejoin = torch.from_numpy(rng.uniform(size=(S, K)) < p_rejoin)
     tensors = [t.contiguous() for t in (mean, cov, frozen_mean, frozen_cov, last_meas, z2)]
     return layout, tensors, rejoin, gap
 
 
-# K4's edge sets: (name, oriented) pairs of oru_edge_inputs
+# K4's edge sets: (name, layout) pairs of oru_edge_inputs (False: XYSR, True:
+# XYSR-OBB, "xyscr")
 ORU_EDGES = (("no slot rejoins", False), ("no slot rejoins", True), ("5 x 13", False),
              ("5 x 13", True), ("gaps MAX_ORU, MAX_ORU + 1", False),
              ("gaps MAX_ORU, MAX_ORU + 1", True), ("alignment ties", True))
+XYSCR_EDGES = (("no slot rejoins", "xyscr"), ("5 x 13", "xyscr"),
+               ("gaps MAX_ORU, MAX_ORU + 1", "xyscr"))
 
 
 def _alignment_ties():
@@ -510,7 +569,8 @@ def _alignment_ties():
 
 
 def oru_edge_inputs(rng, edge, obb):
-    """K4's edge sets, as ``oru_inputs`` returns them: no slot rejoining (a
+    """K4's edge sets of a layout (``obb`` as ``oru_inputs`` takes it), as
+    ``oru_inputs`` returns them: no slot rejoining (a
     pure copy-through, 8 x 256); S x K = 5 x 13, not a multiple of a block's
     warps; gaps of exactly MAX_ORU and MAX_ORU + 1; and, oriented, alignment
     ties: r = 1 in both measurements and, for the measured and frozen
@@ -526,7 +586,7 @@ def oru_edge_inputs(rng, edge, obb):
         gap = torch.full_like(gap, MAX_ORU)
         gap[:, 1::2] = MAX_ORU + 1
         return layout, tensors, rejoin, gap
-    if edge != "alignment ties" or not obb:
+    if edge != "alignment ties" or obb is not True:
         raise ValueError(f"no K4 edge set {edge!r} (oriented: {obb})")
     layout, tensors, rejoin, _ = oru_inputs(rng, 2, 32, True)
     mean, cov, frozen_mean, frozen_cov, last_meas, z2 = (t.clone() for t in tensors)
@@ -627,13 +687,16 @@ def check_k1(rng, step_calls):
         print(f"K1 BoT-SORT bench step {'iou+cost' if len(args) == 3 else 'iou-only'} "
               f"{tuple(args[0].shape)} x {args[1].shape[1]}: bit-equal to the twin")
     # OccluBoost's bench step: the association IoU (which DLO and the recovery
-    # read too), DUO's detections x detections and the duplicate suppression's
-    for args, kwargs in step_calls["occluboost"]["fused_iou_cost"]:
+    # read too), DUO's detections x detections and the duplicate suppression's;
+    # StrongSORT's pass 2 (1 - IoU)
+    for label, (args, kwargs) in ([("OccluBoost", c) for c in step_calls["occluboost"]["fused_iou_cost"]]
+                                  + [("StrongSORT", c) for c in
+                                     step_calls["strongsort"]["fused_iou_cost"]]):
         got, want = fused_iou_cost(*args, **kwargs), fused_iou_cost_plain(*args, **kwargs)
         torch.cuda.synchronize()
         if not (got[1] is None and torch.equal(got[0], want[0])):
-            raise AssertionError("K1 on OccluBoost's bench step: not bit-equal to the twin")
-        print(f"K1 OccluBoost bench step iou-only {tuple(args[0].shape)} x {args[1].shape[1]}: "
+            raise AssertionError(f"K1 on {label}'s bench step: not bit-equal to the twin")
+        print(f"K1 {label} bench step iou-only {tuple(args[0].shape)} x {args[1].shape[1]}: "
               f"bit-equal to the twin")
     # the AABB bench step's own inputs (its two launches, each in its mode)
     calls = []
@@ -741,6 +804,11 @@ def check_k2(rng, step_calls):
     for args, kwargs in step_calls["occluboost"]["masked_assignment"]:
         cost, rm, cm, thresh = args[:4]
         _k2_same(f"OccluBoost bench step {tuple(cost.shape)}", cost, rm, cm, thresh)
+    # StrongSORT's bench step: pass 1 (appearance gated by the motion, most
+    # costs at the max_cos_dist clamp) and pass 2 (IoU)
+    for i, (args, kwargs) in enumerate(step_calls["strongsort"]["masked_assignment"]):
+        cost, rm, cm, thresh = args[:4]
+        _k2_same(f"StrongSORT bench step pass {i + 1} {tuple(cost.shape)}", cost, rm, cm, thresh)
     rows = []
     for label in ("aabb", "obb"):
         for args, kwargs in step_calls[label]["masked_assignment"]:
@@ -913,7 +981,9 @@ def bench_step_calls():
     the appearance bench inputs (embeddings and warps; DeepOCSORT with MISS
     missed), and of OccluBoost's IoU launches and auctions (the graveyard's
     detections x 64 slots among them) at ``OccluBoostConfig()``, the bench's,
-    on the appearance inputs and, oriented, on turning rotated boxes, recorded
+    on the appearance inputs and, oriented, on turning rotated boxes, and of
+    StrongSORT's IoU launch and two auctions and HybridSORT's XYSCR ORU launch
+    (MISS missed) at their YAML tiers on the appearance inputs, recorded
     so that phase 3 checks and times each kernel on the inputs the main path
     gives it."""
     def frames(frames_fn, cols):
@@ -943,7 +1013,13 @@ def bench_step_calls():
              lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, MISS, "cuda"),
              [(boosttrack, ("fused_iou_cost",)), *auctions]),
             ("occluboost_obb", OccluBoostConfig(capacity=CAPACITY, is_obb=True), obb_frames,
-             [(occluboost, ("rotated_iou",))])):
+             [(occluboost, ("rotated_iou",))]),
+            ("strongsort", build_replay_config("strongsort", capacity=CAPACITY),
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, 0.0, "cuda"),
+             [(strongsort, ("fused_iou_cost",)), (ocsort, ("masked_assignment",))]),
+            ("hybridsort", build_replay_config("hybridsort", capacity=CAPACITY),
+             lambda: appearance_batch(N_SEQS, 65, N_DETS, 100, MISS, "cuda"),
+             [(hybridsort, ("oru_replay",))])):
         batch, embs, warps = inputs()
         head = (None, None) if embs is None else (embs[:, :64], warps[:, :64])
         tail = (None, None) if embs is None else (embs[:, 64:], warps[:, 64:])
@@ -986,18 +1062,20 @@ def _k4_same(label, layout, tensors, rejoin, gap):
 
 
 def _k4_predict_ops(dx):
-    """Operations of one XYSR predict as K4 does them: an add per position
-    with a velocity for the mean and per such row and column of F P F^T,
-    the noise's dx * dx adds (an exact zero off the diagonal) and the clamps
-    of s and r."""
+    """Operations of one predict as K4 does them: an add per position with a
+    velocity (3 in XYSR, 4 in the 9-state layouts) for the mean and per such
+    row and column of F P F^T, the noise's dx * dx adds (an exact zero off the
+    diagonal) and the clamps of s and r."""
     vel = 3 if dx == 7 else 4
     return vel + 2 * vel * dx + dx * dx + 2
 
 
-def _k4_update_ops(dx, dz):
+def _k4_update_ops(dx, dz, kind=None):
     """Operations of one interpolated measurement and masked Joseph-form
     update as K4 does them (a sum over an index counts each product and add,
-    exact zeros included)."""
+    exact zeros included); ``kind``, the layout's name, defaults to XYSR-OBB
+    for dz = 5."""
+    kind = kind or ("xysr_obb" if dz == 5 else "xysr")
     ops = dz * dz  # the innovation covariance
     ops += sum(2 * j + 1 for i in range(dz) for j in range(i + 1))  # Cholesky
     ops += sum(1 + sum(2 * (i - j) + 1 for j in range(i)) for i in range(dz))  # its inverse
@@ -1006,8 +1084,10 @@ def _k4_update_ops(dx, dz):
     ops += dx * dz + 2 * dx * dx * (2 * dx - 1)  # I - K H, (I - K H) P (I - K H)^T
     ops += dx * dz + dx * dx * (2 * dz - 1) + dx * dx  # K R K^T, added
     ops += 14  # the interpolated x, y, w, h, s and r
-    if dz == 5:
+    if kind == "xysr_obb":
         ops += 6 + 4 * 12 + 3 + 1  # the angle, the four candidates, the pick, the damping
+    elif kind == "xyscr":
+        ops += 2  # the interpolated confidence
     return ops
 
 
@@ -1029,56 +1109,72 @@ def k4_bound(layout, rejoin, gap):
     dx, dz = layout.dx, layout.dz
     n = torch.clamp(torch.where(rejoin, gap, 0), max=MAX_ORU).cpu().to(torch.int64)
     slots, updates = int((n > 0).sum()), int(n.sum())
-    return measure.bound_ms(k4_bytes(layout, rejoin), updates * _k4_update_ops(dx, dz)
+    return measure.bound_ms(k4_bytes(layout, rejoin), updates * _k4_update_ops(dx, dz, layout.name)
                             + (updates - slots) * _k4_predict_ops(dx))
 
 
+def _k4_row(label, layout, card):
+    """One timing row of K4 on inputs already on the card: its device time a
+    launch, its wrapper's, the plain version's (the same twin, run on the
+    card) and the counted bound."""
+    S = card[-2].shape[0]
+    replayed = torch.zeros(S, dtype=torch.int32, device="cuda")
+    row = (measure.device_ms(lambda: oru_replay(layout, *card, replayed), "oru_kernel"),
+           measure.event_ms(lambda: oru_replay(layout, *card, replayed)),
+           measure.event_ms(lambda: oru_replay_plain(layout, *card, replayed), reps=5, warmup=1),
+           *k4_bound(layout, card[-2], card[-1]))
+    print(f"K4 {label}: device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
+          f"{row[2]:.4f} ms (on the card), bound {row[3]:.6f} ms ({row[4]}), "
+          f"{int(card[-2].sum())} slots rejoin")
+    return row
+
+
 def check_k4(rng, step_calls):
-    """K4 (the ORU) bit-equal to its twin run on the CPU, AABB and OBB: at the
-    bench's S x K where every slot rejoins with gaps 2-31, on a ragged S
-    with half the slots rejoining and gaps up to 40 (past MAX_ORU), on its
-    edge sets (``oru_edge_inputs``) and on a recorded OC-SORT bench step;
-    then the kernel timed on that step's inputs, and on the all-rejoin AABB
-    and OBB sets, beside its wrapper, the plain version (the same twin, run
-    on the card) and the bound."""
+    """K4 (the ORU) bit-equal to its twin run on the CPU, on each of its
+    layouts (XYSR, XYSR-OBB, XYSCR): at the bench's S x K where every slot
+    rejoins with gaps 2-31, on a ragged S with half the slots rejoining and
+    gaps up to 40 (past MAX_ORU), on its edge sets (``oru_edge_inputs``) and
+    on a recorded OC-SORT, DeepOCSORT and HybridSORT bench step; then the
+    kernel timed on the OC-SORT step's inputs, and on the all-rejoin sets,
+    and its XYSCR instance on the HybridSORT step's, each beside its
+    wrapper, the plain version (the same twin, run on the card) and the
+    bound.  Returns the OC-SORT step's timing entry and the XYSCR rows."""
     sets = {}
-    for obb in (False, True):
-        kind = "OBB" if obb else "AABB"
+    for kind, obb in (("AABB", False), ("OBB", True), ("XYSCR", "xyscr")):
         for label, args in ((f"{kind} all rejoin", (N_SEQS, CAPACITY, obb)),
                             (f"{kind} ragged", (3, 77, obb, 0.5, 40))):
             layout, tensors, rejoin, gap = oru_inputs(rng, *args)
             _k4_same(label, layout, tensors, rejoin, gap)
             sets[label] = (layout, [t.cuda() for t in (*tensors, rejoin, gap)])
         print(f"K4 {kind} launch at (S, K) = ({N_SEQS}, {CAPACITY}): "
-              f"{k4_geometry(N_SEQS, CAPACITY, obb)} (blocks, threads, shared bytes a block)")
-    for edge, obb in ORU_EDGES:
-        _k4_same(f"{'OBB' if obb else 'AABB'} {edge}", *oru_edge_inputs(rng, edge, obb))
-    rows = []
+              f"{k4_geometry(N_SEQS, CAPACITY, layout.name)} (blocks, threads, shared bytes a "
+              f"block)")
+    for edge, obb in ORU_EDGES + XYSCR_EDGES:
+        kind = {False: "AABB", True: "OBB"}.get(obb, "XYSCR")
+        _k4_same(f"{kind} {edge}", *oru_edge_inputs(rng, edge, obb))
     for i, (args, _) in enumerate(step_calls["ocsort"]["oru_replay"]):
         layout, tensors, rejoin, gap = args[0], args[1:7], args[7], args[8]
         _k4_same(f"OC-SORT bench step {i}", layout, [t.cpu() for t in tensors], rejoin.cpu(),
                  gap.cpu())
         sets[f"OC-SORT bench step {i}"] = (layout, list(args[1:9]))
-    for i, (args, _) in enumerate(step_calls["deepocsort"]["oru_replay"]):
-        n = _k4_same(f"DeepOCSORT bench step {i}", args[0], [t.cpu() for t in args[1:7]],
-                     args[7].cpu(), args[8].cpu())
-        if not n:
-            raise AssertionError("K4: no slot rejoined at the recorded DeepOCSORT step")
-    timed = [k for k in sets if k.startswith("OC-SORT")][:1] + ["AABB all rejoin", "OBB all rejoin"]
-    for label in timed:
-        layout, card = sets[label]
-        S = card[-2].shape[0]
-        replayed = torch.zeros(S, dtype=torch.int32, device="cuda")
-        row = (measure.device_ms(lambda: oru_replay(layout, *card, replayed), "oru_kernel"),
-               measure.event_ms(lambda: oru_replay(layout, *card, replayed)),
-               measure.event_ms(lambda: oru_replay_plain(layout, *card, replayed), reps=5,
-                                warmup=1), *k4_bound(layout, card[-2], card[-1]))
-        print(f"K4 {label}: device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
-              f"{row[2]:.4f} ms (on the card), bound {row[3]:.6f} ms ({row[4]}), "
-              f"{int(card[-2].sum())} slots rejoin")
+    for tracker, name in (("deepocsort", "DeepOCSORT"), ("hybridsort", "HybridSORT")):
+        for i, (args, _) in enumerate(step_calls[tracker]["oru_replay"]):
+            n = _k4_same(f"{name} bench step {i}", args[0], [t.cpu() for t in args[1:7]],
+                         args[7].cpu(), args[8].cpu())
+            if not n:
+                raise AssertionError(f"K4: no slot rejoined at the recorded {name} step")
+            if tracker == "hybridsort":
+                sets[f"HybridSORT bench step {i}"] = (args[0], list(args[1:9]))
+    rows, xyscr = [], []
+    for label in ([k for k in sets if k.startswith("OC-SORT")][:1]
+                  + ["AABB all rejoin", "OBB all rejoin", "XYSCR all rejoin"]
+                  + [k for k in sets if k.startswith("HybridSORT")][:1]):
+        row = _k4_row(label, *sets[label])
         if label.startswith("OC-SORT"):
             rows.append(row)
-    return timing(0.0, rows)
+        if label.startswith(("XYSCR", "HybridSORT")):
+            xyscr.append((label, row))
+    return timing(0.0, rows), xyscr
 
 
 def check_kalman_obb(rng):
@@ -1105,7 +1201,7 @@ def check_kalman_obb(rng):
 def drive(label, fn, ratio, sync_free=True):
     """Drive one path with every launch counter at 0; ``ratio`` gives the
     fixed launches per step of the kernels the path must run (others must
-    not run at all).  A ``sync_free`` path runs under
+    not run at all; an empty ratio, a host tracker's, lets none run).  A ``sync_free`` path runs under
     set_sync_debug_mode("error"), so any host sync in it raises."""
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
@@ -1117,7 +1213,7 @@ def drive(label, fn, ratio, sync_free=True):
     counts = {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
     print(f"launches in {label}: {counts}")
     steps = {counts[k] / w for k, w in ratio.items()}
-    if min(counts[k] for k in ratio) <= 0 or len(steps) != 1:
+    if ratio and (min(counts[k] for k in ratio) <= 0 or len(steps) != 1):
         raise AssertionError(f"{label}: launches {counts} are not {ratio} per step")
     if any(counts[k] for k in counts if k not in ratio):
         raise AssertionError(f"{label}: a kernel outside the path launched: {counts}")
@@ -1144,8 +1240,74 @@ def check_sync_mode_is_live():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def run_aabb_evals():
-    """Phase 4: run_eval for ByteTrack, SFSORT and OC-SORT on both fixtures."""
+def cpu_job(kind, tracker, arg):
+    """A CPU reference of phases 4-5, run in a worker process while the card
+    works: for kind "eval", the MOT rows of ``run_eval`` of ``tracker`` on
+    fixture ``arg``; for "obb", the corner rows of ``run_eval_obb`` on
+    mmot-mini and the tracks of its replay; for "reid", the replay outputs of
+    the cache-fed config (``REID_PARAMS``) over the seeded caches under
+    ``arg`` (``reid_caches``), for OccluBoost with each sequence's gap rows
+    and resurrections from its final state."""
+    torch.set_num_threads(1)
+    if kind == "eval":
+        with tempfile.TemporaryDirectory() as tmp:
+            boxmot_tpu_torch.run_eval(ROOTS[arg], tracker, device="cpu", output_dir=Path(tmp))
+            return _mot_rows(Path(tmp))
+    if kind == "obb":
+        with tempfile.TemporaryDirectory() as tmp:
+            boxmot_tpu_torch.run_eval_obb(MMOT_ROOT, tracker, device="cpu", output_dir=Path(tmp))
+            rows = _mot_rows(Path(tmp))
+        cfg = build_replay_config(tracker, is_obb=True)
+        seqs = [{"dets": d} for d in mmot_obb_dets(MMOT_ROOT).values()]
+        return rows, replay_sequences_outputs(cfg, seqs, device="cpu")
+    cfg = build_replay_config(tracker, **REID_PARAMS.get(tracker, {}))
+    if tracker != "occluboost":
+        return replay_sequences_outputs(cfg, _reid_inputs(Path(arg)), device="cpu")
+    return [(o, m, occluboost.flush_gta_rows(st), int(st.resurrections.sum())) for o, m, st in
+            replay_sequences_outputs(cfg, _reid_inputs(Path(arg)), device="cpu", with_states=True)]
+
+
+# the cache-fed evals of phase 4b-d: tracker -> its replay config's parameters
+# (OccluBoost's of tests/test_emb_cache_eval.py: GTA on)
+REID_PARAMS = {"botsort": {}, "occluboost": {"gta_enabled": True, "max_age": 10,
+                                             "gta_min_track_length": 3},
+               "strongsort": {}, "hybridsort": {}}
+APPEARANCE_EVALS = ("strongsort", "hybridsort")
+CPU_WORKERS = 6
+
+
+def start_cpu_references(pool, cache_root: Path) -> dict:
+    """Submit every CPU reference of phases 4-5: the three longest first
+    (HybridSORT's and StrongSORT's cache-fed replays, StrongSORT's synth-long
+    eval, needed late), then the rest in the order the phases read them."""
+    jobs = {}
+
+    def submit(kind, tracker, arg, key=None):
+        jobs[kind, tracker, key] = pool.submit(cpu_job, kind, tracker, arg)
+
+    submit("reid", "hybridsort", str(cache_root))
+    submit("reid", "strongsort", str(cache_root))
+    submit("eval", "strongsort", "synth_long", "synth_long")
+    for name, tracker in sorted(PINNED):
+        if (name, tracker) != ("synth_long", "strongsort"):
+            submit("eval", tracker, name, name)
+    submit("reid", "botsort", str(cache_root))
+    submit("reid", "occluboost", str(cache_root))
+    for tracker in OBB_EVAL:
+        submit("obb", tracker, None)
+    return jobs
+
+
+def _cpu_result(cpu_jobs, key):
+    """A CPU reference's result, and the seconds the card waited for it."""
+    t0 = time.perf_counter()
+    return cpu_jobs[key].result(), time.perf_counter() - t0
+
+
+def run_aabb_evals(cpu_jobs):
+    """Phase 4: run_eval for the ten trackers on both fixtures, held to the
+    pins, with their MOT rows held against the same evals on the CPU (which
+    the workers of ``cpu_jobs`` made)."""
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         for (name, tracker), want in sorted(PINNED.items()):
@@ -1159,10 +1321,11 @@ def run_aabb_evals():
             for k, v in want.items():
                 if not abs(got[k] - v) <= ATOL:
                     raise AssertionError(f"{tracker} {name} {k} = {got[k]} misses the pin {v}")
-            # the card's MOT rows against the same eval on the CPU
-            cpu_dir = out / "cpu" / tracker / name
-            boxmot_tpu_torch.run_eval(ROOTS[name], tracker, device="cpu", output_dir=cpu_dir)
-            gpu, cpu = _mot_rows(out / "cuda" / tracker / name), _mot_rows(cpu_dir)
+            # the card's MOT rows against the same eval on the CPU (a worker's)
+            cpu, waited = _cpu_result(cpu_jobs, ("eval", tracker, name))
+            if waited > 0.05:
+                print(f"waited {waited:.1f} s for the cpu rows of {tracker} {name}")
+            gpu = _mot_rows(out / "cuda" / tracker / name)
             if gpu.keys() != cpu.keys() or not gpu:
                 raise AssertionError(f"{name}: cuda wrote {sorted(gpu)}, cpu wrote {sorted(cpu)}")
             for seq, g in gpu.items():
@@ -1173,8 +1336,9 @@ def run_aabb_evals():
                 box = float(np.abs(g[:, 2:6] - c[:, 2:6]).max(initial=0.0))
                 if not (np.isfinite(g).all() and box <= 1.0):  # boxes are whole pixels
                     raise AssertionError(f"{seq}: MOT boxes differ by {box} px between cuda and cpu")
+                host = " (a host tracker: equal by construction)" if tracker in HOST_TRACKERS else ""
                 print(f"{tracker} {seq} rows cuda vs cpu: {len(g)} rows, all equal: "
-                      f"{np.array_equal(g, c)}")
+                      f"{np.array_equal(g, c)}{host}")
                 if tracker in BIT_EQUAL_EVALS and not np.array_equal(g, c):
                     raise AssertionError(f"{tracker} {seq}: MOT rows not bit-equal to the CPU's")
 
@@ -1210,93 +1374,51 @@ def _replay_metrics(outputs) -> dict:
     return {k: float(c[k]) for k in ("HOTA", "MOTA", "IDF1")}
 
 
-def run_reid_eval():
-    """Phase 4b: BoT-SORT's run_eval with ``reid`` and ``cmc_method`` over
-    seeded synth-long embedding and warp caches, held to the same replay on
-    the CPU (metrics equal; ids, masks, conf, cls and det_ind exact, boxes
-    within 1e-4 px); and the smallest margin between an appearance distance
-    of the card's run and its threshold (the card's product sums in another
-    order than the CPU's)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = reid_caches(Path(tmp) / "cache")
-        kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc")
-        t0 = time.perf_counter()
-        res = drive("run_eval botsort synth_long reid + cmc", lambda: boxmot_tpu_torch.run_eval(
-            ROOTS["synth_long"], "botsort", device="cuda", **kw), RATIOS["botsort"][0])
-        seconds = time.perf_counter() - t0
-        cfg = build_replay_config("botsort")
-        seqs = _reid_inputs(root)
-    with measure.record_calls(botsort, ["appearance_distance"]) as rec:
-        gpu = replay_sequences_outputs(cfg, seqs, device="cuda")
-    cpu = replay_sequences_outputs(cfg, seqs, device="cpu")
-    got = {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
-    want = _replay_metrics(cpu)
-    print(f"eval botsort synth_long with embeddings and warps on cuda: {got} in "
-          f"{seconds:.3f} s (cpu replay {want})")
-    if got != want:
-        raise AssertionError("BoT-SORT with embeddings and warps: cuda metrics differ from cpu")
-    for (go, gm), (co, cm) in zip(gpu, cpu):
-        box = float(np.abs(go[gm][:, :4] - co[cm][:, :4]).max(initial=0.0))
-        if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, 4:], co[cm][:, 4:])
-                and box <= 1e-4):
-            raise AssertionError(f"BoT-SORT with embeddings: tracks differ cuda vs cpu (box {box})")
-    thr, scale = cfg.appearance_thresh, cfg.unconfirmed_emb_scale
-    margin = min(float(torch.minimum(torch.abs(d - thr), torch.abs(d / scale - thr)).min())
-                 for d in (botsort.appearance_distance(*a) for a, _ in rec["appearance_distance"]))
-    rows = sum(int(m.sum()) for _, m in gpu)
-    print(f"BoT-SORT with embeddings replay tracks cuda vs cpu: {rows} rows, masks, ids, "
-          f"conf, cls, det_ind equal, max box diff {box:.3g} px; smallest margin of an appearance "
-          f"distance to its threshold over {len(rec['appearance_distance'])} steps: {margin:.3g}")
-
-
-# OccluBoost's cache-fed configuration of tests/test_emb_cache_eval.py: GTA on
-GTA_PARAMS = {"gta_enabled": True, "max_age": 10, "gta_min_track_length": 3}
-
-
-def run_occluboost_gta_eval():
+def run_occluboost_gta_eval(root: Path, cpu_jobs):
     """Phase 4c: OccluBoost's run_eval over the seeded synth-long embedding
-    (512-d) and warp caches with GTA on (``GTA_PARAMS``), against the same
-    replay on the CPU (metrics equal; ids, masks, cls and det_ind exact,
-    boxes and conf within 1e-4) and a motion-only run, which must differ;
-    the graveyard resurrections and gap rows of the final states
+    (512-d) and warp caches under ``root`` with GTA on
+    (``REID_PARAMS["occluboost"]``), against the same replay on the CPU (a
+    worker's; metrics equal; ids, masks, cls and det_ind exact, boxes and
+    conf within 1e-4) and a motion-only run, which must differ; the
+    graveyard resurrections and gap rows of the final states
     (``flush_gta_rows``), and the smallest margin between a similarity of
     the card's run and an appearance gate."""
-    cfg = build_replay_config("occluboost", **GTA_PARAMS)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = reid_caches(Path(tmp) / "cache")
-        kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc",
-                  tracker_params=GTA_PARAMS)
-        t0 = time.perf_counter()
-        res = drive("run_eval occluboost synth_long reid + cmc + GTA",
-                    lambda: boxmot_tpu_torch.run_eval(ROOTS["synth_long"], "occluboost",
-                                                      device="cuda", **kw), boost_ratio(cfg))
-        seconds = time.perf_counter() - t0
-        motion = boxmot_tpu_torch.run_eval(
-            ROOTS["synth_long"], "occluboost", device="cuda",
-            **{**kw, "tracker_params": {**GTA_PARAMS, "with_reid": False}})
-        seqs = _reid_inputs(root)
+    params = REID_PARAMS["occluboost"]
+    cfg = build_replay_config("occluboost", **params)
+    kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc",
+              tracker_params=params)
+    t0 = time.perf_counter()
+    res = drive("run_eval occluboost synth_long reid + cmc + GTA",
+                lambda: boxmot_tpu_torch.run_eval(ROOTS["synth_long"], "occluboost",
+                                                  device="cuda", **kw), boost_ratio(cfg))
+    seconds = time.perf_counter() - t0
+    motion = boxmot_tpu_torch.run_eval(
+        ROOTS["synth_long"], "occluboost", device="cuda",
+        **{**kw, "tracker_params": {**params, "with_reid": False}})
     with measure.record_calls(occluboost, ["emb_products"]) as rec:
-        gpu = replay_sequences_outputs(cfg, seqs, device="cuda", with_states=True)
-    cpu = replay_sequences_outputs(cfg, seqs, device="cpu", with_states=True)
+        gpu = replay_sequences_outputs(cfg, _reid_inputs(root), device="cuda", with_states=True)
+    cpu, waited = _cpu_result(cpu_jobs, ("reid", "occluboost", None))
     got, want, plain = ({k: float(r["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
                         for r in (res, {"combined": _replay_metrics(cpu)}, motion))
     print(f"eval occluboost synth_long with embeddings, warps and GTA on cuda: {got} in "
-          f"{seconds:.3f} s (cpu replay {want}; motion-only {plain})")
+          f"{seconds:.3f} s (cpu replay {want}, waited {waited:.1f} s for it; motion-only "
+          f"{plain})")
     if got != want:
         raise AssertionError("OccluBoost with GTA: cuda metrics differ from cpu")
     if got == plain:
         raise AssertionError("OccluBoost with GTA: the same metrics as the motion-only run")
     resurrected = gap_rows = 0
-    for (go, gm, gs), (co, cm, cs) in zip(gpu, cpu):
+    for (go, gm, gs), (co, cm, rows_c, resurrected_c) in zip(gpu, cpu):
         box = float(np.abs(go[gm][:, :4] - co[cm][:, :4]).max(initial=0.0))
         conf = float(np.abs(go[gm][:, 5] - co[cm][:, 5]).max(initial=0.0))
         exact = [4, 6, 7]  # id, cls, det_ind
         if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, exact], co[cm][:, exact])
                 and box <= 1e-4 and conf <= 1e-4):
             raise AssertionError(f"OccluBoost with GTA: tracks differ cuda vs cpu (box {box})")
-        rows_g, rows_c = occluboost.flush_gta_rows(gs), occluboost.flush_gta_rows(cs)
-        if rows_g.shape != rows_c.shape or not np.array_equal(rows_g[:, :2], rows_c[:, :2]):
-            raise AssertionError("OccluBoost with GTA: gap rows differ cuda vs cpu")
+        rows_g = occluboost.flush_gta_rows(gs)
+        if (rows_g.shape != rows_c.shape or not np.array_equal(rows_g[:, :2], rows_c[:, :2])
+                or int(gs.resurrections.sum()) != resurrected_c):
+            raise AssertionError("OccluBoost with GTA: gap rows or resurrections differ cuda vs cpu")
         resurrected += int(gs.resurrections.sum())
         gap_rows += len(rows_g)
     if resurrected == 0:
@@ -1313,23 +1435,110 @@ def run_occluboost_gta_eval():
           f"{margin:.3g}")
 
 
-def run_obb_evals():
-    """Phase 5: run_eval_obb for ByteTrack, SFSORT and OC-SORT on mmot-mini."""
+class _Outputs:
+    """Within the block, ``module.<name>`` (a function of a step whose output
+    nothing writes to afterwards) keeps each of its outputs in ``self.outs``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.outs = module, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name,
+                lambda *a, **k: self.outs.append(real(*a, **k)) or self.outs[-1])
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _appearance_margin(tracker, cfg, seqs):
+    """The card's replay outputs of ``cfg`` over ``seqs`` and the smallest
+    margin of an appearance distance to the decision it feeds: BoT-SORT's to
+    its appearance threshold (scaled and not), StrongSORT's fused cost of a
+    gated pair to ``max_cos_dist``, HybridSORT's EMA-feature distance to the
+    long-term correction's threshold.  Returns (outputs, margin, what, n)."""
+    if tracker == "botsort":
+        with _Outputs(botsort, "appearance_distance") as dist:
+            gpu = replay_sequences_outputs(cfg, seqs, device="cuda")
+        thr, scale = cfg.appearance_thresh, cfg.unconfirmed_emb_scale
+        margin = min(float(torch.minimum(torch.abs(d - thr), torch.abs(d / scale - thr)).min())
+                     for d in dist.outs)
+        return gpu, margin, "an appearance distance to its threshold", len(dist.outs)
+    if tracker == "strongsort":
+        with _Outputs(strongsort, "appearance_cost") as app, _Outputs(kalman, "gating_distance") as gate:
+            gpu = replay_sequences_outputs(cfg, seqs, device="cuda")
+        gated = [torch.abs(cfg.mc_lambda * a + (1 - cfg.mc_lambda) * g - cfg.max_cos_dist)[
+            (g <= strongsort.CHI2_4) & (a < strongsort.INFTY)] for a, g in zip(app.outs, gate.outs)]
+        margin = min(float(d.min()) for d in gated if d.numel())
+        return gpu, margin, "a gated pair's fused cost to max_cos_dist", len(app.outs)
+    # the EMA features' distances only, not the long-term features'
+    with _Outputs(hybridsort, "_emb_dist") as emb, _Outputs(hybridsort, "_longterm_dist") as lt:
+        gpu = replay_sequences_outputs(cfg, seqs, device="cuda")
+    longterm = {id(x) for x in lt.outs}
+    dists = [e for e in emb.outs if id(e) not in longterm]
+    thr = cfg.longterm_reid_correction_thresh
+    margin = min(float(torch.abs(e - thr).min()) for e in dists)
+    return gpu, margin, "an EMA feature's distance to the correction threshold", len(dists)
+
+
+def run_appearance_eval(tracker, root: Path, cpu_jobs):
+    """Phases 4b and 4d: BoT-SORT's, StrongSORT's or HybridSORT's run_eval
+    with ``reid`` and ``cmc_method`` over the seeded synth-long caches under
+    ``root`` (512-d), against the same replay on the CPU (a worker's):
+    metrics equal, masks, ids, conf, cls and det_ind exact, boxes within 1e-4
+    px; and the smallest margin of an appearance distance to the decision it
+    feeds (``_appearance_margin``), since the card's products sum in another
+    order than the CPU's."""
+    kw = dict(cache_root=root, detector=REID_DETECTOR, reid=REID, cmc_method="ecc")
+    cfg = build_replay_config(tracker)
+    ratio = hybrid_ratio(cfg) if tracker == "hybridsort" else RATIOS[tracker][0]
+    t0 = time.perf_counter()
+    res = drive(f"run_eval {tracker} synth_long reid + cmc", lambda: boxmot_tpu_torch.run_eval(
+        ROOTS["synth_long"], tracker, device="cuda", **kw), ratio)
+    seconds = time.perf_counter() - t0
+    gpu, margin, what, n = _appearance_margin(tracker, cfg, _reid_inputs(root))
+    cpu, waited = _cpu_result(cpu_jobs, ("reid", tracker, None))
+    got = {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
+    want = _replay_metrics(cpu)
+    print(f"eval {tracker} synth_long with embeddings and warps on cuda: {got} in {seconds:.3f} s "
+          f"(cpu replay {want}, waited {waited:.1f} s for it)")
+    if got != want:
+        raise AssertionError(f"{tracker} with embeddings and warps: cuda metrics differ from cpu")
+    worst = 0.0
+    for (go, gm), (co, cm) in zip(gpu, cpu):
+        box = float(np.abs(go[gm][:, :4] - co[cm][:, :4]).max(initial=0.0))
+        worst = max(worst, box)
+        if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, 4:], co[cm][:, 4:])
+                and box <= 1e-4):
+            raise AssertionError(f"{tracker} with embeddings: tracks differ cuda vs cpu (box {box})")
+    rows = sum(int(m.sum()) for _, m in gpu)
+    print(f"{tracker} with embeddings replay tracks cuda vs cpu: {rows} rows, masks, ids, conf, "
+          f"cls, det_ind equal, max box diff {worst:.3g} px; smallest margin of {what} over {n} "
+          f"products: {margin:.3g}")
+
+
+def run_obb_evals(cpu_jobs):
+    """Phase 5: run_eval_obb for ByteTrack, SFSORT, OC-SORT, BoT-SORT and
+    OccluBoost on mmot-mini, held to the JAX values, with the corner rows and
+    the replay's tracks held against the CPU's (a worker's)."""
     dets = mmot_obb_dets(MMOT_ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         for tracker, want in OBB_EVAL.items():
-            out = {d: Path(tmp) / tracker / d for d in ("cuda", "cpu")}
+            out = Path(tmp) / tracker
             t0 = time.perf_counter()
             res = drive(f"run_eval_obb {tracker}", lambda: boxmot_tpu_torch.run_eval_obb(
-                MMOT_ROOT, tracker, device="cuda", output_dir=out["cuda"]), RATIOS[tracker][1])
+                MMOT_ROOT, tracker, device="cuda", output_dir=out), RATIOS[tracker][1])
             seconds = time.perf_counter() - t0
             got = {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
             print(f"eval_obb {tracker} mmot-mini on cuda: {got} in {seconds:.3f} s (JAX {want})")
             for k, v in want.items():
                 if not abs(got[k] - v) <= ATOL:
                     raise AssertionError(f"OBB {tracker} {k} = {got[k]} misses the JAX value {v}")
-            boxmot_tpu_torch.run_eval_obb(MMOT_ROOT, tracker, device="cpu", output_dir=out["cpu"])
-            gpu, cpu = _mot_rows(out["cuda"]), _mot_rows(out["cpu"])
+            (cpu, cpu_tracks), waited = _cpu_result(cpu_jobs, ("obb", tracker, None))
+            if waited > 0.05:
+                print(f"waited {waited:.1f} s for the cpu rows of OBB {tracker}")
+            gpu = _mot_rows(out)
             for seq, g in gpu.items():
                 c = cpu[seq]
                 keys = [0, 1, 10, 11]  # frame, id, conf, cls
@@ -1344,7 +1553,7 @@ def run_obb_evals():
             cfg = build_replay_config(tracker, is_obb=True)  # BoT-SORT: with_reid, zero embeddings
             seqs = [{"dets": d} for d in dets.values()]
             for (go, gm), (co, cm) in zip(replay_sequences_outputs(cfg, seqs, device="cuda"),
-                                          replay_sequences_outputs(cfg, seqs, device="cpu")):
+                                          cpu_tracks):
                 box = float(np.abs(go[gm][:, :5] - co[cm][:, :5]).max(initial=0.0))
                 if not (np.array_equal(gm, cm) and np.array_equal(go[gm][:, 5:], co[cm][:, 5:])
                         and box <= OBB_BOX_TOL):
@@ -1490,19 +1699,20 @@ def run_live_crowded():
           f"largest det_ind {int(g[:, 7].max())}")
 
 
-def _bench(label, cfg, frames_fn, det_cols, card, launches=6, miss=None):
-    """frames/s of batch_replay at the bench shape; a distinct seeded input
-    per launch, the first launch a warm-up.  With ``miss`` (a float) the
-    inputs are ``appearance_batch``'s (embeddings and warps made on the card,
-    that share of detections missed) and ``frames_fn`` is unused.  Returns
-    the last launch's input (batch, embs, warps)."""
+def _bench(label, cfg, frames_fn, det_cols, card, launches=6, miss=None, n_frames=N_FRAMES):
+    """frames/s of batch_replay at the bench shape (``n_frames`` frames a
+    sequence); a distinct seeded input per launch, the first launch a
+    warm-up.  With ``miss`` (a float) the inputs are ``appearance_batch``'s
+    (embeddings and warps made on the card, that share of detections missed)
+    and ``frames_fn`` is unused.  Returns the last launch's input (batch,
+    embs, warps)."""
     batches = []
     for v in range(launches):
         if miss is not None:
-            batches.append(appearance_batch(N_SEQS, N_FRAMES, N_DETS, v * N_SEQS, miss, "cuda"))
+            batches.append(appearance_batch(N_SEQS, n_frames, N_DETS, v * N_SEQS, miss, "cuda"))
             continue
-        packed = [pack_frames(frames_fn(N_FRAMES, N_DETS, seed=v * N_SEQS + s), D=D_BENCH,
-                              F=N_FRAMES, det_cols=det_cols)[0] for s in range(N_SEQS)]
+        packed = [pack_frames(frames_fn(n_frames, N_DETS, seed=v * N_SEQS + s), D=D_BENCH,
+                              F=n_frames, det_cols=det_cols)[0] for s in range(N_SEQS)]
         batches.append((torch.from_numpy(np.stack(packed)).cuda(), None, None))
     ms, capped, replayed = [], 0, []
     for i, (b, embs, warps) in enumerate(batches):
@@ -1519,9 +1729,9 @@ def _bench(label, cfg, frames_fn, det_cols, card, launches=6, miss=None):
             replayed.append(int(states.oru_replayed.sum()))
         if i:
             ms.append(start.elapsed_time(end))
-    fps = N_SEQS * N_FRAMES / (statistics.median(ms) / 1e3)
+    fps = N_SEQS * n_frames / (statistics.median(ms) / 1e3)
     line = {"metric": f"{label}_replay_fps_{N_DETS}dets", "value": fps, "unit": "frames/s",
-            "shape": [N_SEQS, N_FRAMES, N_DETS, D_BENCH, CAPACITY], "launch_ms": ms,
+            "shape": [N_SEQS, n_frames, N_DETS, D_BENCH, CAPACITY], "launch_ms": ms,
             "lap_capped": capped, "card": card}
     if replayed:
         line["oru_slots_replayed"] = replayed
@@ -1592,7 +1802,12 @@ def time_ecc(card):
     print(json.dumps(line))
 
 
-def run_throughput(card):
+# the depth of the bench lines of earlier slices (frames a sequence), cut from
+# N_FRAMES to make room for StrongSORT's and HybridSORT's within the run's time
+EARLIER_FRAMES = 128
+
+
+def run_throughput(card, lap):
     """Phase 7: the AABB and OBB ByteTrack bench lines, the OC-SORT AABB
     line with MISS of the detections missed and its step profile, the
     BoT-SORT AABB line (embeddings and warps) and its step profile, the
@@ -1600,36 +1815,56 @@ def run_throughput(card):
     K4 replayed and its step profile, the BoostTrack AABB line (the YAML
     tier, embeddings and warps) and the OccluBoost AABB line
     (``OccluBoostConfig()``, as bench.py runs it, with 512-d embeddings and
-    warps) with their step profiles, and ECC's cost a frame."""
+    warps) with their step profiles, all at EARLIER_FRAMES frames a
+    sequence; ECC's cost a frame; then the StrongSORT and HybridSORT AABB
+    lines at N_FRAMES (their YAML tiers, 512-d embeddings and warps,
+    HybridSORT with MISS missed so that K4 replays) with their step
+    profiles."""
+    n = EARLIER_FRAMES
     drive("bench bytetrack AABB", lambda: _bench(
-        "bytetrack", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, card, launches=3),
-        RATIOS["bytetrack"][0], sync_free=False)
+        "bytetrack", ByteTrackConfig(capacity=CAPACITY), synthetic_frames, 6, card, launches=2,
+        n_frames=n), RATIOS["bytetrack"][0], sync_free=False)
     drive("bench bytetrack OBB", lambda: _bench(
         "bytetrack_obb", ByteTrackConfig(capacity=CAPACITY, is_obb=True),
-        lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, card, launches=2),
-        RATIOS["bytetrack"][1], sync_free=False)
+        lambda n, d, seed: synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7, card, launches=2,
+        n_frames=n), RATIOS["bytetrack"][1], sync_free=False)
     inputs = drive("bench ocsort AABB", lambda: _bench(
-        "ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, card, launches=2),
-        RATIOS["ocsort"][0], sync_free=False)
+        "ocsort", OcSortConfig(capacity=CAPACITY), synthetic_frames_missed, 6, card, launches=2,
+        n_frames=n), RATIOS["ocsort"][0], sync_free=False)
     profile_step("ocsort", OcSortConfig(capacity=CAPACITY), card, inputs)
+    lap("phase 7a (ByteTrack and OC-SORT lines)")
     cfg = build_replay_config("botsort", capacity=CAPACITY)
     inputs = drive("bench botsort AABB", lambda: _bench(
-        "botsort", cfg, None, 6, card, launches=2, miss=0.0), RATIOS["botsort"][0], sync_free=False)
+        "botsort", cfg, None, 6, card, launches=2, miss=0.0, n_frames=n), RATIOS["botsort"][0],
+        sync_free=False)
     profile_step("botsort", cfg, card, inputs)
     del inputs
+    lap("phase 7b (botsort line)")
     cfg = build_replay_config("deepocsort", capacity=CAPACITY)
     inputs = drive("bench deepocsort AABB", lambda: _bench(
-        "deepocsort", cfg, None, 6, card, launches=2, miss=MISS), RATIOS["deepocsort"][0],
-        sync_free=False)
+        "deepocsort", cfg, None, 6, card, launches=2, miss=MISS, n_frames=n),
+        RATIOS["deepocsort"][0], sync_free=False)
     profile_step("deepocsort", cfg, card, inputs)
     del inputs
+    lap("phase 7b (deepocsort line)")
     for label, cfg in (("boosttrack", build_replay_config("boosttrack", capacity=CAPACITY)),
                        ("occluboost", OccluBoostConfig(capacity=CAPACITY))):
         inputs = drive(f"bench {label} AABB", lambda: _bench(
-            label, cfg, None, 6, card, launches=2, miss=0.0), boost_ratio(cfg), sync_free=False)
+            label, cfg, None, 6, card, launches=2, miss=0.0, n_frames=n), boost_ratio(cfg),
+            sync_free=False)
         profile_step(label, cfg, card, inputs)
         del inputs
+        lap(f"phase 7b ({label} line)")
     time_ecc(card)
+    lap("phase 7b (ECC)")
+    for label, miss in (("strongsort", 0.0), ("hybridsort", MISS)):
+        cfg = build_replay_config(label, capacity=CAPACITY)
+        ratio = RATIOS["strongsort"][0] if label == "strongsort" else hybrid_ratio(cfg)
+        inputs = drive(f"bench {label} AABB", lambda: _bench(
+            label, cfg, None, 6, card, launches=2, miss=miss), ratio, sync_free=False)
+        profile_step(label, cfg, card, inputs)
+        del inputs
+        lap(f"phase 7c ({label} line)")
 
 
 def build_kernels():
@@ -1644,41 +1879,30 @@ def build_kernels():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (wall, in parallel)")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
-              file=sys.stderr)
-        return 1
-    t_start = time.perf_counter()
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {kind}")
-    print(f"nvidia-smi: {smi}")
-    build_kernels()
-
-    def lap(label):
-        print(f"{label} done at {time.perf_counter() - t_start:.1f} s")
-
+def run_phases(lap, smi, cpu_jobs, cache_root):
+    """Phases 3-7; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
     step_calls = bench_step_calls()
     checks = {"fused_iou_cost": check_k1(rng, step_calls),
               "masked_assignment": check_k2(rng, step_calls),
-              "rotated_iou": check_k3(rng, step_calls),
-              "oru_replay": check_k4(rng, step_calls)}
+              "rotated_iou": check_k3(rng, step_calls)}
+    checks["oru_replay"], xyscr_rows = check_k4(rng, step_calls)
     del step_calls
     check_kalman_obb(rng)
     lap("phase 3 (kernels against their twins)")
 
     check_sync_mode_is_live()
-    run_aabb_evals()
+    run_aabb_evals(cpu_jobs)
     lap("phase 4a (pinned evals)")
-    run_reid_eval()
-    run_occluboost_gta_eval()
+    run_appearance_eval("botsort", cache_root, cpu_jobs)
+    run_occluboost_gta_eval(cache_root, cpu_jobs)
     lap("phase 4b-c (cache-fed evals)")
-    run_obb_evals()
+    for tracker in APPEARANCE_EVALS:
+        run_appearance_eval(tracker, cache_root, cpu_jobs)
+    lap("phase 4d (StrongSORT and HybridSORT cache-fed evals)")
+    run_obb_evals(cpu_jobs)
     lap("phase 5 (OBB evals)")
-    for tracker in ("bytetrack", "ocsort"):
+    for tracker in ("bytetrack", "ocsort", "sam2mot"):
         drive(f"live {tracker} AABB", lambda: run_live(tracker), RATIOS[tracker][0],
               sync_free=False)
     for tracker in ("bytetrack", "sfsort", "ocsort", "botsort", "occluboost"):
@@ -1694,16 +1918,56 @@ def main() -> int:
         drive(f"live {tracker} ECC", lambda: run_live_cmc(tracker, 6, cmc_method="ecc",
                                                           conf_rtol=1e-5),
               RATIOS[tracker][0], sync_free=False)
+    # the live YAML tiers: StrongSORT always, HybridSORT with ReID on
+    for tracker, ratio in (("strongsort", RATIOS["strongsort"][0]),
+                           ("hybridsort", hybrid_ratio(build_replay_config("hybridsort")))):
+        drive(f"live {tracker} ECC + embeddings", lambda: run_live_cmc(tracker, 8, True), ratio,
+              sync_free=False)
     drive("live bytetrack 300 detections", run_live_crowded, RATIOS["bytetrack"][0],
           sync_free=False)
     lap("phase 6 (live)")
-    run_throughput(smi)
+    run_throughput(smi, lap)
+    return checks, xyscr_rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+
+    def lap(label):
+        print(f"{label} done at {time.perf_counter() - t_start:.1f} s")
+
+    # the CPU references of phases 4-5, in worker processes that run beside
+    # phases 2-5 (spawned, so that no worker inherits the card's context);
+    # the pool is shut down on the way out, failure or not
+    import multiprocessing
+
+    with contextlib.ExitStack() as stack:
+        cache_root = reid_caches(Path(stack.enter_context(tempfile.TemporaryDirectory())) / "cache")
+        pool = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        stack.callback(pool.shutdown, wait=True, cancel_futures=True)
+        cpu_jobs = start_cpu_references(pool, cache_root)
+        kind = torch.cuda.get_device_name(0)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[0]
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {kind}")
+        print(f"nvidia-smi: {smi}")
+        build_kernels()
+        checks, xyscr_rows = run_phases(lap, smi, cpu_jobs, cache_root)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     for name, c in checks.items():
         print(f"wrapper ms {name}: {c['wrapper_ms']:.5f} (CUDA events around one call of the "
               f"wrapper, host work included)")
+    print(json.dumps({"k4_xyscr": [
+        {"set": label, "ms": r[0], "wrapper_ms": r[1], "plain_ms": r[2], "bound_ms": r[3],
+         "bound_by": r[4]} for label, r in xyscr_rows]}))
     # library_ms: no single PyTorch call computes any of the four functions
     kernels = [
         {"name": name, "route": "cuda", "source": f"boxmot_tpu_torch/csrc/{src}.cu",

@@ -162,10 +162,14 @@ def test_live_update_equals_jax(per_class):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(ValueError, match="Slice 4"):
-        create_tracker("strongsort", device="cpu")
-    with pytest.raises(ValueError, match="Slice 4"):
-        create_tracker("hybridsort", device="cpu")
+    """Every tracker of the JAX zoo resolves; any other name raises."""
+    from boxmot_tpu.trackers.zoo import TRACKER_MAPPING
+    from boxmot_tpu_torch.trackers.zoo import PORTED
+
+    assert sorted(PORTED) == sorted(TRACKER_MAPPING) and len(PORTED) == 10
+    for name in PORTED:
+        cls = TRACKER_MAPPING[name].rsplit(".", 1)[1]
+        assert type(create_tracker(name, device="cpu")).__name__ == cls
     with pytest.raises(ValueError, match="Unknown tracker"):
         create_tracker("nosuch", device="cpu")
     with pytest.raises(AssertionError):

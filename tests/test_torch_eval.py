@@ -103,9 +103,8 @@ def test_chip_smoke_pins_equal_the_suite_pins():
 
     from tests.test_torch_occluboost import JAX_OBB_EVAL as OCCLUBOOST_OBB_EVAL
 
-    assert chip_smoke.PINNED == {k: v for k, v in PINNED.items()
-                                 if k[1] in ("bytetrack", "sfsort", "ocsort", "botsort",
-                                             "deepocsort", "boosttrack", "occluboost")}
+    assert chip_smoke.PINNED == {k: v for k, v in PINNED.items() if ":" not in k[1]}
+    assert len(chip_smoke.PINNED) == 20
     assert chip_smoke.OBB_EVAL == {**JAX_OBB_EVAL, "occluboost": OCCLUBOOST_OBB_EVAL}
     assert chip_smoke.ATOL == ATOL
 
@@ -137,7 +136,7 @@ def test_chip_smoke_synthetic_frames_equal_bench():
 
 def test_mirrored_defaults_and_configs_equal_jax():
     for name in ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort", "boosttrack",
-                 "occluboost"):
+                 "occluboost", "strongsort", "hybridsort", "sam2mot"):
         assert get_tracker_defaults(name) == jax_defaults(name), name
     assert get_tracker_defaults("nosuch") == jax_defaults("nosuch") == {}
     for params in ({}, {"match_thresh": 0.7, "max_time_lost": 40, "track_buffer": 5}):
@@ -146,8 +145,14 @@ def test_mirrored_defaults_and_configs_equal_jax():
     cfg = build_replay_config("bytetrack")
     # YAML keys that are not fields are dropped: the replay keeps 0.45 and 25
     assert (cfg.track_thresh, cfg.match_thresh, cfg.det_thresh, cfg.max_time_lost) == (0.6, 0.9, 0.45, 25)
-    with pytest.raises(ValueError, match="Slice"):
-        build_replay_config("strongsort")
+    for name in ("strongsort", "hybridsort"):
+        assert dataclasses.asdict(build_replay_config(name)) == \
+            dataclasses.asdict(jax_build_replay_config(name))
+    # a host tracker has no replay config, and an unknown name none either
+    with pytest.raises(ValueError, match="No replay config"):
+        build_replay_config("sam2mot")
+    with pytest.raises(ValueError, match="Unknown tracker"):
+        build_replay_config("nosuch")
 
 
 def test_pack_frames_and_buckets_equal_jax():
@@ -181,10 +186,12 @@ def test_unpack_mot_rows_equals_jax():
 
 def test_port_import_and_eval_leave_jax_out():
     """The port, driven through its evals (ByteTrack, SFSORT OBB, OC-SORT,
-    BoT-SORT, BoT-SORT OBB, DeepOCSORT, BoostTrack, OccluBoost) and its live
-    API (ByteTrack, OC-SORT, BoT-SORT with its default SOF and with ECC,
-    DeepOCSORT with ECC and embeddings, BoostTrack with ECC, OccluBoost with
-    its default SOF), loads neither JAX nor any module of the JAX package."""
+    BoT-SORT, BoT-SORT OBB, DeepOCSORT, BoostTrack, OccluBoost, StrongSORT,
+    HybridSORT, sam2mot) and its live API (ByteTrack, OC-SORT, BoT-SORT with
+    its default SOF and with ECC, DeepOCSORT with ECC and embeddings,
+    BoostTrack with ECC, OccluBoost with its default SOF, StrongSORT and
+    HybridSORT with ECC and embeddings, sam2mot), loads neither JAX nor any
+    module of the JAX package."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
@@ -206,13 +213,22 @@ def test_port_import_and_eval_leave_jax_out():
         "assert abs(res['combined']['HOTA'] - 0.649366) <= 1e-4\n"
         "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'occluboost', device='cpu')\n"
         "assert abs(res['combined']['HOTA'] - 0.649804) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'strongsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.466670) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'hybridsort', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.653064) <= 1e-4\n"
+        "res = boxmot_tpu_torch.run_eval('assets/MOT17-mini/train', 'sam2mot', device='cpu')\n"
+        "assert abs(res['combined']['HOTA'] - 0.658509) <= 1e-4\n"
         "dets = np.array([[10, 10, 50, 90, 0.9, 0], [200, 40, 260, 160, 0.8, 2]], np.float32)\n"
         "embs = np.random.default_rng(0).normal(size=(2, 512)).astype(np.float32)\n"
         "img = np.random.default_rng(1).integers(0, 255, (480, 640, 3)).astype(np.uint8)\n"
         "for name, kw in (('bytetrack', {}), ('ocsort', {}), ('botsort', {}),\n"
         "                 ('botsort', {'cmc_method': 'ecc', 'per_class': False}),\n"
         "                 ('deepocsort', {'per_class': False}),\n"
-        "                 ('boosttrack', {'per_class': False}), ('occluboost', {})):\n"
+        "                 ('boosttrack', {'per_class': False}), ('occluboost', {}),\n"
+        "                 ('strongsort', {'per_class': False, 'min_conf': 0.1}),\n"
+        "                 ('hybridsort', {'per_class': False, 'min_hits': 3}),\n"
+        "                 ('sam2mot', {'min_hits': 3})):\n"
         "    trk = boxmot_tpu_torch.create_tracker(name, device='cpu', **{'per_class': True, **kw})\n"
         "    for _ in range(3):\n"
         "        out = trk.update(dets, img, embs if name != 'bytetrack' else None)\n"

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host modules against the originals.
 
-The port keeps copies of the dataset readers, the MOT row writer, the
-result type, the per-class id allocator and the HOTA/CLEAR/Identity metric
-stack, so that it imports nothing of ``boxmot_tpu``.  Here the same inputs
+The port keeps copies of the dataset readers, the caches' loaders (the
+segmentation mask cache among them), the MOT row writer, the result type,
+the per-class id allocator, the HOTA/CLEAR/Identity metric stack and the
+host tracker sam2mot, so that it imports nothing of ``boxmot_tpu``.  Here the same inputs
 go through each copy and its original, and the outputs must be identical:
 every metric, to the bit, on MOT17-mini and on mmot-mini.
 """
@@ -230,3 +231,42 @@ def test_host_cmc_copies_equal_jax(name):
         np.testing.assert_array_equal(got, want)
         moved += int(np.abs(got[:, 2] - (-5.0, -3.0)).max() < 1.5)  # the camera's step
     assert moved >= 2
+
+
+def test_mask_cache_equals_jax(tmp_path):
+    """The mask cache's path, packing, unpacking and per-frame loading."""
+    rng = np.random.default_rng(3)
+    masks = rng.uniform(size=(5, 120, 200)) < 0.3
+    assert tcache.MASK_SIDE == jcache.MASK_SIDE
+    assert tcache.mask_cache_path(tmp_path, "det", "S1") == jcache.mask_cache_path(tmp_path, "det", "S1")
+    rows = [m.pack_masks(3, masks) for m in (tcache, jcache)]
+    assert_identical(rows[0], rows[1])
+    assert_identical(tcache.pack_masks(1, masks[:0]), jcache.pack_masks(1, masks[:0]))
+    for hw in ((120, 200), (37, 51)):
+        assert_identical(tcache.unpack_masks(rows[0], hw), jcache.unpack_masks(rows[0], hw))
+    path = tmp_path / "m.npy"
+    np.save(path, np.concatenate([rows[0], jcache.pack_masks(1, masks[:2])]))
+    got, want = (m.load_cached_masks_per_frame(path, 4, (120, 200)) for m in (tcache, jcache))
+    assert_identical(got, want)
+    assert [len(g) for g in got] == [2, 0, 5, 0]
+
+
+def test_sam2mot_is_a_copy_of_the_original():
+    """The port's sam2mot.py is the JAX module below its docstring, but for
+    the imports of the port's base and result type and the ``device``
+    argument it takes and ignores."""
+    import inspect
+
+    from boxmot_tpu.trackers import sam2mot as jsam
+    from boxmot_tpu_torch.trackers import sam2mot as tsam
+
+    def body(module):
+        src = inspect.getsource(module)
+        return src[src.index("from __future__"):].splitlines()
+
+    want = [line.replace("from boxmot_tpu.", "from boxmot_tpu_torch.") for line in body(jsam)]
+    got = body(tsam)
+    extra = [line for line in got if line not in want]
+    assert extra == ["        device=None,",
+                     '            device="cpu",  # a host tracker: ``device`` is taken and ignored']
+    assert [line for line in got if line not in extra] == want

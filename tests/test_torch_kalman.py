@@ -1,5 +1,6 @@
-"""The port's Kalman bank (XYAH, and XYHR with OccluBoost's gain scale)
-against the JAX bank and the float64 oracle.
+"""The port's Kalman bank (XYAH with and without NSA, the gate, XYSCR, and
+XYHR with OccluBoost's gain scale) against the JAX bank and the float64
+oracle.
 
 The same numpy tracks and measurements go through ``boxmot_tpu.motion.kalman``
 and ``boxmot_tpu_torch.motion.kalman``.  The predict's transition products
@@ -58,7 +59,9 @@ def test_motion_matrix_mirrors_jax():
     assert tk._cv_motion_mat(4) == jk._cv_motion_mat(4)
     tl, jl = tk.make_xyah_layout(), jk.make_xyah_layout()
     assert (tl.dx, tl.dz, tl.motion_mat) == (jl.dx, jl.dz, jl.motion_mat)
-    assert not jl.nsa  # the port's bank has no NSA option
+    assert tl.nsa == jl.nsa is False
+    tn, jn = tk.make_xyah_layout(nsa=True), jk.make_xyah_layout(nsa=True)
+    assert (tn.name, tn.dx, tn.dz, tn.motion_mat, tn.nsa) == (jn.name, jn.dx, jn.dz, jn.motion_mat, True)
 
 
 def test_initiate_bit_equal_to_jax_and_close_to_oracle():
@@ -211,3 +214,106 @@ def test_update_gain_scale_equals_jax():
     damped = mask & (scale < 1)
     assert damped.sum() > 10
     assert not np.allclose(tm.numpy()[damped], um.numpy()[damped])
+
+
+def test_nsa_update_with_conf_equals_jax():
+    """StrongSORT's NSA update: the measurement std scaled by 1 - conf, held
+    to the JAX update at rtol 1e-5; with conf 0 it is the plain update to
+    the bit, and an NSA layout refuses a missing conf."""
+    rng = np.random.default_rng(11)
+    mean, cov = _bank(rng, 48)
+    z = (mean[:, :4] + rng.normal(0, 3, (48, 4)) * [1, 1, 0.001, 1]).astype(np.float32)
+    mask = rng.uniform(size=48) < 0.7
+    conf = rng.uniform(0.1, 0.95, 48).astype(np.float32)
+    jl, tl = jk.make_xyah_layout(nsa=True), tk.make_xyah_layout(nsa=True)
+    jm, jc = jk.update(jl, *map(jnp.asarray, (mean, cov, z, conf, mask)))
+    args = tuple(map(torch.from_numpy, (mean, cov, z, mask)))
+    tm, tc = tk.update(tl, *args, conf=torch.from_numpy(conf))
+    for i in range(48):
+        _close(tm[i].numpy(), np.asarray(jm[i]), float(np.abs(mean[i]).max()))
+        _close(tc[i].numpy(), np.asarray(jc[i]), float(np.abs(cov[i]).max()))
+    plain = tk.update(tk.make_xyah_layout(), *args)
+    nsa0 = tk.update(tl, *args, conf=torch.zeros(48))
+    for g, w in zip(nsa0, plain):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert not np.array_equal(tc.numpy()[mask], plain[1].numpy()[mask])  # the scale acts
+    with pytest.raises(ValueError, match="conf"):
+        tk.update(tl, *args)
+
+
+@pytest.mark.parametrize("layout", ["xyah", "xyhr", "xyscr"])
+def test_update_without_conf_unchanged(layout):
+    """A layout without NSA ignores ``conf``: the update's bits are those of
+    the update without it."""
+    rng = np.random.default_rng(12)
+    tl = getattr(tk, f"make_{layout}_layout")()
+    z0 = np.abs(rng.normal(50, 20, (32, tl.dz))).astype(np.float32)
+    mean, cov = tk.initiate(tl, torch.from_numpy(z0))
+    mask = torch.from_numpy(rng.uniform(size=32) < 0.7)
+    mean, cov = tk.predict(tl, mean, cov, mask)
+    z = torch.from_numpy((z0 * rng.uniform(0.95, 1.05, z0.shape)).astype(np.float32))
+    want = tk.update(tl, mean, cov, z, mask)
+    got = tk.update(tl, mean, cov, z, mask, conf=torch.from_numpy(rng.uniform(size=32).astype(np.float32)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_gating_distance_equals_jax_and_numpy():
+    """The squared Mahalanobis gate of a predicted XYAH bank (K, N) at rtol
+    1e-5 against the JAX gate and float64 numpy, batched over S."""
+    rng = np.random.default_rng(13)
+    mean, cov = _bank(rng, 24)
+    layout_j, layout_t = jk.make_xyah_layout(nsa=True), tk.make_xyah_layout(nsa=True)
+    meas = _meas(rng, 17)
+    meas[:8] = mean[:8, :4] + rng.normal(0, 2, (8, 4)).astype(np.float32) * [1, 1, 0.01, 1]
+    want = np.asarray(jk.gating_distance(layout_j, *map(jnp.asarray, (mean, cov, meas))))
+    got = tk.gating_distance(layout_t, *(torch.from_numpy(np.stack([a, a])) for a in (mean, cov, meas)))
+    assert got.shape == (2, 24, 17)
+    np.testing.assert_array_equal(got[0].numpy(), got[1].numpy())
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=RTOL, atol=1e-3)
+    h = mean[:, 3].astype(np.float64)
+    r = np.stack([h / 20, h / 20, np.full_like(h, 0.1), h / 20], 1) ** 2
+    S = cov[:, :4, :4].astype(np.float64) + np.eye(4) * r[:, None, :]
+    d = meas[None, :, :].astype(np.float64) - mean[:, None, :4]
+    exact = np.einsum("knz,kzy,kny->kn", d, np.linalg.inv(S), d)
+    np.testing.assert_allclose(got[0].numpy(), exact, rtol=1e-4, atol=1e-3)
+    assert (want < 9.4877).any() and (want > 9.4877).any()  # both sides of chi2(4)
+
+
+def test_xyscr_layout_equals_jax():
+    """HybridSORT's XYSCR layout: structure and constant noise rows equal,
+    initiate and predict bit-equal, update at rtol 1e-5, clamps of s and r."""
+    jl, tl = jk.make_xyscr_layout(), tk.make_xyscr_layout()
+    assert (tl.name, tl.dx, tl.dz, tl.motion_mat, tl.nsa) == (jl.name, jl.dx, jl.dz, jl.motion_mat, False)
+    probe = np.zeros((2, 9), np.float32)
+    for fn in ("init_cov_diag", "process_diag", "meas_diag"):
+        arg = probe[:, :5] if fn == "init_cov_diag" else probe
+        np.testing.assert_array_equal(getattr(tl, fn)(torch.from_numpy(arg)).numpy(),
+                                      np.asarray(getattr(jl, fn)(jnp.asarray(arg))), err_msg=fn)
+    rng = np.random.default_rng(14)
+    n = 48
+    w, h = rng.uniform(10, 200, n), rng.uniform(10, 200, n)
+    z = np.stack([rng.uniform(0, 1800, n), rng.uniform(0, 1000, n), w * h,
+                  rng.uniform(0.2, 0.95, n), w / h], 1).astype(np.float32)
+    jm, jc = jk.initiate(jl, jnp.asarray(z))
+    tm, tc = tk.initiate(tl, torch.from_numpy(z))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    mask = rng.uniform(size=n) < 0.7
+    for step in range(3):
+        jm, jc = jk.predict(jl, jm, jc, jnp.asarray(mask))
+        tm, tc = tk.predict(tl, tm, tc, torch.from_numpy(mask))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        z = (z * rng.uniform(0.97, 1.03, z.shape)).astype(np.float32)
+        jm, jc = jk.update(jl, jm, jc, jnp.asarray(z), jnp.zeros((n,)), jnp.asarray(mask))
+        tm, tc = tk.update(tl, tm, tc, torch.from_numpy(z), torch.from_numpy(mask))
+        for i in range(n):
+            _close(tm[i].numpy(), np.asarray(jm[i]), float(np.abs(np.asarray(jm[i])).max()))
+            _close(tc[i].numpy(), np.asarray(jc[i]), float(np.abs(np.asarray(jc[i])).max()))
+        tm, tc = torch.from_numpy(np.array(jm)), torch.from_numpy(np.array(jc))
+    low = np.array(jm)
+    low[:4, 2], low[:4, 4] = -5.0, -1e-9
+    np.testing.assert_array_equal(tl.enforce(torch.from_numpy(low)).numpy(),
+                                  np.asarray(jl.enforce(jnp.asarray(low))))
+    assert (tl.enforce(torch.from_numpy(low)).numpy()[:4, [2, 4]] == np.float32(1e-6)).all()

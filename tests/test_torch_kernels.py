@@ -18,7 +18,14 @@ from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
 from boxmot_tpu_torch.ops.oru import oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
-from chip_smoke import ORU_EDGES, _tiny_boxes, crossed_quads, oru_edge_inputs, oru_inputs
+from chip_smoke import (
+    ORU_EDGES,
+    XYSCR_EDGES,
+    _tiny_boxes,
+    crossed_quads,
+    oru_edge_inputs,
+    oru_inputs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -238,7 +245,8 @@ def _recorded(card, tracker, module, name, obb=False):
     """The arguments of every ``name`` launch of 12 steps of ``tracker`` (the
     YAML thresholds, capacity 256) on the card: the appearance scene at the
     bench's detection bucket (embeddings and warps; 5 % of detections missed
-    so that DeepOCSORT's tracks rejoin), or turning rotated boxes for OBB."""
+    so that DeepOCSORT's and HybridSORT's tracks rejoin), or turning rotated
+    boxes for OBB."""
     from boxmot_tpu_torch.engine.eval import build_replay_config
     from boxmot_tpu_torch.engine.replay import batch_replay, init_states, pack_frames
     from boxmot_tpu_torch.utils import measure
@@ -316,3 +324,54 @@ def test_iou_kernels_on_occluboost_steps_bit_equal_to_twin(card, obb):
             got, want = fused_iou_cost(*args, **kwargs), fused_iou_cost_plain(*args, **kwargs)
             torch.cuda.synchronize()
             assert got[1] is None and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("S, K, p_rejoin, gap_max", [(8, 256, 1.0, 31), (3, 77, 0.5, 40),
+                                                     (1, 1, 1.0, 31)])
+def test_oru_kernel_xyscr_bit_equal_to_twin_on_the_cpu(card, S, K, p_rejoin, gap_max):
+    """K4's XYSCR instance (HybridSORT's ORU) equals its twin run on the CPU
+    bit for bit: every slot rejoining with gaps 2-31, half of them with gaps
+    past MAX_ORU, one slot."""
+    rng = np.random.default_rng(S * K + 2)
+    layout, tensors, rejoin, gap = oru_inputs(rng, S, K, "xyscr", p_rejoin, gap_max)
+    replayed = [torch.zeros(S, dtype=torch.int32, device=d) for d in (card, "cpu")]
+    before = oru_replay.launches
+    got = oru_replay(layout, *(t.to(card) for t in (*tensors, rejoin, gap)), replayed[0])
+    want = oru_replay_plain(layout, *tensors, rejoin, gap, replayed[1])
+    torch.cuda.synchronize()
+    assert oru_replay.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(replayed[0].cpu(), replayed[1])
+
+
+@pytest.mark.parametrize("edge", [e for e, _ in XYSCR_EDGES])
+def test_oru_kernel_xyscr_edges_bit_equal_to_twin_on_the_cpu(card, edge):
+    """K4's XYSCR instance on its edges: no slot rejoining, 5 x 13 slots,
+    gaps of exactly MAX_ORU and MAX_ORU + 1."""
+    rng = np.random.default_rng(len(edge) + 2)
+    layout, tensors, rejoin, gap = oru_edge_inputs(rng, edge, "xyscr")
+    replayed = [torch.zeros(rejoin.shape[0], dtype=torch.int32, device=d) for d in (card, "cpu")]
+    got = oru_replay(layout, *(t.to(card) for t in (*tensors, rejoin, gap)), replayed[0])
+    want = oru_replay_plain(layout, *tensors, rejoin, gap, replayed[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(replayed[0].cpu(), replayed[1])
+
+
+def test_oru_kernel_on_hybridsort_steps_bit_equal_to_twin_on_the_cpu(card):
+    """K4's XYSCR instance at the inputs HybridSORT's steps give it (the YAML
+    tier with appearance), against its twin run on the CPU."""
+    from boxmot_tpu_torch.trackers import hybridsort
+
+    calls = _recorded(card, "hybridsort", hybridsort, "oru_replay")
+    rejoined = 0
+    for args, _ in calls:
+        layout, tensors, rejoin, gap, replayed = args[0], args[1:7], args[7], args[8], args[9]
+        assert layout.name == "xyscr"
+        got = oru_replay(layout, *tensors, rejoin, gap, replayed.clone())
+        want = oru_replay_plain(layout, *(t.cpu() for t in (*tensors, rejoin, gap)),
+                                replayed.cpu().clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        rejoined += int(rejoin.sum())
+    assert len(calls) == 12 and rejoined > 0

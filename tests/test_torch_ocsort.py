@@ -148,7 +148,7 @@ def test_xysr_kalman_layout_equals_jax(obb):
                 np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * float(np.abs(w).max()))
         # the next predict starts from the same bits on both sides
         tm, tc = torch.from_numpy(np.array(jm)), torch.from_numpy(np.array(jc))
-    q_var, r_var = tk.xysr_noise(tl)
+    q_var, r_var = tk.const_noise(tl)
     np.testing.assert_array_equal(np.float32(q_var), np.square(np.float32(np.sqrt(
         [1.0] * tl.dz + [0.02, 0.02, 3e-4] + ([5e-4] if obb else [])))))
     assert len(r_var) == tl.dz
@@ -341,16 +341,18 @@ def test_k4_bound_counts_every_slot_of_the_out_of_place_replay(obb):
         hand, updates * _k4_update_ops(dx, dz) + (updates - 3) * _k4_predict_ops(dx))
 
 
-@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+@pytest.mark.parametrize("layout", ["xysr", "xysr_obb", "xyscr"], ids=["aabb", "obb", "xyscr"])
 @pytest.mark.parametrize("S, K", [(8, 256), (3, 77), (1, 1)])
-def test_k4_launch_geometry_is_a_warp_a_slot(S, K, obb):
-    g = oru.launch_geometry(S, K, obb)
+def test_k4_launch_geometry_is_a_warp_a_slot(S, K, layout):
+    g = oru.launch_geometry(S, K, layout)
     warps = g.threads // 32
     assert g.threads % 32 == 0 and g.threads == oru.THREADS <= 128
     assert (g.blocks - 1) * warps < S * K <= g.blocks * warps  # every slot, no empty block
-    tile = 4 * (382 if obb else 246)  # csrc/oru.cu's Tile<9, 5> / Tile<7, 4>, counted by hand
-    assert g.shared_bytes == warps * tile == warps * 4 * oru.tile_floats(*((9, 5) if obb else (7, 4)))
+    nine = layout != "xysr"  # XYSR-OBB and XYSCR: 9 states, 5 measurements
+    tile = 4 * (382 if nine else 246)  # csrc/oru.cu's Tile<9, 5> / Tile<7, 4>, counted by hand
+    assert g.shared_bytes == warps * tile == warps * 4 * oru.tile_floats(*((9, 5) if nine else (7, 4)))
     assert g.shared_bytes <= 48 * 1024  # dynamic shared memory without an opt-in
+    assert oru.LAYOUT_TAGS[layout][0] == ["xysr", "xysr_obb", "xyscr"].index(layout)
 
 
 @pytest.mark.parametrize("variant", ["defaults", "byte-giou"])

@@ -40,7 +40,13 @@ measured the same way.  On one CUDA card it:
    without it, and frames/s of the whole bench replay (3 launches after a
    warm-up);
 7. where the checkout has OccluBoost: the same for its AABB step
-   at ``OccluBoostConfig()``, the configuration bench.py runs.
+   at ``OccluBoostConfig()``, the configuration bench.py runs;
+8. where the checkout has HybridSORT: kernel K4's XYSCR instance timed on
+   the ORU launch of a recorded HybridSORT bench step (its YAML tier with
+   appearance, 5 % of detections missed, frame 64 of 65, as chip_smoke.py's
+   phase 3 records it) and on the all-rejoin XYSCR set (``oru_inputs`` at
+   8 x 256, gaps 2-31), and the same AABB step profile as in 6, with K4's
+   device ms per step, on 5 % missed.
 
 It prints one JSON object and appends it to chiprun_out/port_kernel_ab.jsonl.
 Compare two checkouts only within one run on one card, in turns
@@ -191,6 +197,12 @@ def main() -> int:
 
         result.update(_appearance(cs, measure, "occluboost",
                                   OccluBoostConfig(capacity=cs.CAPACITY)))
+    if importlib.util.find_spec("boxmot_tpu_torch.trackers.hybridsort") is not None:
+        from boxmot_tpu_torch.engine.eval import build_replay_config
+
+        cfg = build_replay_config("hybridsort", capacity=cs.CAPACITY)
+        result.update(_hybridsort_k4(cs, measure, cfg))
+        result.update(_appearance(cs, measure, "hybridsort", cfg, miss=cs.MISS))
     line = json.dumps(result)
     print(line)
     out = HERE / "chiprun_out"
@@ -250,13 +262,39 @@ def _ocsort(cs, measure) -> dict:
     return result
 
 
-def _appearance(cs, measure, label, cfg) -> dict:
-    """Steps 6 and 7: an appearance tracker's AABB step profile and bench
-    frames/s at ``cfg``, with the checkout's port (``main`` has put it first
-    on the path); keys start with ``label``."""
+def _hybridsort_k4(cs, measure, cfg) -> dict:
+    """Step 8's kernel times: K4's XYSCR instance on a recorded HybridSORT
+    bench step and on the all-rejoin XYSCR set."""
+    from boxmot_tpu_torch.engine.replay import batch_replay, init_states
+    from boxmot_tpu_torch.trackers import hybridsort
+
+    batch, embs, warps = cs.appearance_batch(cs.N_SEQS, 65, cs.N_DETS, 100, cs.MISS, "cuda")
+    states, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64], None,
+                                embs[:, :64], warps[:, :64])
+    with measure.record_calls(hybridsort, ["oru_replay"]) as rec:
+        batch_replay(cfg, states, batch[:, 64:], None, embs[:, 64:], warps[:, 64:])
+    sets = {"hybridsort_step": rec["oru_replay"][0][0]}
+    layout, tensors, rejoin, gap = cs.oru_inputs(np.random.default_rng(2), cs.N_SEQS, cs.CAPACITY,
+                                                 "xyscr")
+    replayed = torch.zeros(cs.N_SEQS, dtype=torch.int32)
+    sets["all_rejoin_xyscr"] = [layout, *(t.cuda() for t in (*tensors, rejoin, gap, replayed))]
+    result = {}
+    for label, args in sets.items():
+        result[f"oru_{label}_device_ms_per_launch"] = measure.device_ms(
+            lambda: hybridsort.oru_replay(*args), "oru_kernel")
+        result[f"oru_{label}_slots_rejoining"] = int(args[7].sum())
+        result[f"oru_{label}_longest_gap"] = int(torch.where(args[7], args[8], 0).max())
+    return result
+
+
+def _appearance(cs, measure, label, cfg, miss=0.0) -> dict:
+    """Steps 6-8: an appearance tracker's AABB step profile and bench
+    frames/s at ``cfg``, on ``appearance_batch``'s inputs with ``miss`` of
+    the detections missed, with the checkout's port (``main`` has put it
+    first on the path); keys start with ``label``."""
     from boxmot_tpu_torch.engine.replay import batch_replay, init_states
 
-    batch, embs, warps = cs.appearance_batch(cs.N_SEQS, cs.N_FRAMES, cs.N_DETS, 0, 0.0, "cuda")
+    batch, embs, warps = cs.appearance_batch(cs.N_SEQS, cs.N_FRAMES, cs.N_DETS, 0, miss, "cuda")
     st, _, _ = batch_replay(cfg, init_states(cfg, cs.N_SEQS, "cuda"), batch[:, :64], None,
                             embs[:, :64], warps[:, :64])
     prof = measure.profile_steps(
@@ -264,7 +302,8 @@ def _appearance(cs, measure, label, cfg) -> dict:
     result = {f"{label}_kernels_per_step": prof["kernels_per_step"],
               f"{label}_busy_ms_per_step": prof["busy_ms_per_step"],
               f"{label}_profile_traces": prof["traces"]}
-    for key, pick in (("k1", "iou_cost_kernel"), ("k2", "auction_kernel"), ("bmm", "gemm")):
+    for key, pick in (("k1", "iou_cost_kernel"), ("k2", "auction_kernel"), ("k4", "oru_kernel"),
+                      ("bmm", "gemm")):
         result[f"{label}_{key}_ms_per_step"] = sum(
             ms for name, (_, ms) in prof["by_kernel"].items() if pick in name.lower())
     torch.cuda.synchronize()
