@@ -6,7 +6,9 @@ and oriented boxes, and DeepOCSORT, BoostTrack, StrongSORT and HybridSORT
 for axis-aligned ones, with appearance embeddings and camera-motion
 compensation (ECC on the device), on one NVIDIA H100, or on the CPU
 through each kernel's plain PyTorch twin; and sam2mot, a host tracker in
-both packages.  The hot ops of the tracker steps are
+both packages.  A live appearance tracker can compute its embeddings from
+the frame with the ReID facade (``reid``: crops on the card, OSNet from
+torchreid checkpoints).  The hot ops of the tracker steps are
 kernels written by hand for Hopper (``csrc/``), built with nvcc on first
 use.  The package imports torch, numpy, scipy and cv2 (the OBB metric),
 and nothing of JAX or of the JAX package: it keeps its own copies of the

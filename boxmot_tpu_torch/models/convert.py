@@ -1,0 +1,190 @@
+"""OSNet weights: torchreid checkpoints, and the JAX package's Flax variables.
+
+Counterpart of the OSNet part of ``boxmot_tpu/models/convert.py``.  The
+port's ``OSNet`` modules carry torchreid's attribute names, so a torchreid
+checkpoint needs no key mapping, only the key rules of the JAX loader
+(``load_state_dict``, convert.py:24-43; ``_finish``, :205-215): the
+``module.`` and ``model.`` prefixes go, a ``state_dict`` (or a ``model``
+dict) is unwrapped, ``classifier*`` and ``num_batches_tracked`` keys are
+ignored, and any other key the model lacks raises.
+
+``osnet_state_dict_from_flax`` carries the JAX package's Flax
+``{"params", "batch_stats"}`` tree (as numpy arrays) into the port's state
+dict: a copy of ``_Exporter`` and of ``export_osnet_state_dict`` /
+``export_osnet_ain_state_dict`` (convert.py:385-502), with no JAX import.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from boxmot_tpu_torch.models.osnet import AIN_BLOCKS, OSNET_VARIANTS, build_osnet
+
+BLOCKS = (2, 2, 2)  # OSBlocks a stage in every torchreid OSNet
+
+
+def load_state_dict(path_or_dict) -> dict:
+    """A checkpoint as {key: np.ndarray} with normalized keys."""
+    if isinstance(path_or_dict, dict):
+        sd = path_or_dict
+    else:
+        ckpt = torch.load(path_or_dict, map_location="cpu", weights_only=False)
+        sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+        sd = dict(sd.items())
+    if isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    out = {}
+    for k, v in sd.items():
+        k = k.removeprefix("module.").removeprefix("model.")
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        out[k] = np.asarray(v)
+    return out
+
+
+def convert_checkpoint(path_or_dict, model_name: str) -> dict:
+    """A torchreid checkpoint as the state dict of the port's ``model_name``
+    module (float32 tensors), every key checked against the module's."""
+    if model_name not in OSNET_VARIANTS:
+        raise NotImplementedError(
+            f"no PyTorch backbone for {model_name!r} yet: the port has the OSNet family; the other "
+            "backbones are ROADMAP Queue A item 16")
+    sd = {k: v for k, v in load_state_dict(path_or_dict).items()
+          if not k.startswith("classifier") and "num_batches_tracked" not in k}
+    expected = {k for k in build_osnet(model_name).state_dict() if "num_batches_tracked" not in k}
+    unused = sorted(set(sd) - expected)
+    if unused:
+        raise ValueError(f"unmapped checkpoint keys: {unused[:8]}...")
+    missing = sorted(expected - set(sd))
+    if missing:
+        raise ValueError(f"checkpoint lacks keys of {model_name}: {missing[:8]}...")
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def load_weights(model: torch.nn.Module, state_dict: dict) -> None:
+    """Load ``convert_checkpoint``'s state dict: every key but the batch
+    norms' ``num_batches_tracked`` counters, which inference never reads."""
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if "num_batches_tracked" not in k]
+    if missing or unexpected:
+        raise ValueError(f"state dict does not fit the model: missing {missing[:8]}, "
+                         f"unexpected {unexpected[:8]}")
+
+
+class _Exporter:
+    """Flax variables -> torchreid keys (boxmot_tpu/models/convert.py:385-431)."""
+
+    def __init__(self, variables):
+        self.params = variables["params"]
+        self.stats = variables["batch_stats"]
+        self.sd = {}
+
+    def conv(self, fnode, tk):
+        self.sd[f"{tk}.weight"] = np.transpose(np.asarray(fnode["kernel"]), (3, 2, 0, 1))
+        if "bias" in fnode:
+            self.sd[f"{tk}.bias"] = np.asarray(fnode["bias"])
+
+    def bn(self, pnode, snode, tk):
+        self.sd[f"{tk}.weight"] = np.asarray(pnode["scale"])
+        self.sd[f"{tk}.bias"] = np.asarray(pnode["bias"])
+        self.sd[f"{tk}.running_mean"] = np.asarray(snode["mean"])
+        self.sd[f"{tk}.running_var"] = np.asarray(snode["var"])
+
+    def inorm(self, pnode, tk):
+        self.sd[f"{tk}.weight"] = np.asarray(pnode["scale"])
+        self.sd[f"{tk}.bias"] = np.asarray(pnode["bias"])
+
+    def conv_bn(self, fname, tk):
+        self.conv(self.params[fname]["conv"], f"{tk}.conv")
+        self.bn(self.params[fname]["bn"], self.stats[fname]["bn"], f"{tk}.bn")
+
+    def conv_in(self, fname, tk):
+        self.conv(self.params[fname]["conv"], f"{tk}.conv")
+        self.inorm(self.params[fname]["in"], f"{tk}.bn")
+
+    def nested_conv_bn(self, fb, sub, tk):
+        self.conv(self.params[fb][sub]["conv"], f"{tk}.conv")
+        self.bn(self.params[fb][sub]["bn"], self.stats[fb][sub]["bn"], f"{tk}.bn")
+
+    def light_conv(self, fb, sub, tk):
+        node, snode = self.params[fb][sub], self.stats[fb][sub]
+        self.conv(node["conv1"], f"{tk}.conv1")
+        self.conv(node["conv2"], f"{tk}.conv2")
+        self.bn(node["bn"], snode["bn"], f"{tk}.bn")
+
+    def fc(self):
+        self.sd["fc.0.weight"] = np.asarray(self.params["fc"]["kernel"]).T
+        self.sd["fc.0.bias"] = np.asarray(self.params["fc"]["bias"])
+        self.bn(self.params["fc_bn"], self.stats["fc_bn"], "fc.1")
+
+
+def _export_osnet(variables, ibn: bool) -> dict:
+    """export_osnet_state_dict (convert.py:433-465)."""
+    e = _Exporter(variables)
+    params = e.params
+    if ibn:
+        e.conv_in("conv1", "conv1")
+    else:
+        e.conv_bn("conv1", "conv1")
+    stream = {1: "conv2a", 2: "conv2b", 3: "conv2c", 4: "conv2d"}
+    for s in range(3):
+        tstage = f"conv{s + 2}"
+        for b in range(BLOCKS[s]):
+            fb, tb = f"{tstage}_{b}", f"{tstage}.{b}"
+            e.nested_conv_bn(fb, "conv1", f"{tb}.conv1")
+            for t in range(1, 5):
+                for u in range(t):
+                    tk = f"{tb}.{stream[t]}" if t == 1 else f"{tb}.{stream[t]}.{u}"
+                    e.light_conv(fb, f"conv2_{t}_{u}", tk)
+            e.conv(params[fb]["gate"]["fc1"], f"{tb}.gate.fc1")
+            e.conv(params[fb]["gate"]["fc2"], f"{tb}.gate.fc2")
+            e.nested_conv_bn(fb, "conv3", f"{tb}.conv3")
+            if "downsample" in params[fb]:
+                e.nested_conv_bn(fb, "downsample", f"{tb}.downsample")
+            if ibn and s == 0:
+                e.inorm(params[fb]["ibn"], f"{tb}.IN")
+        if s < 2:
+            e.conv_bn(f"transition{s + 2}", f"{tstage}.{BLOCKS[s]}.0")
+    e.conv_bn("conv5", "conv5")
+    e.fc()
+    return e.sd
+
+
+def _export_osnet_ain(variables) -> dict:
+    """export_osnet_ain_state_dict (convert.py:468-502)."""
+    e = _Exporter(variables)
+    params = e.params
+    e.conv_in("conv1", "conv1")
+    for s in range(3):
+        tstage = f"conv{s + 2}"
+        for b in range(BLOCKS[s]):
+            fb, tb = f"{tstage}_{b}", f"{tstage}.{b}"
+            e.nested_conv_bn(fb, "conv1", f"{tb}.conv1")
+            for t in range(1, 5):
+                for u in range(t):
+                    e.light_conv(fb, f"conv2_{t}_{u}", f"{tb}.conv2.{t - 1}.layers.{u}")
+            e.conv(params[fb]["gate"]["fc1"], f"{tb}.gate.fc1")
+            e.conv(params[fb]["gate"]["fc2"], f"{tb}.gate.fc2")
+            if AIN_BLOCKS[s][b] == "in":
+                e.conv(params[fb]["conv3"], f"{tb}.conv3.conv")
+                e.inorm(params[fb]["in3"], f"{tb}.IN")
+            else:
+                e.nested_conv_bn(fb, "conv3", f"{tb}.conv3")
+            if "downsample" in params[fb]:
+                e.nested_conv_bn(fb, "downsample", f"{tb}.downsample")
+        if s < 2:
+            e.conv_bn(f"transition{s + 2}", f"pool{s + 2}.0")
+    e.conv_bn("conv5", "conv5")
+    e.fc()
+    return e.sd
+
+
+def osnet_state_dict_from_flax(variables, name: str) -> dict:
+    """The JAX package's Flax variables of OSNet variant ``name`` (numpy
+    arrays) as the state dict of the port's module, checked key by key."""
+    if name.startswith("osnet_ain"):
+        sd = _export_osnet_ain(variables)
+    else:
+        sd = _export_osnet(variables, ibn=name.startswith("osnet_ibn"))
+    return convert_checkpoint(sd, name)

@@ -45,8 +45,9 @@ from boxmot_tpu_torch.ops.geometry import exact
 from boxmot_tpu_torch.trackers.base import BaseTracker
 from boxmot_tpu_torch.trackers.botsort import (
     IDENTITY_WARP,
+    frame_embs,
     l2_normalize,
-    no_reid_model,
+    model_feature_dim,
     warp_tensor,
 )
 from boxmot_tpu_torch.trackers.ocsort import _full_assignment, _unique_shortcut
@@ -498,10 +499,11 @@ def shape_ok(cfg, out_box):
 class BoostTrack(BaseTracker):
     """Live tracker with the JAX ``BoostTrack`` constructor surface.
 
-    ``reid_model`` is not ported (it raises), so, as in the JAX tracker
-    without a model, ``with_reid`` is off and ``embs`` are not read.  CMC
-    (ECC by default) runs on every frame with an image: ECC on the tracker's
-    device, SOF on the host."""
+    ``with_reid`` needs a ``reid_model``, as in the JAX tracker: then the
+    embeddings passed to ``update(dets, img, embs)`` feed the appearance
+    terms, or, without them, the model computes them from the image; without
+    a model ``embs`` are not read.  CMC (ECC by default) runs on every frame
+    with an image: ECC on the tracker's device, SOF on the host."""
 
     supports_obb = False
 
@@ -528,17 +530,17 @@ class BoostTrack(BaseTracker):
         capacity: int = 256,
         **kwargs,
     ):
-        no_reid_model(reid_model)
         super().__init__(device=device, **kwargs)
-        self.with_reid = False  # with_reid needs a reid_model, as in the JAX tracker
+        self.with_reid = with_reid and reid_model is not None
+        self.model = reid_model if self.with_reid else None
         self.cfg = BoostTrackConfig(
             det_thresh=self.det_thresh, max_age=self.max_age, min_hits=self.min_hits,
             iou_threshold=self.iou_threshold, min_box_area=min_box_area,
             aspect_ratio_thresh=aspect_ratio_thresh, lambda_iou=lambda_iou,
             lambda_mhd=lambda_mhd, lambda_shape=lambda_shape, use_dlo_boost=use_dlo_boost,
             use_duo_boost=use_duo_boost, dlo_boost_coef=dlo_boost_coef, s_sim_corr=s_sim_corr,
-            use_rich_s=use_rich_s, use_sb=use_sb, use_vt=use_vt, with_reid=False, feat_dim=1,
-            capacity=capacity,
+            use_rich_s=use_rich_s, use_sb=use_sb, use_vt=use_vt, with_reid=self.with_reid,
+            feat_dim=model_feature_dim(reid_model) if self.model else 1, capacity=capacity,
         )
         self.cmc = live_cmc(use_cmc, cmc_method, self.device)
 
@@ -546,11 +548,15 @@ class BoostTrack(BaseTracker):
         return init_state(self.cfg, 1, self.device)
 
     def _step(self, state, dets_padded, det_valid):
-        img, _, dets = self._frame_inputs
+        img, embs, dets = self._frame_inputs
+        emb = None
+        if self.with_reid:
+            emb = frame_embs(self.model, embs, img, dets[:, :4], dets_padded.shape[0],
+                             self.cfg.feat_dim, self.device, fill=1.0)[None]
         warp = self.cmc.apply(img, dets[:, :4]) if self.cmc is not None and img is not None \
             else IDENTITY_WARP
         state, out, out_mask = boosttrack_step(self.cfg, state, dets_padded[None], det_valid[None],
-                                               None, warp_tensor(warp, self.device)[None])
+                                               emb, warp_tensor(warp, self.device)[None])
         return state, out[0], out_mask[0]
 
 

@@ -464,13 +464,30 @@ def botsort_step(cfg: BotSortConfig, state: BotSortState, dets: torch.Tensor,
     return new_state, out, out_mask
 
 
-def no_reid_model(reid_model) -> None:
-    """Raise for a ReID model: the port runs none yet (it arrives with
-    ROADMAP Queue A, Slice 5); embeddings can be passed to ``update``."""
-    if reid_model is not None:
-        raise NotImplementedError(
-            "reid_model is not ported to PyTorch yet: it arrives with ROADMAP Queue A, Slice 5; "
-            "pass precomputed embeddings to update(dets, img, embs) instead")
+def model_feature_dim(reid_model, default: int = 512) -> int:
+    """The embedding width of ``reid_model`` (its ``feature_dim``), ``default``
+    without a model, as the JAX shells read it."""
+    return getattr(reid_model, "feature_dim", default) if reid_model else default
+
+
+def frame_embs(model, embs, img, boxes, D: int, feat_dim: int, device,
+               fill: float = 0.0) -> torch.Tensor:
+    """(D, feat_dim) float32 embeddings of a step's n = len(boxes) detections
+    on ``device``: the first n rows from ``embs`` when given, else from
+    ``model`` on ``boxes`` of ``img`` when both are given (the port's ``ReID``
+    keeps its features on the device, ``features``; another model is read
+    through the reference's ``get_features``), else ``fill``, as are the other
+    rows."""
+    n = len(boxes)
+    if embs is not None or model is None or img is None or not n:
+        return padded_embs(embs, n, D, feat_dim, device, fill)
+    if hasattr(model, "features"):
+        feats = model.features(boxes, img)
+    else:
+        feats = torch.from_numpy(np.asarray(model.get_features(boxes, img), np.float32))
+    out = torch.full((D, feat_dim), fill, dtype=torch.float32, device=device)
+    out[:n] = feats.to(device)
+    return out
 
 
 def warp_tensor(warp, device) -> torch.Tensor:
@@ -494,10 +511,11 @@ def padded_embs(embs, n: int, D: int, feat_dim: int, device, fill: float = 0.0) 
 class BotSort(BaseTracker):
     """Live tracker with the JAX ``BotSort`` constructor surface.
 
-    ``reid_model`` is not ported (it raises); embeddings passed to
-    ``update(dets, img, embs)`` feed the appearance cost.  CMC runs on every
-    frame with an image: ECC on the tracker's device, SOF, ORB and SIFT on the
-    host (``motion.cmc``)."""
+    With ``with_reid``, embeddings passed to ``update(dets, img, embs)`` feed
+    the appearance cost; without them ``reid_model`` (e.g. ``reid.ReID``)
+    computes them from the image, on the detections' boxes (rotated boxes as
+    xywha).  CMC runs on every frame with an image: ECC on the tracker's
+    device, SOF, ORB and SIFT on the host (``motion.cmc``)."""
 
     supports_obb = True
 
@@ -526,13 +544,13 @@ class BotSort(BaseTracker):
         capacity: int = 256,
         **kwargs,
     ):
-        no_reid_model(reid_model)
         super().__init__(device=device, **kwargs)
         # dead slots are recycled, so the removed-track buffer exists only
         # for the constructor's surface, as in the JAX tracker
         self.removed_stracks_buffer = int(removed_stracks_buffer)
         self.buffer_size = int(frame_rate / 30.0 * track_buffer)
         self.with_reid = with_reid
+        self.model = reid_model if with_reid else None
         self.cfg = BotSortConfig(
             track_high_thresh=track_high_thresh,
             track_low_thresh=track_low_thresh,
@@ -546,7 +564,7 @@ class BotSort(BaseTracker):
             fuse_first_associate=fuse_first_associate,
             with_reid=with_reid,
             max_time_lost=self.buffer_size,
-            feat_dim=512,
+            feat_dim=model_feature_dim(reid_model),
             nr_classes=self.nr_classes,
             is_obb=self.is_obb,
             std_weight_position=std_weight_position,
@@ -579,10 +597,11 @@ class BotSort(BaseTracker):
 
     def _step(self, state, dets_padded, det_valid):
         img, embs, dets = self._frame_inputs
-        n, B = len(dets), self.layout.box_cols
+        B = self.layout.box_cols
         emb = None
         if self.cfg.with_reid:
-            emb = padded_embs(embs, n, dets_padded.shape[0], self.cfg.feat_dim, self.device)[None]
+            emb = frame_embs(self.model, embs, img, dets[:, :B], dets_padded.shape[0],
+                             self.cfg.feat_dim, self.device)[None]
         if self.cmc is not None and img is not None:
             boxes = dets[:, :B]
             warp = self.cmc.apply(img, self._obb_hull_np(boxes) if self.cfg.is_obb else boxes)

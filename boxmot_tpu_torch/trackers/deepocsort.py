@@ -45,8 +45,9 @@ from boxmot_tpu_torch.trackers.botsort import (
     IDENTITY_WARP,
     _linear,
     _rot_rows,
+    frame_embs,
     l2_normalize,
-    no_reid_model,
+    model_feature_dim,
     padded_embs,
     warp_tensor,
 )
@@ -419,11 +420,11 @@ def deepocsort_step(cfg: DeepOcSortConfig, state: DeepOcSortState, dets: torch.T
 class DeepOcSort(BaseTracker):
     """Live tracker with the JAX ``DeepOcSort`` constructor surface.
 
-    ``reid_model`` is not ported (it raises).  Embeddings passed to
-    ``update(dets, img, embs)`` feed the appearance cost; without them every
-    detection's embedding is a row of ones, as in the JAX tracker (the
-    replay, like the JAX replay, uses zeros).  CMC is ECC on the tracker's
-    device unless ``cmc_off``."""
+    Embeddings passed to ``update(dets, img, embs)`` feed the appearance
+    cost; without them ``reid_model`` (e.g. ``reid.ReID``) computes them from
+    the image, and without a model every detection's embedding is a row of
+    ones, as in the JAX tracker (the replay, like the JAX replay, uses
+    zeros).  CMC is ECC on the tracker's device unless ``cmc_off``."""
 
     supports_obb = False
 
@@ -444,8 +445,8 @@ class DeepOcSort(BaseTracker):
         capacity: int = 256,
         **kwargs,
     ):
-        no_reid_model(reid_model)
         super().__init__(device=device, **kwargs)
+        self.model = reid_model
         self.cfg = DeepOcSortConfig(
             det_thresh=self.det_thresh,
             max_age=self.max_age,
@@ -461,7 +462,7 @@ class DeepOcSort(BaseTracker):
             q_xy_scaling=Q_xy_scaling,
             q_s_scaling=Q_s_scaling,
             asso_func=self.asso_func_name,
-            feat_dim=512 if not embedding_off else 1,
+            feat_dim=model_feature_dim(reid_model) if not embedding_off else 1,
             capacity=capacity,
         )
         if not cmc_off:
@@ -484,11 +485,12 @@ class DeepOcSort(BaseTracker):
         n, D = len(dets), dets_padded.shape[0]
         if self.cfg.embedding_off or not n:
             emb = padded_embs(None, n, D, self.cfg.feat_dim, self.device)
-        elif embs is not None:
-            emb = padded_embs(embs, n, D, self.cfg.feat_dim, self.device)
-        else:  # no embeddings and no model: ones, as the reference
+        elif embs is None and (self.model is None or img is None):
+            # no embeddings and no model: ones, as the reference
             emb = padded_embs(np.ones((n, self.cfg.feat_dim), np.float32), n, D,
                               self.cfg.feat_dim, self.device)
+        else:
+            emb = frame_embs(self.model, embs, img, dets[:, :4], D, self.cfg.feat_dim, self.device)
         if self.cmc is not None and img is not None:
             warp = self.cmc.apply(img, dets[:, :4])
         else:

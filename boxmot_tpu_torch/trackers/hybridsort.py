@@ -65,9 +65,9 @@ from boxmot_tpu_torch.ops.oru import oru_replay
 from boxmot_tpu_torch.trackers.base import BaseTracker
 from boxmot_tpu_torch.trackers.botsort import (
     IDENTITY_WARP,
+    frame_embs,
     l2_normalize,
-    no_reid_model,
-    padded_embs,
+    model_feature_dim,
     warp_tensor,
 )
 from boxmot_tpu_torch.trackers.deepocsort import _apply_affine
@@ -542,11 +542,13 @@ def hybridsort_step(cfg: HybridSortConfig, state: HybridSortState, dets: torch.T
 class HybridSort(BaseTracker):
     """Live tracker with the JAX ``HybridSort`` constructor surface.
 
-    ``reid_model`` is not ported (it raises).  With ``with_reid`` the
-    embeddings passed to ``update(dets, img, embs)`` feed the appearance
-    terms; without them the features are rows of ones, with one warning, as
-    in the JAX tracker.  CMC is ``cmc_method`` (ECC by default, on the
-    tracker's device).  Internal ids start at 0 and are emitted as tid + 1."""
+    With ``with_reid`` the embeddings passed to ``update(dets, img, embs)``
+    feed the appearance terms; without them ``reid_model`` (e.g.
+    ``reid.ReID``) computes them from the image, and without a model the
+    features are rows of ones, with one warning, as in the JAX tracker
+    (``with_reid`` is honoured without a model).  CMC is ``cmc_method`` (ECC
+    by default, on the tracker's device).  Internal ids start at 0 and are
+    emitted as tid + 1."""
 
     supports_obb = False
     _id_emit_offset = 1
@@ -580,9 +582,9 @@ class HybridSort(BaseTracker):
         capacity: int = 256,
         **kwargs,
     ):
-        no_reid_model(reid_model)
         super().__init__(device=device, **kwargs)
         self.with_reid = bool(with_reid)
+        self.model = reid_model if self.with_reid else None
         self.dataset = str(dataset)  # an association hint the reference leaves inactive
         self._warned_no_feats = False
         self.cfg = HybridSortConfig(
@@ -610,7 +612,8 @@ class HybridSort(BaseTracker):
             longterm_reid_correction_thresh=longterm_reid_correction_thresh,
             longterm_reid_correction_thresh_low=longterm_reid_correction_thresh_low,
             asso_func=self.asso_func_name,
-            feat_dim=512 if self.with_reid else 1,
+            feat_dim=model_feature_dim(reid_model) if self.model else (
+                512 if self.with_reid else 1),
             capacity=capacity,
         )
         from boxmot_tpu_torch.motion.cmc import create_cmc
@@ -625,14 +628,15 @@ class HybridSort(BaseTracker):
         n, D = len(dets), dets_padded.shape[0]
         if not (self.with_reid and n):
             embs = None
-        elif embs is None and not self._warned_no_feats:
+        elif embs is None and (self.model is None or img is None) and not self._warned_no_feats:
             # the reference errors out here (its model is None); the
             # features are constant instead, said once
             self._warned_no_feats = True
             LOGGER.warning("hybridsort: with_reid=True but no reid_model and no embs supplied — "
                            "appearance terms see constant features; pass with_reid=False for "
                            "motion-only")
-        emb = padded_embs(embs, n, D, self.cfg.feat_dim, self.device, fill=1.0)
+        emb = frame_embs(self.model, embs, img, dets[:, :4], D, self.cfg.feat_dim, self.device,
+                         fill=1.0)
         if self.cmc is not None and img is not None:
             warp = self.cmc.apply(img, dets[:, :4])
         else:

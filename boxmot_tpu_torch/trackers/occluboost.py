@@ -64,8 +64,10 @@ from boxmot_tpu_torch.trackers.boosttrack import (
 )
 from boxmot_tpu_torch.trackers.botsort import (
     IDENTITY_WARP,
+    BotSort,
+    frame_embs,
     l2_normalize,
-    no_reid_model,
+    model_feature_dim,
     warp_tensor,
 )
 from boxmot_tpu_torch.trackers.ocsort import _full_assignment, _unique_shortcut
@@ -616,10 +618,12 @@ def smooth_gap_rows(rows: np.ndarray, smooth_tau: float = 5.0) -> np.ndarray:
 class OccluBoost(BaseTracker):
     """Live tracker with the JAX ``OccluBoost`` constructor surface.
 
-    ``reid_model`` is not ported (it raises), so, as in the JAX tracker
-    without a model, ``with_reid`` and GTA are off and ``embs`` are not
-    read.  CMC (ECC by default) runs on every axis-aligned frame with an
-    image; the oriented mode applies none."""
+    ``with_reid`` (and GTA with it) needs a ``reid_model``, as in the JAX
+    tracker: then the embeddings passed to ``update(dets, img, embs)`` feed
+    the appearance terms, or, without them, the model computes them from the
+    image, on the enclosing axis-aligned boxes of oriented detections;
+    without a model ``embs`` are not read.  CMC (ECC by default) runs on
+    every axis-aligned frame with an image; the oriented mode applies none."""
 
     supports_obb = True
 
@@ -673,9 +677,9 @@ class OccluBoost(BaseTracker):
         capacity: int = 256,
         **kwargs,
     ):
-        no_reid_model(reid_model)
         super().__init__(device=device, **kwargs)
-        self.with_reid = False  # with_reid needs a reid_model, as in the JAX tracker
+        self.with_reid = with_reid and reid_model is not None
+        self.model = reid_model if self.with_reid else None
         self.gta_smooth_tau = gta_smooth_tau
         self.cfg = OccluBoostConfig(
             det_thresh=self.det_thresh, max_age=self.max_age, min_hits=self.min_hits,
@@ -683,7 +687,8 @@ class OccluBoost(BaseTracker):
             aspect_ratio_thresh=aspect_ratio_thresh, lambda_iou=lambda_iou,
             lambda_mhd=lambda_mhd, lambda_shape=lambda_shape, use_dlo_boost=use_dlo_boost,
             use_duo_boost=use_duo_boost, dlo_boost_coef=dlo_boost_coef, s_sim_corr=s_sim_corr,
-            use_rich_s=use_rich_s, use_sb=use_sb, use_vt=use_vt, with_reid=False, feat_dim=1,
+            use_rich_s=use_rich_s, use_sb=use_sb, use_vt=use_vt, with_reid=self.with_reid,
+            feat_dim=model_feature_dim(reid_model) if self.model else 1,
             recovery_appearance_thresh=recovery_appearance_thresh,
             recovery_iou_thresh=recovery_iou_thresh, recovery_max_age=recovery_max_age,
             feat_alpha=feat_alpha, track_low_thresh=track_low_thresh,
@@ -698,7 +703,8 @@ class OccluBoost(BaseTracker):
             ams_threshold=max(ams_threshold, 0.0),
             ams_buffer_size=max(int(ams_buffer_size), 2),
             ams_shrink_ratio=float(np.clip(ams_shrink_ratio, 0.0, 1.0)),
-            lambda_emb_multiplier=lambda_emb_multiplier, gta_enabled=False,
+            lambda_emb_multiplier=lambda_emb_multiplier,
+            gta_enabled=bool(gta_enabled) and self.with_reid,
             gta_appearance_thresh=gta_appearance_thresh,
             gta_min_track_length=max(int(gta_min_track_length), 1),
             gta_interpolate=gta_interpolate, gta_max_gap=max(int(gta_max_gap), 1),
@@ -725,7 +731,14 @@ class OccluBoost(BaseTracker):
         return rows
 
     def _step(self, state, dets_padded, det_valid):
-        img, _, dets = self._frame_inputs
+        img, embs, dets = self._frame_inputs
+        emb = None
+        if self.with_reid:
+            # crops of oriented detections are their enclosing axis-aligned
+            # boxes, as in the JAX shell (occluboost.py:880-888)
+            boxes = BotSort._obb_hull_np(dets[:, :5]) if self.cfg.is_obb else dets[:, :4]
+            emb = frame_embs(self.model, embs, img, boxes, dets_padded.shape[0],
+                             self.cfg.feat_dim, self.device, fill=1.0)[None]
         warp = None
         if not self.cfg.is_obb:
             if self.cmc is not None and img is not None:
@@ -734,5 +747,5 @@ class OccluBoost(BaseTracker):
                 warp = IDENTITY_WARP
             warp = warp_tensor(warp, self.device)[None]
         state, out, out_mask = occluboost_step(self.cfg, state, dets_padded[None],
-                                               det_valid[None], None, warp)
+                                               det_valid[None], emb, warp)
         return state, out[0], out_mask[0]

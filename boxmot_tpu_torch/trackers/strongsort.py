@@ -43,9 +43,9 @@ from boxmot_tpu_torch.ops.geometry import xyah2xyxy, xyxy2xyah
 from boxmot_tpu_torch.trackers.base import BaseTracker
 from boxmot_tpu_torch.trackers.botsort import (
     IDENTITY_WARP,
+    frame_embs,
     l2_normalize,
-    no_reid_model,
-    padded_embs,
+    model_feature_dim,
     warp_tensor,
 )
 from boxmot_tpu_torch.trackers.deepocsort import _apply_affine
@@ -300,11 +300,11 @@ def strongsort_step(cfg: StrongSortConfig, state: StrongSortState, dets: torch.T
 class StrongSort(BaseTracker):
     """Live tracker with the JAX ``StrongSort`` constructor surface.
 
-    ``reid_model`` is not ported (it raises).  Embeddings passed to
-    ``update(dets, img, embs)`` feed the bank; without them every
-    detection's embedding is a row of ones, as in the JAX tracker.  CMC is
-    ECC on the tracker's device, applied to every frame that comes with an
-    image."""
+    Embeddings passed to ``update(dets, img, embs)`` feed the bank; without
+    them ``reid_model`` (e.g. ``reid.ReID``) computes them from the image,
+    and without a model every detection's embedding is a row of ones, as in
+    the JAX tracker.  CMC is ECC on the tracker's device, applied to every
+    frame that comes with an image."""
 
     supports_obb = False
 
@@ -324,8 +324,8 @@ class StrongSort(BaseTracker):
         capacity: int = 256,
         **kwargs,
     ):
-        no_reid_model(reid_model)
         super().__init__(device=device, **kwargs)
+        self.model = reid_model
         self.cfg = StrongSortConfig(
             min_conf=min_conf,
             max_cos_dist=max_cos_dist,
@@ -335,7 +335,7 @@ class StrongSort(BaseTracker):
             nn_budget=nn_budget,
             mc_lambda=mc_lambda,
             ema_alpha=ema_alpha,
-            feat_dim=512,
+            feat_dim=model_feature_dim(reid_model),
             std_weight_position=std_weight_position,
             std_weight_velocity=std_weight_velocity,
             capacity=capacity,
@@ -353,8 +353,9 @@ class StrongSort(BaseTracker):
 
     def _step(self, state, dets_padded, det_valid):
         img, embs, dets = self._frame_inputs
-        n, D = len(dets), dets_padded.shape[0]
-        emb = padded_embs(embs, n, D, self.cfg.feat_dim, self.device, fill=1.0)
+        D = dets_padded.shape[0]
+        emb = frame_embs(self.model, embs, img, dets[:, :4], D, self.cfg.feat_dim, self.device,
+                         fill=1.0)
         if self.cmc is not None and img is not None:
             warp = self.cmc.apply(img, dets[:, :4])
         else:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from boxmot_tpu_torch.configs import get_tracker_defaults
 
+# the trackers that read appearance embeddings (boxmot_tpu/trackers/zoo.py:25)
+REID_TRACKERS = ("botsort", "deepocsort", "strongsort", "boosttrack", "occluboost", "hybridsort")
 PORTED = ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort", "boosttrack", "occluboost",
           "strongsort", "hybridsort", "sam2mot")
 
@@ -22,10 +24,14 @@ def check_ported(name: str) -> None:
 
 
 def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | None = None,
-                   per_class: bool = False, evolve_param_dict: dict | None = None, **kwargs):
+                   reid_weights=None, half: bool = False, per_class: bool = False,
+                   evolve_param_dict: dict | None = None, **kwargs):
     """Build a live tracker by name on ``device`` ("cpu", "cuda", "cuda:N");
     the card unless the caller asks for the CPU (sam2mot, a host tracker,
-    takes the argument and runs on the host)."""
+    takes the argument and runs on the host).  For an appearance tracker,
+    ``reid_weights`` (a model name or a torchreid checkpoint) builds its
+    ``reid_model`` on the same device, in bf16 with ``half``, unless the
+    caller passes one."""
     check_ported(tracker_type)
     from boxmot_tpu_torch.trackers.boosttrack import BoostTrack
     from boxmot_tpu_torch.trackers.botsort import BotSort
@@ -43,6 +49,10 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config: dict | N
         params.update(evolve_param_dict)
     params.update(kwargs)
     params["per_class"] = per_class
+    if reid_weights is not None and tracker_type in REID_TRACKERS:
+        from boxmot_tpu_torch.reid import create_reid
+
+        params.setdefault("reid_model", create_reid(weights=reid_weights, half=half, device=device))
     classes = {"bytetrack": ByteTrack, "sfsort": SFSORT, "ocsort": OcSort, "botsort": BotSort,
                "deepocsort": DeepOcSort, "boosttrack": BoostTrack, "occluboost": OccluBoost,
                "strongsort": StrongSort, "hybridsort": HybridSort, "sam2mot": Sam2Mot}

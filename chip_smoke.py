@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device report: torch's card name and nvidia-smi's name and power limit;
      the CPU references of phases 4-5 start in worker processes (spawned)
      that run beside phases 2-5;
-  2. build the four hand-written kernels from csrc/, one nvcc each, in
+  2. build the five hand-written kernels from csrc/, one nvcc each, in
      parallel;
   3. each kernel against its plain PyTorch twin on the card, at the main
      paths' shapes and at ragged / tie-heavy / masked / degenerate ones: K1
@@ -31,7 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      events around one call), its twin's, and its bound counted from the
      work those inputs need (K4's XYSCR instance too, on its all-rejoin set
      and the HybridSORT step); the OBB Kalman bank's bits on the card
-     against the CPU;
+     against the CPU; K5 (the ReID crops) bit-equal to its twin on a seeded
+     textured 1080p frame, 64 and 256 boxes, axis-aligned and rotated (past
+     every edge, sub-pixel, unit padding boxes, angles of +-pi/2 and +-pi),
+     fp32 and bf16, with its device time beside its bound (bytes), the
+     wrapper's and the twin's times, F.grid_sample's (the library call) and
+     once the TPU design's two dense einsums;
   4. AABB evals: run_eval for the ten trackers (ByteTrack, SFSORT, OC-SORT,
      BoT-SORT, DeepOCSORT, BoostTrack, OccluBoost, StrongSORT, HybridSORT
      and sam2mot, the last a host tracker) on MOT17-mini and synth-long,
@@ -57,7 +62,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      card, BoT-SORT from the zoo defaults (SOF, on the host), DeepOCSORT,
      StrongSORT and HybridSORT with ECC and embeddings, BoostTrack and
      OccluBoost with ECC; each against the same tracker on the CPU, with the
-     warps ECC recovered beside the known steps;
+     warps ECC recovered beside the known steps; then BoT-SORT and
+     DeepOCSORT computing their embeddings with their ReID
+     (``reid_weights``: a torchreid-format osnet_x0_25 checkpoint written
+     from seeded weights) on 50 textured 1080p frames with MOT17-04's
+     detections, against the CPU: rows equal, features within 1e-4, and
+     BoT-SORT's smallest margin of an appearance distance to its threshold;
   7. replay throughput at the bench shape (8 sequences x 100 detections,
      D = 128, capacity 256; the lines of earlier slices at EARLIER_FRAMES =
      128 frames a sequence, StrongSORT's and HybridSORT's at 256), timed
@@ -74,7 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      1080p, scale 0.15 (host ms a frame, kernels an apply); StrongSORT AABB
      and HybridSORT AABB (their YAML tiers, HybridSORT with 5 % missed so
      that K4 replays) on the same kind of input, with their 16-step
-     profiles.
+     profiles; and the ReID lines: ``get_features`` of osnet_x1_0 and
+     osnet_x0_25, 32 / 64 / 256 crops of 256 x 128 from a 1080p frame, fp32
+     and bf16 (ms a call, crops/s, a 16-call profile with K5's and the
+     convolutions' shares), the card's features against the CPU's.
 Every path of phases 4-7 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
@@ -82,7 +95,8 @@ fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; OC-SORT and
 DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; StrongSORT: 1 IoU launch
 to 2 auctions; BoostTrack, OccluBoost and HybridSORT: as ``boost_ratio`` and
-``hybrid_ratio`` count them from the config's options; sam2mot: none) the
+``hybrid_ratio`` count them from the config's options; sam2mot: none; the
+live ReID paths add one K5 launch a frame) the
 counts must keep that ratio, so no step fell back to a twin.  Phase laps
 are printed.  The line before the last is {"kernels": [...]}, with each
 kernel's launches summed over those paths (K4's over its three layouts);
@@ -117,8 +131,10 @@ from boxmot_tpu_torch.engine.replay import (
     pack_frames,
     replay_sequences_outputs,
 )
+from boxmot_tpu_torch.models.osnet import build_osnet
 from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.motion.cmc import create_cmc
+from boxmot_tpu_torch.ops.crops import IMAGENET_MEAN, IMAGENET_STD, extract_crops, extract_crops_plain
 from boxmot_tpu_torch.ops.fused_iou_cost import (
     IOU_BATCH_EPS,
     empty_launch,
@@ -131,6 +147,7 @@ from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain,
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
+from boxmot_tpu_torch.reid import ReID
 from boxmot_tpu_torch.trackers import (
     boosttrack,
     botsort,
@@ -261,7 +278,10 @@ KERNELS = {  # counter name -> (wrapper, source, the TPU kernel or JAX function 
     "masked_assignment": (masked_assignment, "auction", "boxmot_tpu/ops/lap.py:37"),
     "rotated_iou": (rotated_iou, "rotated_iou", "boxmot_tpu/ops/pallas_rotated_iou.py:136"),
     "oru_replay": (oru_replay, "oru", "boxmot_tpu/trackers/ocsort.py:310"),
+    "extract_crops": (extract_crops, "crops", "boxmot_tpu/ops/crops.py:71"),
 }
+CROP_HW = (256, 128)  # the ReID facade's crops (the JAX ReID's default)
+FRAME_HW = (1080, 1920)
 LAUNCHES = {name: 0 for name in KERNELS}  # summed over the driven paths
 
 
@@ -1198,6 +1218,171 @@ def check_kalman_obb(rng):
         raise AssertionError("the OBB Kalman bank differs between the card and the CPU")
 
 
+def crop_frame(seed=0, size=FRAME_HW):
+    """A seeded textured colour uint8 BGR frame: coarse colour noise,
+    upsampled bilinearly, plus pixel noise (the card's machine has no image
+    decoder, so no recorded frame)."""
+    from scipy.ndimage import zoom
+
+    rng = np.random.default_rng(seed)
+    H, W = size
+    coarse = rng.uniform(0, 255, (H // 24 + 2, W // 24 + 2, 3))
+    smooth = zoom(coarse, (24, 24, 1), order=1)[:H, :W]
+    return np.clip(smooth + rng.normal(0, 12, (H, W, 3)), 0, 255).astype(np.uint8)
+
+
+def crop_boxes(rng, n, obb, size=FRAME_HW):
+    """n person-like boxes of a frame of ``size`` as the ReID facade gets them
+    ((n, 4) xyxy or (n, 5) xywha), the first of them boxes past every edge
+    and past each corner, sub-pixel and zero-size boxes, the JAX facade's
+    unit padding box and, rotated, angles of 0, +-pi/2 and +-pi."""
+    H, W = size
+    w, h = rng.uniform(20, 200, n), rng.uniform(40, 400, n)
+    if obb:
+        b = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n), w, h,
+                      rng.uniform(-math.pi, math.pi, n)], 1)
+        special = [[0, 0, 1, 1, 0], [W / 2, H / 2, 1.5 * W, 1.5 * H, 0.1],
+                   [5, 5, 300, 200, math.pi / 2], [W - 5, H - 5, 300, 200, -math.pi / 2],
+                   [W / 2, 10, 100, 200, math.pi], [10, H / 2, 100, 200, -math.pi],
+                   [100.3, 200.7, 0.3, 0.6, 0.4], [300, 400, 0, 0, 1.0]]
+    else:
+        x1, y1 = rng.uniform(-50, W, n), rng.uniform(-50, H, n)
+        b = np.stack([x1, y1, x1 + w, y1 + h], 1)
+        special = [[0, 0, 1, 1], [-100, -80, W + 90, H + 70], [W - 30, H - 40, W + 200, H + 150],
+                   [-200, -150, 20, 30], [500.3, 300.7, 500.6, 301.1], [5, 5, 5, 5]]
+    k = min(n, len(special))
+    b[:k] = special[:k]
+    return b.astype(np.float32)
+
+
+# K5's float operations a pixel of output, counted from csrc/crops.cu: the
+# coordinates (axis-aligned: the two scales and two centre maps; rotated: the
+# box-local offsets and the rotation), the two axes' taps (clamp, floor, the
+# far tap, the weight) and the two complements, and per channel 4 taps /
+# 255, the two horizontal and the vertical interpolation and the
+# standardization
+K5_OPS_PER_PIXEL = {False: 2 + 4 + 6 + 12 + 2 + 3 * 15, True: 2 + 6 + 10 + 12 + 2 + 3 * 15}
+
+
+def k5_bound(frame, boxes, obb, dtype):
+    """(least ms, by): the frame and the boxes read once, the crops written
+    once, and K5's counted operations."""
+    n = boxes.shape[0]
+    pixels = n * CROP_HW[0] * CROP_HW[1]
+    n_bytes = frame.numel() + boxes.numel() * 4 + pixels * 3 * torch.finfo(dtype).bits // 8
+    return measure.bound_ms(n_bytes, pixels * K5_OPS_PER_PIXEL[obb])
+
+
+def _grid_sample_inputs(frame, boxes, obb):
+    """``F.grid_sample``'s input and grid for the crops K5 cuts: the frame as
+    float RGB in [0, 1], (N, 3, H, W) (expanded, not copied), and the twin's
+    sampling coordinates normalized for align_corners=False."""
+    H, W = frame.shape[:2]
+    img = (frame.flip(-1).permute(2, 0, 1).to(torch.float32) / 255.0)[None]
+    n, (oh, ow) = boxes.shape[0], CROP_HW
+    i = (torch.arange(oh, device=frame.device, dtype=torch.float32) + 0.5)
+    j = (torch.arange(ow, device=frame.device, dtype=torch.float32) + 0.5)
+    if obb:
+        cx, cy, w, h, a = boxes.T
+        u = (j / ow - 0.5)[None, None, :] * w[:, None, None]
+        v = (i / oh - 0.5)[None, :, None] * h[:, None, None]
+        ca, sa = torch.cos(a)[:, None, None], torch.sin(a)[:, None, None]
+        xs = cx[:, None, None] + u * ca - v * sa - 0.5
+        ys = cy[:, None, None] + u * sa + v * ca - 0.5
+    else:
+        x1, y1, x2, y2 = boxes.T
+        ys = (i[None, :] * ((y2 - y1) / oh)[:, None] + (y1[:, None] - 0.5))[:, :, None].expand(n, oh, ow)
+        xs = (j[None, :] * ((x2 - x1) / ow)[:, None] + (x1[:, None] - 0.5))[:, None, :].expand(n, oh, ow)
+    grid = torch.stack([(2 * xs + 1) / W - 1, (2 * ys + 1) / H - 1], dim=-1)
+    return img.expand(n, -1, -1, -1), grid.contiguous()
+
+
+def _einsum_crops(frame, boxes):
+    """The JAX package's axis-aligned crops (crop_resize_aabb): dense
+    (N, oh, H) and (N, ow, W) interpolation matrices and two fp32 products
+    (TF32 off), as the TPU design computes them, on the card."""
+    H, W = frame.shape[:2]
+    img = frame.flip(-1).to(torch.float32) / 255.0
+    x1, y1, x2, y2 = boxes.T
+
+    def interp(coords, size):
+        c = torch.clamp(coords, 0.0, size - 1.0)
+        c0 = torch.floor(c)
+        c1 = torch.clamp_max(c0 + 1, size - 1.0)
+        w = (c - c0)[..., None]
+        grid = torch.arange(size, device=frame.device, dtype=torch.float32)
+        return (c0[..., None] == grid) * (1.0 - w) + (c1[..., None] == grid) * w
+
+    i = torch.arange(CROP_HW[0], device=frame.device, dtype=torch.float32) + 0.5
+    j = torch.arange(CROP_HW[1], device=frame.device, dtype=torch.float32) + 0.5
+    wy = interp(i[None, :] * ((y2 - y1) / CROP_HW[0])[:, None] + (y1[:, None] - 0.5), H)
+    wx = interp(j[None, :] * ((x2 - x1) / CROP_HW[1])[:, None] + (x1[:, None] - 0.5), W)
+    t = torch.einsum("hwc,njw->nhjc", img, wx)
+    return torch.einsum("nih,nhjc->nijc", wy, t)
+
+
+def check_k5(rng):
+    """K5 bit-equal to its twin on the card (and, at 64 crops, to the twin on
+    the CPU, which the live paths compare against) on a seeded textured
+    1080p frame, 64 and 256 boxes, axis-aligned and rotated
+    (``crop_boxes``: past every edge, sub-pixel, the unit padding boxes,
+    angles of +-pi/2 and +-pi), fp32 and bf16; then, fp32, its device time
+    (torch.profiler) beside its bound (bytes: the frame read and the crops
+    written), the wrapper's time (CUDA events around one call: the cos and
+    sin of rotated boxes, the checks, the allocation), the twin's on the
+    card, and as the library call the same sampling by ``F.grid_sample``
+    (bilinear, border, align_corners=False) on the float frame; and once the
+    TPU design's two einsums at 64 axis-aligned crops."""
+    import torch.nn.functional as F
+
+    frame = torch.from_numpy(crop_frame(1)).cuda()
+    rows, library = [], []
+    std = torch.tensor(IMAGENET_STD, device=frame.device)[None, :, None, None]
+    mean = torch.tensor(IMAGENET_MEAN, device=frame.device)[None, :, None, None]
+    for n in (64, 256):
+        for obb in (False, True):
+            boxes = torch.from_numpy(crop_boxes(rng, n, obb)).cuda()
+            kind = "rotated" if obb else "axis-aligned"
+            for dtype in (torch.float32, torch.bfloat16):
+                got = extract_crops(frame, boxes, CROP_HW, obb, dtype)
+                want = extract_crops_plain(frame, boxes, CROP_HW, obb, dtype)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"K5 {kind} {n} crops {dtype}: {bad} values differ from "
+                                         f"the twin")
+                if n == 64:
+                    cpu = extract_crops_plain(frame.cpu(), boxes.cpu(), CROP_HW, obb, dtype)
+                    if not torch.equal(got.cpu(), cpu):
+                        raise AssertionError(f"K5 {kind} {n} crops {dtype}: differs from the "
+                                             f"twin on the CPU")
+                print(f"K5 {kind}, {n} crops of 256 x 128, {str(dtype).removeprefix('torch.')}: "
+                      f"bit-equal to the twin{' (on the card and the CPU)' if n == 64 else ''}")
+            img, grid = _grid_sample_inputs(frame, boxes, obb)
+            sample = lambda: F.grid_sample(img, grid, mode="bilinear",  # noqa: E731
+                                           padding_mode="border", align_corners=False)
+            crops = extract_crops(frame, boxes, CROP_HW, obb)
+            diff = float((sample() - (crops * std + mean)).abs().max())
+            call = lambda: extract_crops(frame, boxes, CROP_HW, obb)  # noqa: E731
+            row = (measure.device_ms(call, "crops_kernel"), measure.event_ms(call),
+                   measure.event_ms(lambda: extract_crops_plain(frame, boxes, CROP_HW, obb),
+                                    reps=10),
+                   *k5_bound(frame, boxes, obb, torch.float32))
+            library.append(measure.event_ms(sample))
+            print(f"K5 {kind} {n} crops fp32: device {row[0]:.5f} ms a launch, wrapper "
+                  f"{row[1]:.5f} ms, plain {row[2]:.5f} ms, bound {row[3]:.5f} ms ({row[4]}); "
+                  f"F.grid_sample {library[-1]:.5f} ms (largest difference from K5's crops "
+                  f"before standardization {diff:.3g})")
+            rows.append(row)
+    boxes = torch.from_numpy(crop_boxes(rng, 64, False)).cuda()
+    einsum_ms = measure.event_ms(lambda: _einsum_crops(frame, boxes), reps=5, warmup=1)
+    print(f"K5's TPU design on this card (two dense fp32 einsums, 64 axis-aligned crops of a "
+          f"1080p frame, about 115 GFLOP): {einsum_ms:.4f} ms a call")
+    entry = timing(0.0, rows)
+    entry["library_ms"] = statistics.fmean(library)
+    return entry
+
+
 def drive(label, fn, ratio, sync_free=True):
     """Drive one path with every launch counter at 0; ``ratio`` gives the
     fixed launches per step of the kernels the path must run (others must
@@ -1436,8 +1621,9 @@ def run_occluboost_gta_eval(root: Path, cpu_jobs):
 
 
 class _Outputs:
-    """Within the block, ``module.<name>`` (a function of a step whose output
-    nothing writes to afterwards) keeps each of its outputs in ``self.outs``."""
+    """Within the block, ``module.<name>`` (a function of a step, or a
+    model's method, whose output nothing writes to afterwards) keeps each of
+    its outputs in ``self.outs``."""
 
     def __init__(self, module, name):
         self.module, self.name, self.outs = module, name, []
@@ -1699,6 +1885,99 @@ def run_live_crowded():
           f"largest det_ind {int(g[:, 7].max())}")
 
 
+def reid_checkpoint(root: Path, name: str, seed: int = 0, crop_hw=CROP_HW) -> Path:
+    """A torchreid-format checkpoint of OSNet ``name`` with seeded random
+    weights, as ``torch.save`` writes a trained one (``state_dict`` with a
+    classifier and the batch norms' counters).  The convolutions and the
+    linear layer keep PyTorch's seeded initialization; the convolutions'
+    batch norms take the running statistics of 32 crops (``crop_hw``) of a
+    seeded textured frame (a forward in training mode, cumulative averages),
+    so that each layer's output is normalized and the embedding varies with
+    the crop (median cosine distance between crops about 0.05); the head's
+    batch norm keeps its initial statistics.  With arbitrary running
+    statistics the features of all crops nearly coincide (distances about
+    1e-6), and an association then breaks its ties at the ulps by which two
+    devices' convolutions differ; with the head's normalized too (distances
+    about 0.65) it amplifies bf16's rounding to a cosine of 0.90 against
+    fp32."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build_osnet(name)
+    crops = extract_crops(torch.from_numpy(crop_frame(seed + 100)),
+                          torch.from_numpy(crop_boxes(np.random.default_rng(seed), 40, False)[8:]),
+                          crop_hw)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None  # a cumulative average over the calibration batch
+    with torch.no_grad():
+        model.train()(crops)
+    sd = model.state_dict()
+    sd["fc.1.running_mean"].zero_()  # the head's statistics stay the initial ones
+    sd["fc.1.running_var"].fill_(1.0)
+    gen = torch.Generator().manual_seed(seed)
+    sd["classifier.weight"] = torch.randn((751, 512), generator=gen)
+    sd["classifier.bias"] = torch.zeros(751)
+    path = root / f"{name}_seeded.pth"
+    torch.save({"state_dict": sd, "epoch": 1}, path)
+    return path
+
+
+def run_live_reid(tracker, weights: Path):
+    """Phase 6e: the live tracker computing its embeddings with its ReID
+    (``create_tracker(tracker, reid_weights=weights)``, osnet_x0_25, K5 on the
+    card) from 50 seeded textured 1080p frames with MOT17-04's detections,
+    CMC off, cuda against cpu: ids, conf, cls and det_ind equal, boxes within
+    1e-3 px, each frame's features within 1e-4; prints BoT-SORT's smallest
+    margin of an appearance distance to its threshold (scaled and not) beside
+    the largest feature difference (DeepOCSORT's embedding cost enters its
+    assignment with no threshold).  Every frame has detections, so K5
+    launches once a frame (one class bank, at most 256 crops)."""
+    frames, _ = _live_frames(50)
+    img = crop_frame(3)
+    kw = {"use_cmc": False} if tracker == "botsort" else {"cmc_off": True}
+    trackers = {d: boxmot_tpu_torch.create_tracker(tracker, device=d, reid_weights=weights, **kw)
+                for d in ("cuda", "cpu")}
+    n_rows, worst, feat_err, margin, update_ms = 0, 0.0, 0.0, math.inf, []
+    cfg = trackers["cuda"].cfg
+    thr = cfg.appearance_thresh if tracker == "botsort" else None
+    for f, dets in enumerate(frames, start=1):
+        with _Outputs(trackers["cuda"].model, "features") as gf, \
+                _Outputs(botsort, "appearance_distance") as dist:
+            t0 = time.perf_counter()
+            g = np.asarray(trackers["cuda"].update(dets, img))
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+        with _Outputs(trackers["cpu"].model, "features") as cf:
+            c = np.asarray(trackers["cpu"].update(dets, img))
+        for a, b in zip(gf.outs, cf.outs, strict=True):
+            feat_err = max(feat_err, float((a.cpu() - b).abs().max()))
+        if thr is not None:
+            scale = cfg.unconfirmed_emb_scale
+            margin = min([margin] + [float(torch.minimum(torch.abs(d - thr),
+                                                         torch.abs(d / scale - thr)).min())
+                                     for d in dist.outs if d.numel()])
+        if g.shape != c.shape or not np.array_equal(g[:, 4:], c[:, 4:]):
+            raise AssertionError(f"live {tracker} with ReID, frame {f}: ids/conf/cls/det_ind differ "
+                                 f"between cuda and cpu (largest feature difference so far "
+                                 f"{feat_err:.3g}, appearance margin {margin:.3g})")
+        if len(g):
+            worst = max(worst, float(np.abs(g[:, :4] - c[:, :4]).max()))
+        if not (worst <= 1e-3 and feat_err <= 1e-4 and np.isfinite(g).all()):
+            raise AssertionError(f"live {tracker} with ReID, frame {f}: boxes differ by {worst} px, "
+                                 f"features by {feat_err}")
+        n_rows += len(g)
+    if n_rows == 0:
+        raise AssertionError(f"live {tracker} with ReID: no track was emitted in 50 frames")
+    what = (f"smallest margin of an appearance distance to its threshold {margin:.3g}"
+            if thr is not None else "no appearance threshold")
+    print(f"live {tracker} with ReID (osnet_x0_25 from a seeded torchreid checkpoint), 50 textured "
+          f"1080p frames of {LIVE_SEQ.name}'s detections: {n_rows} rows equal to cpu (ids, "
+          f"det_ind, cls, conf exact; max box diff {worst:.3g} px); largest feature difference "
+          f"{feat_err:.3g}, {what}; cuda update median {statistics.median(update_ms[1:]):.3f} "
+          f"ms/frame (host clock, frames 2-50)")
+    if not all(len(d) for d in frames):
+        raise AssertionError("a frame without detections: K5's launches are not one a frame")
+
+
 def _bench(label, cfg, frames_fn, det_cols, card, launches=6, miss=None, n_frames=N_FRAMES):
     """frames/s of batch_replay at the bench shape (``n_frames`` frames a
     sequence); a distinct seeded input per launch, the first launch a
@@ -1802,6 +2081,77 @@ def time_ecc(card):
     print(json.dumps(line))
 
 
+REID_BENCH_CROPS = (32, 64, 256)
+
+
+def _is_conv(kernel_name: str) -> bool:
+    """A convolution's kernel (cuDNN's implicit GEMMs, depthwise and direct
+    kernels), by name."""
+    n = kernel_name.lower()
+    return any(k in n for k in ("conv", "fprop", "implicit_gemm", "depthwise", "cudnn"))
+
+
+def run_reid_bench(card, root: Path):
+    """Phase 7f: ReID lines at full width, on the card: ``get_features`` of
+    osnet_x1_0 (the widest published OSNet) and osnet_x0_25 (the default)
+    from seeded torchreid checkpoints, 256 x 128 crops, 32 / 64 / 256
+    person-like boxes of a textured 1080p frame, fp32 and bf16: ms a call
+    (host clock: the frame's upload, K5, the backbone and the features' copy
+    back, which waits for the card), crops/s, and a 16-call profile (kernels
+    a call, device busy ms, host ms, K5's and the convolutions' shares of
+    busy time, the top kernel families).  Checks the card's fp32 features
+    against the CPU port's on 8 crops (1e-4) and bf16 against fp32 (cosine
+    >= 0.99)."""
+    img = crop_frame(4)
+    rng = np.random.default_rng(12)
+    # person-like boxes only: the first rows of crop_boxes are its edge cases
+    boxes = {n: crop_boxes(rng, n + 8, False)[8:] for n in REID_BENCH_CROPS}
+    for name in ("osnet_x1_0", "osnet_x0_25"):
+        weights = reid_checkpoint(root, name, seed=5)
+        feats = {}
+        for half in (False, True):
+            reid = ReID(weights=weights, device="cuda", half=half)
+            dtype = "bf16" if half else "fp32"
+            for n in REID_BENCH_CROPS:
+                b = boxes[n]
+                for _ in range(3):
+                    reid.get_features(b, img)
+                ms = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    feats[dtype, n] = reid.get_features(b, img)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                prof = measure.profile_steps(lambda: [reid.get_features(b, img) for _ in range(16)],
+                                             16)
+                busy = prof["busy_ms_per_step"]
+                share = {k: sum(t for kn, (_, t) in prof["by_kernel"].items() if pick(kn)) / busy
+                         for k, pick in (("K5", lambda kn: "crops_kernel" in kn),
+                                         ("conv", _is_conv))}
+                families = {}
+                for kn, (c, t) in prof["by_kernel"].items():
+                    fam = kn.split("<")[0].split("::")[-1].split("(")[0].strip()
+                    launches, total = families.get(fam, (0.0, 0.0))
+                    families[fam] = (launches + c, total + t)
+                top = sorted(families.items(), key=lambda kv: -kv[1][1])[:6]
+                call_ms = statistics.median(ms)
+                print(json.dumps({
+                    "metric": f"reid_{name}_{dtype}_{n}crops", "ms_per_call": call_ms,
+                    "crops_per_s": n / call_ms * 1e3, "host_ms": ms,
+                    "kernels_per_call": prof["kernels_per_step"], "busy_ms_per_call": busy,
+                    "idle_share": 1.0 - busy / call_ms, "k5_share": share["K5"],
+                    "conv_share": share["conv"], "traces": prof["traces"],
+                    "top_kernel_families_launches_ms_per_call": dict(top), "card": card}))
+        small, large = REID_BENCH_CROPS[0], REID_BENCH_CROPS[-1]
+        cpu = ReID(weights=weights, device="cpu").get_features(boxes[small][:8], img)
+        err = float(np.abs(feats["fp32", small][:8] - cpu).max())
+        cos = min(float(np.dot(a, b)) for a, b in zip(feats["fp32", large], feats["bf16", large]))
+        print(f"ReID {name}: card fp32 features against the CPU port's on 8 crops, max diff "
+              f"{err:.3g}; bf16 against fp32 on {large} crops, least cosine {cos:.5f}")
+        if not (err <= 1e-4 and cos >= 0.99):
+            raise AssertionError(f"ReID {name}: the card's features differ (fp32 vs cpu {err}, "
+                                 f"bf16 cosine {cos})")
+
+
 # the depth of the bench lines of earlier slices (frames a sequence), cut from
 # N_FRAMES to make room for StrongSORT's and HybridSORT's within the run's time
 EARLIER_FRAMES = 128
@@ -1889,6 +2239,7 @@ def run_phases(lap, smi, cpu_jobs, cache_root):
     checks["oru_replay"], xyscr_rows = check_k4(rng, step_calls)
     del step_calls
     check_kalman_obb(rng)
+    checks["extract_crops"] = check_k5(rng)
     lap("phase 3 (kernels against their twins)")
 
     check_sync_mode_is_live()
@@ -1925,8 +2276,16 @@ def run_phases(lap, smi, cpu_jobs, cache_root):
               sync_free=False)
     drive("live bytetrack 300 detections", run_live_crowded, RATIOS["bytetrack"][0],
           sync_free=False)
-    lap("phase 6 (live)")
+    lap("phase 6a-d (live)")
+    weights = reid_checkpoint(cache_root.parent, "osnet_x0_25", seed=2)
+    for tracker in ("botsort", "deepocsort"):  # K5 once a frame: every frame has detections
+        drive(f"live {tracker} ReID", lambda: run_live_reid(tracker, weights),
+              {**RATIOS[tracker][0], "extract_crops": 1}, sync_free=False)
+    lap("phase 6e (live ReID)")
     run_throughput(smi, lap)
+    drive("bench ReID", lambda: run_reid_bench(smi, cache_root.parent), {"extract_crops": 1},
+          sync_free=False)
+    lap("phase 7f (ReID lines)")
     return checks, xyscr_rows
 
 
@@ -1968,12 +2327,13 @@ def main() -> int:
     print(json.dumps({"k4_xyscr": [
         {"set": label, "ms": r[0], "wrapper_ms": r[1], "plain_ms": r[2], "bound_ms": r[3],
          "bound_by": r[4]} for label, r in xyscr_rows]}))
-    # library_ms: no single PyTorch call computes any of the four functions
+    # library_ms: no single PyTorch call computes K1-K4's functions; K5's is
+    # F.grid_sample's sampling of the same crops
     kernels = [
         {"name": name, "route": "cuda", "source": f"boxmot_tpu_torch/csrc/{src}.cu",
          "replaces": replaces, "launches": LAUNCHES[name],
          **{k: checks[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None}
+         "library_ms": checks[name].get("library_ms")}
         for name, (_, src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

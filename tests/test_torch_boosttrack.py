@@ -49,7 +49,7 @@ from boxmot_tpu_torch.engine.replay import pack_embs, pack_frames, pack_warps
 from boxmot_tpu_torch.trackers import boosttrack as tbt
 from chip_smoke import occlusion_frames
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
-from tests.test_torch_botsort import _warps
+from tests.test_torch_botsort import _warps, assert_reid_model_rule
 from tests.test_torch_bytetrack import _public_frames
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
@@ -272,8 +272,7 @@ def test_config_state_and_defaults_mirror_jax():
                                                                             device="cpu", **kw)
     assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg)
     assert tt.cmc is None and type(create_tracker("boosttrack", device="cpu").cmc).__name__ == "ECC"
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        create_tracker("boosttrack", device="cpu", reid_model=object())
+    assert_reid_model_rule("boosttrack", with_reid=True, **kw)
 
 
 @pytest.mark.parametrize("root_name", ["mot17_mini", "synth_long"])

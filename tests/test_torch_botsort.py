@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 from pathlib import Path
 
 import jax
@@ -249,8 +250,20 @@ def test_live_config_resolution_equals_jax():
     assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg)
     assert tt.cmc is None and jt.cmc is None
     assert type(create_tracker("botsort", device="cpu").cmc).__name__ == "SOF"  # the YAML's
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        create_tracker("botsort", device="cpu", reid_model=object())
+    assert_reid_model_rule("botsort", with_reid=True, **kw)
+
+
+def assert_reid_model_rule(name: str, with_reid: bool, **kw):
+    """With a ``reid_model`` (here any object with the reference's
+    ``feature_dim``), the live tracker keeps the model or not by its JAX
+    shell's rule and sizes its embeddings by it, as the JAX tracker does;
+    for a tracker with a ``with_reid`` option, with it on and off."""
+    model = types.SimpleNamespace(feature_dim=64)
+    for extra in ({}, {"with_reid": True}, {"with_reid": False})[:3 if with_reid else 1]:
+        jt = boxmot_tpu.create_tracker(name, reid_model=model, **kw, **extra)
+        tt = create_tracker(name, device="cpu", reid_model=model, **kw, **extra)
+        assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg), extra
+        assert tt.model is jt.model, extra
 
 
 def test_live_update_with_embeddings_equals_jax():

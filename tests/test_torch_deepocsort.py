@@ -40,6 +40,7 @@ from boxmot_tpu_torch.ops import oru
 from boxmot_tpu_torch.trackers import deepocsort as td
 from chip_smoke import appearance_frames
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
+from tests.test_torch_botsort import assert_reid_model_rule
 from tests.test_torch_bytetrack import _public_frames
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
@@ -178,8 +179,7 @@ def test_config_state_and_defaults_mirror_jax():
     kw = dict(delta_t=2, aw_off=True, Q_xy_scaling=0.1, cmc_off=True)
     jt, tt = boxmot_tpu.create_tracker("deepocsort", **kw), create_tracker("deepocsort", device="cpu", **kw)
     assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg) and tt.cmc is None
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        create_tracker("deepocsort", device="cpu", reid_model=object())
+    assert_reid_model_rule("deepocsort", with_reid=False, **kw)
 
 
 @pytest.mark.parametrize("with_embs", [True, False], ids=["embs", "ones"])

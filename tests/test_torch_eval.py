@@ -190,8 +190,10 @@ def test_port_import_and_eval_leave_jax_out():
     HybridSORT, sam2mot) and its live API (ByteTrack, OC-SORT, BoT-SORT with
     its default SOF and with ECC, DeepOCSORT with ECC and embeddings,
     BoostTrack with ECC, OccluBoost with its default SOF, StrongSORT and
-    HybridSORT with ECC and embeddings, sam2mot), loads neither JAX nor any
-    module of the JAX package."""
+    HybridSORT with ECC and embeddings, sam2mot) and its ReID (BoT-SORT and
+    DeepOCSORT computing their embeddings with ``reid_weights``, the facade's
+    ``get_features_multi`` on rotated boxes), loads neither JAX nor any module
+    of the JAX package."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
@@ -233,6 +235,16 @@ def test_port_import_and_eval_leave_jax_out():
         "    for _ in range(3):\n"
         "        out = trk.update(dets, img, embs if name != 'bytetrack' else None)\n"
         "    assert out.shape == (2, 8) and sorted(out.id) == [1, 2], out\n"
+        "for name in ('botsort', 'deepocsort'):\n"
+        "    trk = boxmot_tpu_torch.create_tracker(name, device='cpu', reid_weights='osnet_x0_25',\n"
+        "                                          use_cmc=False, cmc_off=True)\n"
+        "    for _ in range(3):\n"
+        "        out = trk.update(dets, img)\n"
+        "    assert out.shape == (2, 8) and type(trk.model).__name__ == 'ReID', out\n"
+        "from boxmot_tpu_torch.reid import create_reid\n"
+        "obb = np.array([[30, 50, 20, 40, 0.3], [230, 100, 30, 60, -2.0]], np.float32)\n"
+        "f = create_reid(device='cpu', crop_hw=(64, 32)).get_features_multi([obb, obb[:1]], [img, img])\n"
+        "assert [a.shape for a in f] == [(2, 512), (1, 512)]\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"

@@ -46,6 +46,7 @@ from boxmot_tpu_torch.ops import oru
 from boxmot_tpu_torch.trackers import hybridsort as th
 from chip_smoke import occlusion_frames, oru_inputs
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
+from tests.test_torch_botsort import assert_reid_model_rule
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 RTOL = 1e-4
@@ -248,8 +249,7 @@ def test_config_state_and_defaults_mirror_jax():
         assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg)
         assert type(tt.cmc).__name__ == type(jt.cmc).__name__ == "ECC"
     assert th.HybridSort._id_emit_offset == jh.HybridSort._id_emit_offset == 1
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        create_tracker("hybridsort", device="cpu", reid_model=object())
+    assert_reid_model_rule("hybridsort", with_reid=True)
 
 
 @pytest.mark.parametrize("per_class", [False, True], ids=["all-classes", "per-class"])

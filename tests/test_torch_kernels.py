@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from boxmot_tpu_torch.ops.crops import extract_crops, extract_crops_plain
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
@@ -22,6 +23,8 @@ from chip_smoke import (
     ORU_EDGES,
     XYSCR_EDGES,
     _tiny_boxes,
+    crop_boxes,
+    crop_frame,
     crossed_quads,
     oru_edge_inputs,
     oru_inputs,
@@ -375,3 +378,46 @@ def test_oru_kernel_on_hybridsort_steps_bit_equal_to_twin_on_the_cpu(card):
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
         rejoined += int(rejoin.sum())
     assert len(calls) == 12 and rejoined > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+@pytest.mark.parametrize("n, hw", [(64, (256, 128)), (3, (7, 5)), (300, (64, 32))])
+def test_crops_kernel_bit_equal_to_twin(card, n, hw, obb, dtype):
+    """K5 against its twin on the card and on the CPU: a textured 1080p frame,
+    boxes past every edge, sub-pixel, unit padding boxes, angles of +-pi/2 and
+    +-pi; ragged crop sizes (7 x 5) and more crops than one facade chunk."""
+    rng = np.random.default_rng(n + obb)
+    frame = torch.from_numpy(crop_frame(n)).to(card)
+    boxes = torch.from_numpy(crop_boxes(rng, n, obb)).to(card)
+    got = extract_crops(frame, boxes, hw, obb, dtype)
+    want = extract_crops_plain(frame, boxes, hw, obb, dtype)
+    cpu = extract_crops_plain(frame.cpu(), boxes.cpu(), hw, obb, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 3, *hw) and got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+
+
+def test_crops_kernel_takes_an_empty_batch_and_counts_launches(card):
+    frame = torch.from_numpy(crop_frame(0)).to(card)
+    before = extract_crops.launches
+    assert extract_crops(frame, torch.zeros((0, 4), device=card), (8, 4)).shape == (0, 3, 8, 4)
+    assert extract_crops.launches == before
+    extract_crops(frame, torch.tensor([[0.0, 0, 10, 10]], device=card), (8, 4))
+    assert extract_crops.launches == before + 1
+
+
+def test_reid_facade_on_the_card_equals_the_cpu(card, tmp_path):
+    """The facade on the card (K5 and cuDNN, TF32 off) against the CPU port,
+    fp32 features within 1e-4; bf16 at cosine >= 0.99 to fp32."""
+    from boxmot_tpu_torch.reid import ReID
+    from chip_smoke import reid_checkpoint
+
+    weights = reid_checkpoint(tmp_path, "osnet_x0_25")
+    img = crop_frame(7)
+    boxes = crop_boxes(np.random.default_rng(7), 20, False)[8:]
+    got = ReID(weights=weights, device=card).get_features(boxes, img)
+    want = ReID(weights=weights, device="cpu").get_features(boxes, img)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    half = ReID(weights=weights, device=card, half=True).get_features(boxes, img)
+    assert (half * got).sum(axis=1).min() >= 0.99

@@ -48,6 +48,7 @@ from boxmot_tpu_torch.trackers import boosttrack as tbt
 from boxmot_tpu_torch.trackers import occluboost as tob
 from chip_smoke import REID, REID_DETECTOR, reid_caches
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
+from tests.test_torch_botsort import assert_reid_model_rule
 from tests.test_torch_boosttrack import (
     FEAT,
     N_FRAMES,
@@ -223,8 +224,7 @@ def test_config_state_and_defaults_mirror_jax():
     assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg)
     assert tt.gta_smooth_tau == jt.gta_smooth_tau and tt.cmc is None
     assert type(create_tracker("occluboost", device="cpu").cmc).__name__ == "SOF"  # the YAML's
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        create_tracker("occluboost", device="cpu", reid_model=object())
+    assert_reid_model_rule("occluboost", with_reid=True, **kw)
 
 
 @pytest.mark.parametrize("root_name", ["mot17_mini", "synth_long"])

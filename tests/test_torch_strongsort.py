@@ -39,6 +39,7 @@ from boxmot_tpu_torch.motion import kalman as tk
 from boxmot_tpu_torch.trackers import strongsort as ts
 from chip_smoke import occlusion_frames
 from tests.test_pinned_metrics import PINNED, ROOTS, assert_pinned
+from tests.test_torch_botsort import assert_reid_model_rule
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 RTOL = 1e-4
@@ -190,8 +191,7 @@ def test_config_state_and_defaults_mirror_jax():
     jt, tt = boxmot_tpu.create_tracker("strongsort", **kw), create_tracker("strongsort", device="cpu", **kw)
     assert dataclasses.asdict(tt.cfg) == dataclasses.asdict(jt.cfg)
     assert type(tt.cmc).__name__ == type(jt.cmc).__name__ == "ECC"
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        create_tracker("strongsort", device="cpu", reid_model=object())
+    assert_reid_model_rule("strongsort", with_reid=False, **kw)
 
 
 @pytest.mark.parametrize("per_class", [False, True], ids=["all-classes", "per-class"])
