@@ -8,9 +8,13 @@ compensation (ECC on the device), on one NVIDIA H100, or on the CPU
 through each kernel's plain PyTorch twin; and sam2mot, a host tracker in
 both packages.  A live appearance tracker can compute its embeddings from
 the frame with the ReID facade (``reid``: crops on the card, OSNet from
-torchreid checkpoints).  The hot ops of the tracker steps are
-kernels written by hand for Hopper (``csrc/``), built with nvcc on first
-use.  The package imports torch, numpy, scipy and cv2 (the OBB metric),
+torchreid checkpoints).  Images become tracks through the YOLOX detector
+(``detectors``: ``YoloXDetector``, ``Detector``, yolox checkpoints, NMS on
+the card), the staged ``engine.inference.DetectorReIDPipeline`` or the
+fused ``engine.fused.FusedLiveTracker`` (detect, crop, ReID and track on
+the card with no host sync inside a frame).  The hot ops of the tracker
+steps and the detector's NMS are kernels written by hand for Hopper
+(``csrc/``), built with nvcc on first use.  The package imports torch, numpy, scipy and cv2 (the OBB metric),
 and nothing of JAX or of the JAX package: it keeps its own copies of the
 host modules it needs (``data``, ``engine.metrics``, ``engine.mot_io``,
 ``engine.results``, ``trackers.per_class_ids``, ``trackers.track_results``).
@@ -21,6 +25,12 @@ Entry points, on the card unless ``device="cpu"`` is given::
     boxmot_tpu_torch.run_eval_obb(mmot_root, "ocsort")
     tracker = boxmot_tpu_torch.create_tracker("ocsort")
     tracker.update(dets, img)  # (N, 6) xyxy or (N, 7) xywha detections
+    from boxmot_tpu_torch.detectors import create_detector
+    from boxmot_tpu_torch.engine.fused import FusedLiveTracker
+    from boxmot_tpu_torch.reid import ReID
+    det = create_detector("yolox_x_MOT17_ablation.pt")  # a yolox checkpoint
+    live = FusedLiveTracker(det, ReID("osnet_x0_25"), "occluboost")
+    live.update(frame_bgr)  # (M, 8) rows
 """
 
 from boxmot_tpu_torch.engine.eval import run_eval

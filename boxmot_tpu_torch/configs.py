@@ -4,6 +4,8 @@
 The JAX package reads ``configs/trackers/<name>.yaml`` with ``yaml``, which
 the machine with the card may not have, so the defaults of the trackers the
 port runs are written out here.  A CPU test holds them equal to the YAML.
+A caller's own YAML file (``create_tracker(tracker_config=path)``) is read
+with ``yaml`` where it is installed (``load_tracker_yaml``).
 """
 
 from __future__ import annotations
@@ -208,6 +210,44 @@ _DEFAULTS = {
         "new_track_thresh": 0.5,
     },
 }
+
+
+def flatten_config(specs: dict) -> dict:
+    """Specs -> {param: default} runtime kwargs (a copy of
+    ``boxmot_tpu/configs/__init__.py::flatten_config``, :31-51).
+
+    Mirrors reference flatten_yaml_config (search_space.py:43-62): entries
+    with an ``activates`` block have all descendants promoted to the top
+    level; parents keep their own default.
+    """
+    out = {}
+
+    def _visit(entries: dict) -> None:
+        for key, spec in entries.items():
+            if isinstance(spec, dict) and "default" in spec:
+                out[key] = spec["default"]
+                children = spec.get("activates")
+                if isinstance(children, dict):
+                    _visit(children)
+            else:
+                out[key] = spec
+
+    _visit(specs)
+    return out
+
+
+def load_tracker_yaml(path) -> dict:
+    """The runtime params of a tracker YAML file (param specs flattened to
+    their defaults), as the JAX zoo reads a ``tracker_config`` path.
+    ``yaml`` is imported here alone: the default paths never need it."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            f"reading the tracker config {str(path)!r} needs PyYAML, which is not installed; pass "
+            "the params as a dict (tracker_config={...}) or as keyword arguments") from e
+    with open(path) as f:
+        return flatten_config(yaml.safe_load(f) or {})
 
 
 def get_tracker_defaults(name: str) -> dict:

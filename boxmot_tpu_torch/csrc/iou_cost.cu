@@ -53,9 +53,12 @@
 // Arithmetic must equal the plain PyTorch twin bit for bit (the cost decides
 // near-ties in the auction): every operation is written with an
 // explicitly rounded intrinsic, and the library is built with -fmad=false,
-// so `1 - iou * conf` is never contracted into an FMA.
+// so `1 - iou * conf` is never contracted into an FMA.  A NaN propagates as
+// in the twin (torch.maximum and clamp_min keep it), so a box with a NaN
+// coordinate gets NaN IoUs on the card as on the CPU.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
@@ -65,19 +68,28 @@ __device__ __forceinline__ float box_area(const float4 b) {
   return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
 }
 
+// PyTorch's NaN-propagating maximum and minimum (torch.maximum, clamp_min):
+// fmaxf and fminf return the other operand for a NaN, the twin keeps the NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? CUDART_NAN_F : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? CUDART_NAN_F : fminf(a, b);
+}
+
 __device__ __forceinline__ float pair_iou(const float4 t, const float area_t, const float4 b,
                                           const float area_d, const float eps) {
-  const float xx1 = fmaxf(t.x, b.x);
-  const float yy1 = fmaxf(t.y, b.y);
-  const float xx2 = fminf(t.z, b.z);
-  const float yy2 = fminf(t.w, b.w);
-  const float inter = __fmul_rn(fmaxf(__fsub_rn(xx2, xx1), 0.0f),
-                                fmaxf(__fsub_rn(yy2, yy1), 0.0f));
-  // a zero intersection is the quotient itself: the clamped union is at
-  // least eps > 0 and never NaN
-  if (inter == 0.0f) return inter;
+  const float xx1 = max_nan(t.x, b.x);
+  const float yy1 = max_nan(t.y, b.y);
+  const float xx2 = min_nan(t.z, b.z);
+  const float yy2 = min_nan(t.w, b.w);
+  const float inter = __fmul_rn(max_nan(__fsub_rn(xx2, xx1), 0.0f),
+                                max_nan(__fsub_rn(yy2, yy1), 0.0f));
   const float uni = __fsub_rn(__fadd_rn(area_t, area_d), inter);
-  return __fdiv_rn(inter, fmaxf(uni, eps));
+  // a zero intersection is the quotient itself: the clamped union is at
+  // least eps > 0, unless it is NaN (an infinite side times a zero one)
+  if (inter == 0.0f && !isnan(uni)) return inter;
+  return __fdiv_rn(inter, max_nan(uni, eps));
 }
 
 // the first n (1..4) of v to p: one float4 when kVec (then n == 4 and p is

@@ -1,4 +1,5 @@
-"""OSNet weights: torchreid checkpoints, and the JAX package's Flax variables.
+"""OSNet and YOLOX weights: torchreid and yolox checkpoints, and the JAX
+package's Flax variables.
 
 Counterpart of the OSNet part of ``boxmot_tpu/models/convert.py``.  The
 port's ``OSNet`` modules carry torchreid's attribute names, so a torchreid
@@ -12,6 +13,14 @@ ignored, and any other key the model lacks raises.
 ``{"params", "batch_stats"}`` tree (as numpy arrays) into the port's state
 dict: a copy of ``_Exporter`` and of ``export_osnet_state_dict`` /
 ``export_osnet_ain_state_dict`` (convert.py:385-502), with no JAX import.
+
+YOLOX (counterpart of ``boxmot_tpu/models/yolox.py::convert_yolox``, :308,
+and ``export_yolox``, :329): the port's ``YOLOX`` modules carry the yolox
+checkpoint's key names, so ``load_yolox`` only applies the JAX loader's key
+rules (a ``{"model": sd}`` wrapper and the ``model.`` prefix go,
+``num_batches_tracked`` is ignored, a key outside ``yolox_key_spec`` raises)
+and ``yolox_state_dict_from_flax`` is a JAX-free copy of ``export_yolox``
+over the Flax variables as numpy trees.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import numpy as np
 import torch
 
 from boxmot_tpu_torch.models.osnet import AIN_BLOCKS, OSNET_VARIANTS, build_osnet
+from boxmot_tpu_torch.models.yolox import yolox_key_spec
 
 BLOCKS = (2, 2, 2)  # OSBlocks a stage in every torchreid OSNet
 
@@ -188,3 +198,62 @@ def osnet_state_dict_from_flax(variables, name: str) -> dict:
     else:
         sd = _export_osnet(variables, ibn=name.startswith("osnet_ibn"))
     return convert_checkpoint(sd, name)
+
+
+def _yolox_keys(name: str) -> set:
+    """Every checkpoint key ``yolox_key_spec(name)`` names (the predictions'
+    convolutions carry a bias, the others none)."""
+    keys = set()
+    for tk, _, kind in yolox_key_spec(name):
+        if kind == "bn":
+            keys |= {f"{tk}.{k}" for k in ("weight", "bias", "running_mean", "running_var")}
+        else:
+            keys.add(f"{tk}.weight")
+            if "_preds." in tk:
+                keys.add(f"{tk}.bias")
+    return keys
+
+
+def load_yolox(path_or_dict, name: str = "yolox_x") -> dict:
+    """A yolox torch checkpoint (``{"model": state_dict}``, or the state dict
+    itself; a path or a dict) as the state dict of the port's
+    ``build_yolox(name)`` (float32 tensors), for ``load_state_dict(strict=
+    True)``.  Keys the model lacks raise, as in ``convert_yolox`` (:323-325),
+    and so do keys the checkpoint lacks."""
+    sd = {k: v for k, v in load_state_dict(path_or_dict).items()
+          if "num_batches_tracked" not in k}
+    expected = _yolox_keys(name)
+    unused = sorted(set(sd) - expected)
+    if unused:
+        raise ValueError(f"unmapped yolox checkpoint keys: {unused[:8]}...")
+    missing = sorted(expected - set(sd))
+    if missing:
+        raise ValueError(f"yolox checkpoint lacks keys of {name}: {missing[:8]}...")
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def yolox_state_dict_from_flax(variables, name: str) -> dict:
+    """The JAX package's Flax variables of YOLOX ``name`` (``{"params",
+    "batch_stats"}`` of numpy arrays) as the port's state dict: a copy of
+    ``export_yolox`` (Flax HWIO kernels -> OIHW) checked by ``load_yolox``."""
+    params, stats = variables["params"], variables["batch_stats"]
+
+    def get(tree, path):
+        for p in path:
+            tree = tree[p]
+        return tree
+
+    sd = {}
+    for tk, fpath, kind in yolox_key_spec(name):
+        if kind == "bn":
+            node, snode = get(params, fpath), get(stats, fpath)
+            sd[f"{tk}.weight"] = np.asarray(node["scale"])
+            sd[f"{tk}.bias"] = np.asarray(node["bias"])
+            sd[f"{tk}.running_mean"] = np.asarray(snode["mean"])
+            sd[f"{tk}.running_var"] = np.asarray(snode["var"])
+        else:
+            node = get(params, fpath)
+            sd[f"{tk}.weight"] = np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1))
+            if "bias" in node:
+                sd[f"{tk}.bias"] = np.asarray(node["bias"])
+    return load_yolox(sd, name)

@@ -7,8 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device report: torch's card name and nvidia-smi's name and power limit;
      the CPU references of phases 4-5 start in worker processes (spawned)
      that run beside phases 2-5;
-  2. build the five hand-written kernels from csrc/, one nvcc each, in
-     parallel;
+  2. build the six hand-written kernels from csrc/, one nvcc each, in
+     parallel; write phase 8's seeded yolox_x checkpoint (batch norms
+     calibrated on the card on two MOT17-04 letterboxes) and start its CPU
+     raw head in a worker;
   3. each kernel against its plain PyTorch twin on the card, at the main
      paths' shapes and at ragged / tie-heavy / masked / degenerate ones: K1
      in both of its modes (IoU + cost, IoU only) and with both union clamps
@@ -36,7 +38,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      every edge, sub-pixel, unit padding boxes, angles of +-pi/2 and +-pi),
      fp32 and bf16, with its device time beside its bound (bytes), the
      wrapper's and the twin's times, F.grid_sample's (the library call) and
-     once the TPU design's two dense einsums;
+     once the TPU design's two dense einsums; K6 (greedy NMS) bit-equal to
+     its twin on its edge sets (no positive score; fewer, exactly and more
+     survivors than max_out; tied scores; duplicate boxes; IoUs exactly at
+     the threshold; zero-area boxes; NaN coordinates; NaN and +-inf scores;
+     N = 1 and N = 1061; batched_class_nms's class offset), on 23,625 random
+     clustered boxes at max_out 256 and 64 and on one yolox_x frame's decoded
+     outputs at 256 and 64, each set with its device time, wrapper time,
+     twin time and bound (no library call: torchvision is absent);
   4. AABB evals: run_eval for the ten trackers (ByteTrack, SFSORT, OC-SORT,
      BoT-SORT, DeepOCSORT, BoostTrack, OccluBoost, StrongSORT, HybridSORT
      and sam2mot, the last a host tracker) on MOT17-mini and synth-long,
@@ -87,19 +96,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      profiles; and the ReID lines: ``get_features`` of osnet_x1_0 and
      osnet_x0_25, 32 / 64 / 256 crops of 256 x 128 from a 1080p frame, fp32
      and bf16 (ms a call, crops/s, a 16-call profile with K5's and the
-     convolutions' shares), the card's features against the CPU's.
-Every path of phases 4-7 runs with the launch counters set to 0 just before
+     convolutions' shares), the card's features against the CPU's;
+  8. the detector and the fused live step at full width: seeded yolox_x at
+     (800, 1440) (``run_detector_phase``): its raw head on the card (fp32,
+     TF32 off) against the CPU's; the staged ``Detector`` and
+     ``DetectorReIDPipeline`` (osnet_x0_25, no frame skipped) over the 12
+     MOT17-mini frames, with K6's kept indices held to the twin's on each
+     frame's decoded outputs; ``FusedLiveTracker`` with ByteTrack and with
+     OccluBoost + osnet_x0_25 over the same frames, each frame under
+     set_sync_debug_mode("error"), its detections equal to the staged
+     detector's and its rows to the same tracker on the CPU fed the card's
+     detections and crops; the bf16 tier; and the timing lines on 50 seeded
+     textured 1080p frames (detector ms a frame in fp32 and bf16, fused ms a
+     frame, kernels, busy ms, idle share and K6's share from a 16-frame
+     profile).
+Every path of phases 4-8 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
-auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; OC-SORT and
+auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; the detector:
+one K6 a frame, one K5 with ReID, and the fused step the tracker's own on
+top; OC-SORT and
 DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; StrongSORT: 1 IoU launch
 to 2 auctions; BoostTrack, OccluBoost and HybridSORT: as ``boost_ratio`` and
 ``hybrid_ratio`` count them from the config's options; sam2mot: none; the
 live ReID paths add one K5 launch a frame) the
 counts must keep that ratio, so no step fell back to a twin.  Phase laps
-are printed.  The line before the last is {"kernels": [...]}, with each
-kernel's launches summed over those paths (K4's over its three layouts);
+are printed.  The line before the last is {"kernels": [...]}, K1-K6, with
+each kernel's launches summed over those paths (K4's over its three
+layouts);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA card it
 exits non-zero before printing any result.
 """
@@ -123,6 +148,13 @@ import torch
 
 import boxmot_tpu_torch
 from boxmot_tpu_torch.csrc import build
+from boxmot_tpu_torch.data.loaders import iter_source
+from boxmot_tpu_torch.detectors.detector import Detector
+from boxmot_tpu_torch.detectors import registry as registry_mod
+from boxmot_tpu_torch.detectors.registry import YoloXDetector, letterbox_u8, standardize_host
+from boxmot_tpu_torch.engine import fused as fused_mod
+from boxmot_tpu_torch.engine.fused import FusedLiveTracker
+from boxmot_tpu_torch.engine.inference import DetectorReIDPipeline
 from boxmot_tpu_torch.engine.eval import build_replay_config
 from boxmot_tpu_torch.engine.eval_obb import mmot_obb_dets
 from boxmot_tpu_torch.engine.replay import (
@@ -130,6 +162,8 @@ from boxmot_tpu_torch.engine.replay import (
     init_states,
     pack_frames,
     replay_sequences_outputs,
+    resolve_tracker,
+    wants_embs,
 )
 from boxmot_tpu_torch.models.osnet import build_osnet
 from boxmot_tpu_torch.motion import kalman
@@ -144,6 +178,7 @@ from boxmot_tpu_torch.ops.fused_iou_cost import (
 )
 from boxmot_tpu_torch.ops.geometry import obb_corners, wrap_angle
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
+from boxmot_tpu_torch.ops.nms import CLASS_OFFSET, batched_class_nms, nms, nms_plain
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
@@ -279,8 +314,13 @@ KERNELS = {  # counter name -> (wrapper, source, the TPU kernel or JAX function 
     "rotated_iou": (rotated_iou, "rotated_iou", "boxmot_tpu/ops/pallas_rotated_iou.py:136"),
     "oru_replay": (oru_replay, "oru", "boxmot_tpu/trackers/ocsort.py:310"),
     "extract_crops": (extract_crops, "crops", "boxmot_tpu/ops/crops.py:71"),
+    "nms": (nms, "nms", "boxmot_tpu/ops/nms.py:21"),
 }
 CROP_HW = (256, 128)  # the ReID facade's crops (the JAX ReID's default)
+DET_IMGSZ = (800, 1440)  # YoloXDetector's default input (the yolox_x MOT17 model's)
+FUSED_MAX_DETS = 64  # FusedLiveTracker's default detection capacity
+TIMING_FRAMES, PROFILE_FRAMES = 50, 16  # phase 8's timing lines
+CARD = "cuda"  # the device of phase 3's K6 sets and of phase 8
 FRAME_HW = (1080, 1920)
 LAUNCHES = {name: 0 for name in KERNELS}  # summed over the driven paths
 
@@ -657,13 +697,34 @@ def _tiny_boxes(S, K, D):
     return trk, det
 
 
+def _nonfinite_boxes(rng, S, K, D):
+    """Boxes with NaN and infinite coordinates: a NaN side, infinite corners,
+    and an infinite side times a zero one (a NaN area beside a zero
+    intersection)."""
+    trk, det = _boxes(rng, S, K), _boxes(rng, S, D)
+    trk[:, 3::9, 0] = np.nan
+    trk[:, 5::9, 2] = np.inf
+    trk[:, 6::9] = [0, 50, np.inf, 50]
+    det[:, 1::7, 3] = np.nan
+    det[:, 2::7, :2] = -np.inf
+    det[:, 4::7] = [10, 0, 10, np.inf]
+    return trk, det
+
+
+def same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal, NaN where the other is NaN (``torch.equal`` calls NaN unequal)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
 def check_k1(rng, step_calls):
     """K1 bit-equal to its twin in both modes (with conf: IoU and cost;
     without: the IoU alone) and with both union clamps (the TPU kernel's
     default, iou_batch's that the tracker steps pass) at the step's shapes,
     a live frame's 512 detections and two shapes that take the scalar path
-    (D % 4 != 0), with confidences that are not 16-byte aligned, and on
-    boxes whose unions lie below 1e-9; the launch floor (an empty kernel
+    (D % 4 != 0), with confidences that are not 16-byte aligned, on boxes
+    with NaN and infinite coordinates (NaN IoUs where the twin's are NaN),
+    and on boxes whose unions lie below 1e-9; the launch floor (an empty kernel
     through the same ctypes path, on one block and on K1's grids); then
     each of the bench step's two launches timed in its own mode."""
     cases = []
@@ -672,6 +733,7 @@ def check_k1(rng, step_calls):
         det = _boxes(rng, S, D)
         det[:, : D // 2] = trk[:, :1] + rng.uniform(-30, 30, (S, D // 2, 4))
         cases.append(("", trk, det))
+    cases.append((", NaN and infinite boxes", *_nonfinite_boxes(rng, 2, 64, 77)))
     cases.append((", tiny boxes", *_tiny_boxes(2, 8, 12)))
     for tag, trk, det in cases:
         S, K, D = trk.shape[0], trk.shape[1], det.shape[1]
@@ -682,7 +744,7 @@ def check_k1(rng, step_calls):
                                ("iou+cost, conf 4 bytes off", full[:2] + [_offset_copy(full[2])])):
                 got, want = fused_iou_cost(*args, **kw), fused_iou_cost_plain(*args, **kw)
                 torch.cuda.synchronize()
-                same = [g is w or torch.equal(g, w) for g, w in zip(got, want)]
+                same = [g is w or same_or_both_nan(g, w) for g, w in zip(got, want)]
                 if not all(same):
                     raise AssertionError(f"K1 {mode}{tag}, {clamp} at S={S} K={K} D={D}: not "
                                          f"bit-equal to the twin (iou {same[0]}, cost {same[1]})")
@@ -1383,6 +1445,137 @@ def check_k5(rng):
     return entry
 
 
+def nms_boxes(rng, n, span=(1440.0, 800.0), clusters=None, size=(8.0, 200.0)):
+    """n boxes (n, 4) xyxy on a ``span`` image, around ``clusters`` centres
+    (n // 8 by default) so that many overlap, and scores (n,) in (0, 1)."""
+    k = clusters or max(1, n // 8)
+    centres = rng.uniform(0, span, (k, 2))
+    c = centres[rng.integers(0, k, n)] + rng.normal(0, 6.0, (n, 2))
+    wh = rng.uniform(*size, (n, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+    return boxes, rng.uniform(0.001, 1.0, n).astype(np.float32)
+
+
+def nms_edge_sets(rng):
+    """K6's edge sets: (label, boxes (N, 4), scores (N,), classes (N,) or
+    None for plain NMS, iou_thresh, max_out)."""
+    sets = []
+    b, s = nms_boxes(rng, 300)
+    s = (-np.abs(s) * (np.arange(300) % 2)).astype(np.float32)
+    sets.append(("no positive score", b, s, None, 0.7, 64))
+    b, s = nms_boxes(rng, 40, clusters=40, size=(4.0, 10.0))
+    sets.append(("fewer survivors than max_out", b, s, None, 0.7, 64))
+    grid = np.stack(np.meshgrid(np.arange(8) * 20.0, np.arange(8) * 20.0), -1).reshape(-1, 2)
+    b = np.concatenate([grid, grid + 10.0], 1).astype(np.float32)
+    sets.append(("exactly max_out", b, rng.uniform(0.1, 1, 64).astype(np.float32), None, 0.5, 64))
+    b, s = nms_boxes(rng, 2000)
+    sets.append(("more survivors than max_out", b, s, None, 0.7, 64))
+    b, s = nms_boxes(rng, 500)
+    sets.append(("tied scores", b, (np.ceil(s * 4) / 4).astype(np.float32), None, 0.6, 128))
+    b, s = nms_boxes(rng, 64, clusters=8)
+    b[1::2] = b[0::2]  # duplicate boxes: IoU 1
+    s[1::4] = s[0::4]  # and duplicate (box, score) pairs
+    sets.append(("duplicate boxes", b, s, None, 0.7, 64))
+    base = np.array([[0, 0, 10, 10], [0, 0, 10, 7], [0, 0, 10, 5], [20, 20, 40, 30],
+                     [20, 20, 40, 27], [20, 20, 40, 25], [50, 0, 60, 10], [50, 0, 60, 7.0001]],
+                    np.float32)
+    sc = np.array([0.9, 0.8, 0.7, 0.95, 0.85, 0.75, 0.6, 0.5], np.float32)
+    sets.append(("IoU exactly at the threshold 0.7", base, sc, None, 0.7, 8))
+    sets.append(("IoU exactly at the threshold 0.5", base, sc, None, 0.5, 8))
+    b, s = nms_boxes(rng, 200, clusters=20)
+    b[::3, 2] = b[::3, 0]  # zero width
+    b[1::5, 3] = b[1::5, 1]  # zero height
+    b[7] = [5, 5, 5, 5]
+    sets.append(("zero-area boxes", b, s, None, 0.7, 64))
+    b, s = nms_boxes(rng, 200, clusters=20)
+    b[::7, 0] = np.nan
+    b[3::11, 3] = np.nan
+    b[5] = np.nan
+    s[int(np.argmax(s))] = np.float32(1.5)  # the first kept box has a NaN coordinate
+    b[int(np.argmax(s)), 2] = np.nan
+    sets.append(("NaN coordinates", b, s, None, 0.7, 64))
+    b, s = nms_boxes(rng, 200, clusters=20)
+    s[::9] = np.nan
+    s[4::13] = -np.inf
+    s[6::17] = np.inf
+    s[8::19] = 0.0
+    sets.append(("NaN, +-inf and zero scores", b, s, None, 0.7, 64))
+    sets.append(("N = 1", np.array([[3, 4, 50, 60]], np.float32), np.array([0.3], np.float32),
+                 None, 0.7, 4))
+    b, s = nms_boxes(rng, 1061, clusters=60)
+    sets.append(("N = 1061 (not a multiple of 32 or 1024)", b, s, None, 0.65, 256))
+    b, s = nms_boxes(rng, 600, clusters=30)
+    cls = rng.integers(0, 3, 600).astype(np.float32)
+    sets.append(("batched_class_nms (class x 4096)", b, s, cls, 0.6, 128))
+    return sets
+
+
+# K6's float operations an IoU, counted from csrc/nms.cu's pair_iou: the
+# intersection (2 max, 2 min, 2 subtractions, 2 clamps, a product), the two
+# areas (2 subtractions and a product each), the union (an addition, a
+# subtraction, a clamp), the quotient and the comparison with the threshold
+K6_OPS_PER_IOU = 9 + 6 + 3 + 2
+
+
+def k6_bound(n, max_out, n_iou):
+    """(least ms, by): the boxes and scores read once (N x 20 bytes), the
+    kept indices and mask written once (max_out x 5), and the IoUs this
+    run's data needed (counted by the kernel)."""
+    return measure.bound_ms(n * 20 + max_out * 5, n_iou * K6_OPS_PER_IOU)
+
+
+def _k6_set(label, boxes, scores, classes, thresh, max_out, reps=10):
+    """K6 bit-equal to its twin (both on the card) on one set, and its line:
+    device ms a launch (torch.profiler), the wrapper's (CUDA events), the
+    twin's and the bound.  Returns the row (device, wrapper, plain, bound,
+    by)."""
+    dev = torch.device(CARD)
+    b, sc = torch.as_tensor(boxes).to(dev), torch.as_tensor(scores).to(dev)
+    c = None if classes is None else torch.as_tensor(classes).to(dev)
+    counts = torch.zeros(1, dtype=torch.int64, device=dev)
+    if c is not None:  # batched_class_nms: the offset, then the set as plain NMS
+        b = b + c.to(torch.float32)[:, None] * CLASS_OFFSET
+    got = nms(b, sc, thresh, max_out, counts=counts)
+    want = nms_plain(b, sc, thresh, max_out)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K6 {label}: keep_idx differs from the twin's "
+                             f"({int((got[0] != want[0]).sum())} entries)")
+    if c is not None:
+        via = batched_class_nms(torch.as_tensor(boxes).to(dev), sc, c, thresh, max_out)
+        if not torch.equal(via[0], got[0]):
+            raise AssertionError(f"K6 {label}: batched_class_nms differs from its offset")
+    n_iou, kept = int(counts), int(got[1].sum())
+    call = lambda: nms(b, sc, thresh, max_out)  # noqa: E731
+    row = (measure.device_ms(call, "nms_kernel", reps=reps), measure.event_ms(call, reps=reps),
+           measure.event_ms(lambda: nms_plain(b, sc, thresh, max_out), reps=2, warmup=1),
+           *k6_bound(b.shape[0], max_out, n_iou))
+    print(f"K6 {label} (N = {b.shape[0]}, max_out {max_out}): bit-equal to the twin, {kept} kept, "
+          f"{n_iou} IoUs; device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
+          f"{row[2]:.4f} ms, bound {row[3]:.6f} ms ({row[4]})")
+    return row
+
+
+def check_k6(rng, decoded):
+    """K6 bit-equal to its twin on the card on the edge sets
+    (``nms_edge_sets``), on N = 23,625 random clustered boxes (YOLOX's
+    anchors at (800, 1440); a third of the scores below the detector's conf)
+    at max_out 256 and 64, on the decoded outputs of one yolox_x frame
+    (``decoded``: boxes and conf-masked scores) at the detector's 256 and the
+    fused step's 64, each with its times and bound; the kernels line takes
+    the yolox frame's two rows."""
+    for label, boxes, scores, classes, thresh, max_out in nms_edge_sets(rng):
+        _k6_set(label, boxes, scores, classes, thresh, max_out)
+    for max_out in (256, 64):
+        boxes, scores = nms_boxes(rng, 23625)
+        scores[rng.random(23625) < 1 / 3] = -1.0
+        _k6_set("random clustered boxes", boxes, scores, None, 0.7, max_out, reps=5)
+    boxes, masked = decoded
+    rows = [_k6_set("yolox_x frame's decoded outputs", boxes, masked, None, 0.7, max_out, reps=5)
+            for max_out in (256, FUSED_MAX_DETS)]
+    return {**timing(0.0, rows), "library_ms": None}
+
+
 def drive(label, fn, ratio, sync_free=True):
     """Drive one path with every launch counter at 0; ``ratio`` gives the
     fixed launches per step of the kernels the path must run (others must
@@ -1427,13 +1620,17 @@ def check_sync_mode_is_live():
 
 def cpu_job(kind, tracker, arg):
     """A CPU reference of phases 4-5, run in a worker process while the card
-    works: for kind "eval", the MOT rows of ``run_eval`` of ``tracker`` on
+    works: for kind "yolox", the raw heads of ``yolox_raw_heads(*arg)``
+    (phase 8); for kind "eval", the MOT rows of ``run_eval`` of ``tracker`` on
     fixture ``arg``; for "obb", the corner rows of ``run_eval_obb`` on
     mmot-mini and the tracks of its replay; for "reid", the replay outputs of
     the cache-fed config (``REID_PARAMS``) over the seeded caches under
     ``arg`` (``reid_caches``), for OccluBoost with each sequence's gap rows
     and resurrections from its final state."""
     torch.set_num_threads(1)
+    if kind == "yolox":  # the detector's raw heads: a yolox_x forward is some 800 GFLOP
+        torch.set_num_threads(4)
+        return yolox_raw_heads(*arg)
     if kind == "eval":
         with tempfile.TemporaryDirectory() as tmp:
             boxmot_tpu_torch.run_eval(ROOTS[arg], tracker, device="cpu", output_dir=Path(tmp))
@@ -1922,6 +2119,73 @@ def reid_checkpoint(root: Path, name: str, seed: int = 0, crop_hw=CROP_HW) -> Pa
     return path
 
 
+def calibrate_batch_norms(model: torch.nn.Module, x: torch.Tensor, floor: float = 1.0):
+    """Set each batch norm's running statistics from ``x``'s forward pass (in
+    eval mode, layer after layer, so that each sees its inputs as the
+    calibrated net gives them): mean 0 and variance the mean square of its
+    input, at least ``floor``.  A loud channel is scaled down to a unit root
+    mean square and a quiet one is left as it is.  Subtracting calibrated
+    means, or amplifying quiet channels (a floor near 0), makes a random
+    YOLOX chaotic: a relative change of 1e-7 at the input, float32 rounding
+    between two devices' convolutions, then grows to 1e-4 at the head."""
+    def hook(mod, inputs):
+        sq = inputs[0].detach().double().square().mean(dim=(0, 2, 3))
+        mod.running_mean.zero_()
+        mod.running_var.copy_(sq.clamp_min(floor).to(mod.running_var.dtype))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def letterboxed_frames(frames, imgsz):
+    """uint8 BGR frames -> a (B, 3, h, w) float32 batch of the detector's
+    standardized letterboxes (``YoloXDetector.preprocess``)."""
+    std = [standardize_host(letterbox_u8(f, imgsz)[0]) for f in frames]
+    return torch.from_numpy(np.stack(std)).permute(0, 3, 1, 2).contiguous()
+
+
+def yolox_checkpoint(root: Path, name: str, frames, imgsz, seed: int = 0,
+                     device="cpu") -> Path:
+    """A yolox torch checkpoint (``{"model": state_dict}``, the batch norms'
+    counters included) of YOLOX ``name`` with seeded random weights:
+    He-scaled convolutions, the class and objectness predictions eight
+    times larger (so that the scores spread) and the box regression at a
+    unit gain (its width and height logits go through ``exp``: larger ones
+    make boxes of 1e12 px or infinite ones on some frames), batch-norm scales
+    in [0.5, 1.5], small biases, and batch norms calibrated on the
+    letterboxes of ``frames`` (``calibrate_batch_norms``) on ``device``.
+    PyTorch's default initialization (a gain of 1/3 a layer) leaves the
+    net's output the same for every input.  Written to ``root/<name>.pth``
+    (the file name picks the variant)."""
+    from boxmot_tpu_torch.models.yolox import build_yolox
+
+    model = build_yolox(name)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod_name, m in model.named_modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                gain = {"cls_preds": 16.0, "obj_preds": 16.0, "reg_preds": 1.0}.get(
+                    mod_name.split(".")[-2], 2.0)
+                m.weight.normal_(0.0, math.sqrt(gain / fan_in), generator=gen)
+                if m.bias is not None:
+                    m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    model.to(device)
+    calibrate_batch_norms(model, letterboxed_frames(frames, imgsz).to(device))
+    path = root / f"{name}.pth"
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}, "epoch": 1}, path)
+    return path
+
+
 def run_live_reid(tracker, weights: Path):
     """Phase 6e: the live tracker computing its embeddings with its ReID
     (``create_tracker(tracker, reid_weights=weights)``, osnet_x0_25, K5 on the
@@ -1976,6 +2240,242 @@ def run_live_reid(tracker, weights: Path):
           f"ms/frame (host clock, frames 2-50)")
     if not all(len(d) for d in frames):
         raise AssertionError("a frame without detections: K5's launches are not one a frame")
+
+
+def mot17_frames() -> dict:
+    """{sequence: its frames} of MOT17-mini (MOT17-02's 4 and MOT17-04's 8
+    1920 x 1080 JPEGs), read by the port's ``iter_source``."""
+    return {seq.name: [f for _, f in iter_source(seq)]
+            for seq in sorted(ROOTS["mot17_mini"].iterdir()) if (seq / "img1").is_dir()}
+
+
+def yolox_raw_heads(ckpt: str, frames) -> list:
+    """The raw heads (N, 5 + C) of ``frames`` through the port's detector on
+    the CPU (float32), for the card-against-CPU check."""
+    det = YoloXDetector(ckpt, device="cpu", imgsz=DET_IMGSZ)
+    with torch.no_grad():
+        return [det.model(torch.from_numpy(det.preprocess(f)[0]).permute(2, 0, 1)[None])[0]
+                .numpy() for f in frames]
+
+
+def decoded_scores(det, frame):
+    """(boxes, conf-masked scores) of a frame as the detector hands them to
+    NMS, on the card."""
+    with measure.record_calls(registry_mod, ["nms"]) as calls:
+        det.process(det.preprocess(frame)[0])
+    (boxes, masked, *_), _ = calls["nms"][0]
+    return boxes, masked
+
+
+def _box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pairwise IoU of (N, 4) and (M, 4) xyxy boxes, float64."""
+    a, b = a.astype(np.float64)[:, None], b.astype(np.float64)[None]
+    wh = (np.clip(np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]), 0, None)
+          * np.clip(np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]), 0, None))
+    area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])  # noqa: E731
+    return wh / np.maximum(area(a) + area(b) - wh, 1e-12)
+
+
+def _fused_vs_cpu(label, fused, seqs, staged, reid_cpu):
+    """Drive ``fused`` over every sequence (reset between them) on the card,
+    each frame under set_sync_debug_mode("error") with the launch counts held
+    to its ratio, keeping each frame's step inputs (dets, det_valid, embs)
+    and K5's crops; then hold its detections to the staged detector's
+    (``staged``: {sequence: [Detections]}) and its rows to the same tracker
+    run on the CPU from the card's detections and crops (with the CPU's ReID
+    on those crops)."""
+    cfg = fused.cfg
+    ratio = dict(RATIOS["bytetrack"][0] if label == "bytetrack" else boost_ratio(cfg))
+    ratio["nms"] = 1
+    if fused.reid is not None:
+        ratio["extract_crops"] = 1
+    fused.warmup(seqs[next(iter(seqs))][0].shape[:2])
+    records = {}
+
+    def run():
+        for name, frames in seqs.items():
+            fused.reset()
+            records[name] = []
+            for frame in frames:
+                with _Outputs(fused, "frame_inputs") as fi, _Outputs(fused_mod, "extract_crops") as cr:
+                    rows = fused.update(frame)
+                records[name].append((fi.outs[0], cr.outs[0] if cr.outs else None, rows))
+
+    drive(f"fused {label}", run, ratio)
+    init_state, step = resolve_tracker(cfg)
+    identity = torch.eye(2, 3, dtype=torch.float32)[None]
+    n_rows = worst = feat_err = 0.0
+    for name, recs in records.items():
+        state = init_state(cfg, 1, "cpu")
+        for f, ((dets, valid, embs), crops, rows) in enumerate(recs):
+            dets, valid = dets.cpu(), valid.cpu()
+            n = int(valid.sum())
+            if not torch.isfinite(dets).all():
+                raise AssertionError(f"fused {label} {name} frame {f + 1}: non-finite detections")
+            want = staged[name][f]
+            k = min(len(want), FUSED_MAX_DETS)
+            ref = np.concatenate([want.xyxy, want.conf[:, None], want.cls[:, None]], 1)[:k]
+            if n != k or not np.array_equal(dets[:n, :6].numpy(), ref):
+                raise AssertionError(f"fused {label} {name} frame {f + 1}: detections differ "
+                                     f"from the staged detector's")
+            cpu_embs = None
+            if crops is not None:
+                feats = reid_cpu._embed(crops.cpu().to(reid_cpu.dtype))
+                cpu_embs = torch.where(valid[:, None], feats, 0.0)
+                feat_err = max(feat_err, float((embs.cpu() - cpu_embs).abs().max()))
+            elif wants_embs(cfg):
+                cpu_embs = torch.zeros((len(valid), cfg.feat_dim))
+            state, out, mask = step(cfg, state, dets[None], valid[None],
+                                    None if cpu_embs is None else cpu_embs[None], identity)
+            c, g = out[0][mask[0]].numpy(), np.asarray(rows)
+            if g.shape != c.shape or not np.array_equal(g[:, 4:], c[:, 4:]):
+                raise AssertionError(f"fused {label} {name} frame {f + 1}: ids/conf/cls/det_ind "
+                                     f"differ from the CPU's (features within {feat_err:.3g})")
+            if len(g):
+                worst = max(worst, float(np.abs(g[:, :4] - c[:, :4]).max()))
+            n_rows += len(g)
+    if not (n_rows > 0 and worst <= 1e-3 and feat_err <= 1e-4):
+        raise AssertionError(f"fused {label}: {n_rows} rows, boxes within {worst} px, features "
+                             f"within {feat_err}")
+    print(f"fused {label} (yolox_x at {DET_IMGSZ}, max_dets {FUSED_MAX_DETS}) on the 12 MOT17-mini "
+          f"frames: detections equal to the staged Detector's; {int(n_rows)} rows equal to the "
+          f"same tracker on the CPU fed the card's detections and crops (ids, conf, cls, det_ind "
+          f"exact; boxes within {worst:.3g} px; features within {feat_err:.3g})")
+
+
+def _fused_profile(label, fused, frames, card):
+    """ms a frame of ``fused.update`` (host clock, the rows read back; median
+    of frames 2-50), and a 16-frame profile: kernels a frame, device busy ms,
+    the idle share, K6's, K5's and the convolutions' shares of busy time."""
+    fused.reset()
+    ms = []
+    for frame in frames:
+        t0 = time.perf_counter()
+        fused.update(frame)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    prof = measure.profile_steps(lambda: [fused.update_async(fr) for fr in frames[:PROFILE_FRAMES]],
+                                 PROFILE_FRAMES)
+    busy = prof["busy_ms_per_step"]
+    share = lambda pick: sum(t for kn, (_, t) in prof["by_kernel"].items() if pick(kn)) / busy  # noqa: E731
+    k6 = [(c, t) for kn, (c, t) in prof["by_kernel"].items() if "nms_kernel" in kn]
+    families = {}
+    for kn, (c, t) in prof["by_kernel"].items():
+        fam = kn.split("<")[0].split("::")[-1].split("(")[0].strip()
+        launches, total = families.get(fam, (0.0, 0.0))
+        families[fam] = (launches + c, total + t)
+    frame_ms = statistics.median(ms[1:])
+    print(json.dumps({
+        "metric": f"fused_{label}_ms_per_frame", "value": frame_ms, "host_ms": ms,
+        "kernels_per_frame": prof["kernels_per_step"], "busy_ms_per_frame": busy,
+        "idle_share": 1.0 - busy / frame_ms, "k6_share": share(lambda kn: "nms_kernel" in kn),
+        "k6_ms_per_frame": k6[0][1] if k6 else None,
+        "k5_share": share(lambda kn: "crops_kernel" in kn), "conv_share": share(_is_conv),
+        "traces": prof["traces"], "imgsz": list(DET_IMGSZ), "max_dets": FUSED_MAX_DETS,
+        "top_kernel_families_launches_ms_per_frame":
+            dict(sorted(families.items(), key=lambda kv: -kv[1][1])[:6]), "card": card}))
+
+
+def run_detector_phase(card, ckpt: Path, seqs: dict, cpu_heads):
+    """Phase 8: the detector and the fused live step at full width (yolox_x
+    at (800, 1440), seeded calibrated weights ``ckpt``) on the card:
+
+    * the raw head of MOT17-04's first frame, card (fp32, TF32 off) against
+      the CPU (``cpu_heads``, a worker's future), within 1e-3 of the head's
+      largest value;
+    * the staged ``Detector`` over the 12 MOT17-mini frames (K6 once a
+      frame), K6's kept indices against the twin's on each frame's decoded
+      outputs, and ``DetectorReIDPipeline`` with osnet_x0_25
+      (``skip_frame_errors=False``, K6 and K5 once a frame) with no failed
+      frame;
+    * ``FusedLiveTracker`` with ByteTrack and with OccluBoost + osnet_x0_25
+      over the 12 frames (``_fused_vs_cpu``);
+    * the bf16 tier: decode and NMS in float32, and the detections it shares
+      with fp32 (IoU >= 0.5);
+    * the timing lines on 50 seeded textured 1080p frames: the detector's ms
+      a frame (fp32, bf16) and the fused step's (``_fused_profile``)."""
+    det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
+    first = seqs["MOT17-04-FRCNN"][0]
+    with torch.no_grad():
+        head = det.model(torch.from_numpy(det.preprocess(first)[0]).to(CARD).permute(2, 0, 1)[None])
+    head = head[0].cpu().numpy()
+    cpu = cpu_heads.result()[0]
+    diff = float(np.abs(head - cpu).max())
+    scale = max(1.0, float(np.abs(cpu).max()))
+    print(f"yolox_x raw head {head.shape} of MOT17-04 frame 1, card fp32 (TF32 off) against the "
+          f"CPU: max diff {diff:.3g} (head's largest value {scale:.3g})")
+    if not (diff <= 1e-3 * scale and np.isfinite(head).all()):
+        raise AssertionError(f"yolox_x raw head: card and CPU differ by {diff}")
+
+    runner = Detector(det)
+    staged = drive("staged Detector", lambda: {
+        name: runner(ROOTS["mot17_mini"] / name) for name in seqs}, {"nms": 1}, sync_free=False)
+    n_dets = n_anchors = 0
+    for name, frames in seqs.items():
+        for f, frame in enumerate(frames):
+            boxes, masked = decoded_scores(det, frame)
+            n_anchors = boxes.shape[0]
+            got = nms(boxes, masked, det.iou, det.MAX_DETS)
+            want = nms_plain(boxes, masked, det.iou, det.MAX_DETS)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K6 on {name} frame {f + 1}: keep_idx differs from the twin")
+            n_dets += len(staged[name][f])
+    print(f"staged Detector, 12 MOT17-mini frames: {n_dets} detections; K6's kept indices equal "
+          f"the twin's on each frame's decoded outputs (N = {n_anchors}, max_out 256)")
+    weights = reid_checkpoint(ckpt.parent, "osnet_x0_25", seed=2)
+    reid = ReID(weights=weights, device=CARD)
+    pipe = DetectorReIDPipeline(det, reid, skip_frame_errors=False)
+
+    def run_pipe():
+        for frames in seqs.values():
+            for frame in frames:
+                dets, embs, _ = pipe(frame)
+                if embs is None or embs.shape != (len(dets), reid.feature_dim):
+                    raise AssertionError("DetectorReIDPipeline: no embeddings for the detections")
+
+    drive("DetectorReIDPipeline", run_pipe, {"nms": 1, "extract_crops": 1}, sync_free=False)
+    if pipe.failed_frames or pipe.frames != 12:
+        raise AssertionError(f"DetectorReIDPipeline: {pipe.failed_frames} failed of {pipe.frames}")
+    print(f"DetectorReIDPipeline (osnet_x0_25), 12 frames: failed_frames 0; det ms "
+          f"{pipe.timing.mean_ms('det_process'):.3f} (process), reid ms "
+          f"{pipe.timing.mean_ms('reid'):.3f} a frame")
+
+    reid_cpu = ReID(weights=weights, device="cpu")
+    _fused_vs_cpu("bytetrack", FusedLiveTracker(det, None, "bytetrack"), seqs, staged, None)
+    _fused_vs_cpu("occluboost", FusedLiveTracker(det, reid, "occluboost"), seqs, staged, reid_cpu)
+
+    det16 = YoloXDetector(str(ckpt), device=CARD, half=True, imgsz=DET_IMGSZ)
+    shared = total = total16 = 0
+    for name, frames in seqs.items():
+        for f, frame in enumerate(frames):
+            boxes, score, *_ = det16.process(det16.preprocess(frame)[0])
+            if boxes.dtype != torch.float32 or score.dtype != torch.float32:
+                raise AssertionError("bf16 tier: decode and NMS must stay float32")
+            d16, d32 = det16(frame), staged[name][f]
+            if not np.isfinite(d16.xyxy).all():
+                raise AssertionError("bf16 tier: non-finite boxes")
+            if len(d16) and len(d32):
+                shared += int((_box_iou(d16.xyxy, d32.xyxy).max(axis=1) >= 0.5).sum())
+            total16, total = total16 + len(d16), total + len(d32)
+    print(f"bf16 tier, 12 frames: {total16} detections (fp32 {total}), {shared} of them matched "
+          f"to an fp32 detection at IoU >= 0.5; decode and NMS in float32")
+
+    frames, _ = shifted_frames(TIMING_FRAMES, seed=21, step=3.0)
+    frames = [np.ascontiguousarray(np.stack([f[..., 0], np.roll(f[..., 0], 7, 1),
+                                             np.roll(f[..., 0], 13, 0)], -1)) for f in frames]
+    for label, d in (("fp32", det), ("bf16", det16)):
+        runner, ms = Detector(d), []
+        for frame in frames:
+            t0 = time.perf_counter()
+            runner.predict_frame(frame)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        stages = {k: runner.timing.mean_ms(f"det_{k}") for k in ("preprocess", "process",
+                                                                  "postprocess")}
+        print(json.dumps({"metric": f"detector_yolox_x_{label}_ms_per_frame",
+                          "value": statistics.median(ms[1:]), "host_ms": ms,
+                          "mean_stage_ms": stages, "imgsz": list(DET_IMGSZ), "card": card}))
+    _fused_profile("occluboost_osnet_x0_25", FusedLiveTracker(det, reid, "occluboost"), frames,
+                   card)
+    _fused_profile("bytetrack", FusedLiveTracker(det, None, "bytetrack"), frames, card)
 
 
 def _bench(label, cfg, frames_fn, det_cols, card, launches=6, miss=None, n_frames=N_FRAMES):
@@ -2229,9 +2729,12 @@ def build_kernels():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (wall, in parallel)")
 
 
-def run_phases(lap, smi, cpu_jobs, cache_root):
-    """Phases 3-7; returns phase 3's timing entries and K4's XYSCR rows."""
+def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
+    """Phases 3-8; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
+    det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
+    decoded = decoded_scores(det, seqs["MOT17-04-FRCNN"][0])
+    del det
     step_calls = bench_step_calls()
     checks = {"fused_iou_cost": check_k1(rng, step_calls),
               "masked_assignment": check_k2(rng, step_calls),
@@ -2240,6 +2743,8 @@ def run_phases(lap, smi, cpu_jobs, cache_root):
     del step_calls
     check_kalman_obb(rng)
     checks["extract_crops"] = check_k5(rng)
+    checks["nms"] = check_k6(rng, decoded)
+    del decoded
     lap("phase 3 (kernels against their twins)")
 
     check_sync_mode_is_live()
@@ -2286,6 +2791,8 @@ def run_phases(lap, smi, cpu_jobs, cache_root):
     drive("bench ReID", lambda: run_reid_bench(smi, cache_root.parent), {"extract_crops": 1},
           sync_free=False)
     lap("phase 7f (ReID lines)")
+    run_detector_phase(smi, ckpt, seqs, cpu_heads)
+    lap("phase 8 (the detector and the fused live step)")
     return checks, xyscr_rows
 
 
@@ -2317,7 +2824,13 @@ def main() -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {kind}")
         print(f"nvidia-smi: {smi}")
         build_kernels()
-        checks, xyscr_rows = run_phases(lap, smi, cpu_jobs, cache_root)
+        # phase 8's seeded yolox_x, calibrated on the card, and its CPU raw head
+        seqs = mot17_frames()
+        ckpt = yolox_checkpoint(cache_root.parent, "yolox_x", seqs["MOT17-04-FRCNN"][:2],
+                                DET_IMGSZ, device="cuda")
+        cpu_heads = pool.submit(cpu_job, "yolox", None, (str(ckpt), seqs["MOT17-04-FRCNN"][:1]))
+        lap("phase 2 (kernels built, yolox_x checkpoint written)")
+        checks, xyscr_rows = run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")

@@ -192,8 +192,10 @@ def test_port_import_and_eval_leave_jax_out():
     BoostTrack with ECC, OccluBoost with its default SOF, StrongSORT and
     HybridSORT with ECC and embeddings, sam2mot) and its ReID (BoT-SORT and
     DeepOCSORT computing their embeddings with ``reid_weights``, the facade's
-    ``get_features_multi`` on rotated boxes), loads neither JAX nor any module
-    of the JAX package."""
+    ``get_features_multi`` on rotated boxes) and its detector API (a seeded
+    YOLOX through ``YoloXDetector``, ``Detector``, ``DetectorReIDPipeline``
+    and the fused ``FusedLiveTracker`` with OccluBoost and OSNet), loads
+    neither JAX, nor yaml, nor any module of the JAX package."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
@@ -245,6 +247,20 @@ def test_port_import_and_eval_leave_jax_out():
         "obb = np.array([[30, 50, 20, 40, 0.3], [230, 100, 30, 60, -2.0]], np.float32)\n"
         "f = create_reid(device='cpu', crop_hw=(64, 32)).get_features_multi([obb, obb[:1]], [img, img])\n"
         "assert [a.shape for a in f] == [(2, 512), (1, 512)]\n"
+        "from boxmot_tpu_torch.detectors import create_detector\n"
+        "from boxmot_tpu_torch.detectors.detector import Detector\n"
+        "from boxmot_tpu_torch.engine.fused import FusedLiveTracker\n"
+        "from boxmot_tpu_torch.engine.inference import DetectorReIDPipeline\n"
+        "det = create_detector('yolox_nano.pt', device='cpu', imgsz=(64, 96))\n"
+        "assert len(det(img)) > 0 and len(Detector(det).predict_frame(img)) > 0\n"
+        "reid = create_reid(device='cpu', crop_hw=(64, 32))\n"
+        "pipe = DetectorReIDPipeline(det, reid, skip_frame_errors=False)\n"
+        "d, e, _ = pipe(img)\n"
+        "assert e.shape == (len(d), 512) and pipe.failed_frames == 0\n"
+        "fused = FusedLiveTracker(det, reid, 'occluboost', {'det_thresh': 0.1,\n"
+        "                         'new_track_thresh': 0.1}, max_dets=16)\n"
+        "rows = [fused.update(img) for _ in range(3)][-1]\n"
+        "assert len(rows) > 0 and rows.shape[1] == 8, rows\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"

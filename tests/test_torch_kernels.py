@@ -17,15 +17,20 @@ from boxmot_tpu_torch.ops.crops import extract_crops, extract_crops_plain
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.geometry import obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
+from boxmot_tpu_torch.ops.nms import batched_class_nms, nms, nms_plain
 from boxmot_tpu_torch.ops.oru import oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
 from chip_smoke import (
     ORU_EDGES,
     XYSCR_EDGES,
+    _nonfinite_boxes,
     _tiny_boxes,
     crop_boxes,
     crop_frame,
     crossed_quads,
+    nms_boxes,
+    nms_edge_sets,
+    same_or_both_nan,
     oru_edge_inputs,
     oru_inputs,
 )
@@ -421,3 +426,50 @@ def test_reid_facade_on_the_card_equals_the_cpu(card, tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     half = ReID(weights=weights, device=card, half=True).get_features(boxes, img)
     assert (half * got).sum(axis=1).min() >= 0.99
+
+
+K6_SETS = nms_edge_sets(np.random.default_rng(7))
+
+
+@pytest.mark.parametrize("case", K6_SETS, ids=[c[0] for c in K6_SETS])
+def test_nms_kernel_bit_equal_to_twin_on_edge_sets(card, case):
+    _, boxes, scores, classes, thresh, max_out = case
+    b, s = torch.from_numpy(boxes).to(card), torch.from_numpy(scores).to(card)
+    if classes is None:
+        got = nms(b, s, thresh, max_out)
+        want = nms_plain(b.cpu(), s.cpu(), thresh, max_out)
+    else:
+        c = torch.from_numpy(classes)
+        got = batched_class_nms(b, s, c.to(card), thresh, max_out)
+        want = batched_class_nms(b.cpu(), s.cpu(), c, thresh, max_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("max_out", [64, 256])
+def test_nms_kernel_bit_equal_to_twin_at_yolox_width(card, max_out):
+    """N = 23,625, the anchors of YOLOX at (800, 1440)."""
+    boxes, scores = nms_boxes(np.random.default_rng(max_out), 23625)
+    scores[::3] = -1.0  # below the detector's conf
+    b, s = torch.from_numpy(boxes).to(card), torch.from_numpy(scores).to(card)
+    counts = torch.zeros(1, dtype=torch.int64, device=card)
+    got = nms(b, s, 0.7, max_out, counts=counts)
+    want = nms_plain(b, s, 0.7, max_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) == max_out and int(counts) > 0
+
+
+@pytest.mark.parametrize("iou_only", [False, True], ids=["iou+cost", "iou-only"])
+def test_fused_iou_cost_kernel_keeps_nan_as_the_twin(card, iou_only):
+    """NaN and infinite coordinates: the kernel's NaN IoUs are the twin's."""
+    trk, det = _nonfinite_boxes(np.random.default_rng(4), 2, 64, 77)
+    args = [torch.from_numpy(trk).to(card), torch.from_numpy(det).to(card)]
+    if not iou_only:
+        args.append(torch.from_numpy(np.random.default_rng(5).uniform(
+            0.1, 1, (2, 77)).astype(np.float32)).to(card))
+    got, want = fused_iou_cost(*args, eps=1e-12), fused_iou_cost_plain(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[0]).any())
+    for g, w in zip(got, want):
+        assert g is w or same_or_both_nan(g, w)
