@@ -18,6 +18,14 @@
 //   dethroned owners are reset before winners are installed;
 //   at most max_iters iterations.  A problem that stops at the cap with
 //   rows still unassigned adds 1 to capped[s], so the caller can see it.
+// A -inf cost is an infinite weight: its bids and then its column's price
+// become +inf, and inf - inf gives NaN net values.  The twin's amax and
+// argmax (and JAX's max and argmax) rank NaN above every number: a row's b1
+// (and b2) is NaN when its row holds a NaN, its argmax the first NaN; a
+// column with a NaN bid has a NaN best bid, which is no bid (NaN > -inf is
+// false), so nobody wins it that iteration.  No net value is NaN before a
+// +inf bid has made a price +inf, so until then an iteration takes the plain
+// compares (the NaN-aware ones cost a sixth of an auction-bound step).
 //
 // Bound on this card: the input is small (R <= 256, C <= 512, one float a
 // pair: 128 KB at the bench's 256 x 128, 0.3 us at 3.35 TB/s) and the work is
@@ -70,6 +78,17 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The twin's order of net values: NaN above every number (kNaN), or the
+// plain one where no net value can be NaN.
+template <bool kNaN>
+__device__ __forceinline__ bool above(float a, float b) {
+  return kNaN ? (isnan(a) ? !isnan(b) : a > b) : a > b;
+}
+template <bool kNaN>
+__device__ __forceinline__ float top(float a, float b) {
+  return kNaN ? (above<true>(b, a) ? b : a) : fmaxf(a, b);
+}
+
 // the largest key is the highest bid, then the lowest row; 0 is "no bid"
 __device__ __forceinline__ unsigned long long bid_key(float bid, int row) {
   unsigned u = __float_as_uint(bid);
@@ -80,6 +99,45 @@ __device__ __forceinline__ unsigned long long bid_key(float bid, int row) {
 __device__ __forceinline__ float weight(float th, float cost, bool col_ok) {
   const float w = __fsub_rn(th, cost);
   return (col_ok && w > 0.0f) ? w : -INFINITY;
+}
+
+// Best and second-best net value of row r and the lowest column of the
+// best, over the warp: a lane scans its strided columns in increasing order
+// with strict compares, and a shuffle butterfly merges the lanes.
+template <bool kNaN, bool kSharedW>
+__device__ __forceinline__ void row_best(const float* w_sh, const float* cs,
+                                         const unsigned char* col_ok, const float* prices,
+                                         float th, int r, int C, int lane, float& b1, float& b2,
+                                         int& arg) {
+  b1 = -INFINITY;
+  b2 = -INFINITY;
+  arg = lane < C ? lane : kNoArg;
+  for (int j = lane; j < C; j += 32) {
+    const float w = kSharedW ? w_sh[r * C + j] : weight(th, cs[r * C + j], col_ok[j] != 0);
+    const float v = __fsub_rn(w, prices[j]);
+    if (above<kNaN>(v, b1)) {
+      b2 = b1;
+      b1 = v;
+      arg = j;
+    } else if (above<kNaN>(v, b2)) {
+      b2 = v;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o1 = __shfl_xor_sync(0xffffffffu, b1, off);
+    const float o2 = __shfl_xor_sync(0xffffffffu, b2, off);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+    if (above<kNaN>(o1, b1)) {
+      b2 = top<kNaN>(o2, b1);
+      b1 = o1;
+      arg = oa;
+    } else if (above<kNaN>(b1, o1)) {
+      b2 = top<kNaN>(b2, o1);
+    } else {
+      b2 = b1;  // two lanes share the best value: it is also the second best
+      arg = min(arg, oa);
+    }
+  }
 }
 
 template <bool kSharedW>
@@ -93,10 +151,12 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
   __shared__ int owner[kMaxCols];
   __shared__ unsigned long long keys[kMaxCols];
   __shared__ unsigned char col_ok[kMaxCols];
+  __shared__ unsigned char nan_bid[kMaxCols];  // a NaN bid reached the column
   __shared__ int r2c[kMaxRows];
   __shared__ float bid[kMaxRows];
   __shared__ int pending[kMaxRows];
   __shared__ int n_pending;
+  __shared__ bool inf_price;  // a column's price is +inf: net values can be NaN
   __shared__ float warp_best[kWarps];
 
   const int s = blockIdx.x;
@@ -113,9 +173,13 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
     prices[j] = 0.0f;
     owner[j] = -1;
     keys[j] = 0ull;
+    nan_bid[j] = 0;
     col_ok[j] = cm[j];
   }
-  if (tid == 0) n_pending = 0;
+  if (tid == 0) {
+    n_pending = 0;
+    inf_price = false;
+  }
   // no row to assign (a pass whose rows are all masked out): nothing to solve
   if (!__syncthreads_or(tid < R && rm[tid])) {
     if (tid < R) r2c_out[(size_t)s * R + tid] = -1;
@@ -156,38 +220,20 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
     __syncthreads();
     n = n_pending;  // uniform across the block, so every thread leaves together
     if (n == 0 || it >= max_iters) break;
+    // a NaN net value needs a +inf price (inf - inf), which a +inf bid of an
+    // earlier iteration set; until then the plain compares give the same order
+    const bool has_nan = inf_price;
     scanned += n;
 
     // rows: a warp per pending row; best and second-best net value, then bid
     for (int k = warp; k < n; k += kWarps) {
       const int r = pending[k];
-      float b1 = -INFINITY, b2 = -INFINITY;
-      int arg = lane < C ? lane : kNoArg;
-      for (int j = lane; j < C; j += 32) {
-        const float w = kSharedW ? w_sh[r * C + j] : weight(th, cs[r * C + j], col_ok[j] != 0);
-        const float v = __fsub_rn(w, prices[j]);
-        if (v > b1) {
-          b2 = b1;
-          b1 = v;
-          arg = j;
-        } else if (v > b2) {
-          b2 = v;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float o1 = __shfl_xor_sync(0xffffffffu, b1, off);
-        const float o2 = __shfl_xor_sync(0xffffffffu, b2, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-        if (o1 > b1) {
-          b2 = fmaxf(o2, b1);
-          b1 = o1;
-          arg = oa;
-        } else if (o1 < b1) {
-          b2 = fmaxf(b2, o1);
-        } else {
-          b2 = b1;  // two lanes share the best value: it is also the second best
-          arg = min(arg, oa);
-        }
+      float b1, b2;
+      int arg;
+      if (has_nan) {
+        row_best<true, kSharedW>(w_sh, cs, col_ok, prices, th, r, C, lane, b1, b2, arg);
+      } else {
+        row_best<false, kSharedW>(w_sh, cs, col_ok, prices, th, r, C, lane, b1, b2, arg);
       }
       if (lane == 0) {
         const float second = fmaxf(isfinite(b2) ? b2 : 0.0f, 0.0f);
@@ -196,7 +242,12 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
         } else {
           const float b = __fadd_rn(__fadd_rn(prices[arg], __fsub_rn(b1, second)), eps);
           bid[r] = b;
-          atomicMax(&keys[arg], bid_key(b, r));
+          if (isnan(b)) {
+            nan_bid[arg] = 1;
+          } else {
+            if (b == INFINITY) inf_price = true;
+            atomicMax(&keys[arg], bid_key(b, r));
+          }
         }
       }
     }
@@ -206,7 +257,10 @@ auction_kernel(const float* __restrict__ cost, const unsigned char* __restrict__
     // columns: the highest bid wins; dethrone the owner, install the winner
     for (int j = tid; j < C; j += kThreads) {
       const unsigned long long key = keys[j];
-      if (key) {
+      if (has_nan && nan_bid[j]) {  // a NaN best bid: no bid, the column stays as it is
+        nan_bid[j] = 0;
+        keys[j] = 0ull;
+      } else if (key) {
         const int win = ~static_cast<int>(static_cast<unsigned>(key));
         if (owner[j] >= 0) r2c[owner[j]] = -1;
         r2c[win] = j;

@@ -5,8 +5,9 @@ Counterpart of ``boxmot_tpu/ops/crops.py`` (``crop_resize_aabb``,
 resamples axis-aligned crops as two dense fp32 products over (N, oh, H) and
 (N, ow, W) interpolation matrices, because gathers are slow on the TPU; on
 this card a gather is natural, so ``extract_crops`` on a CUDA frame launches
-``csrc/crops.cu`` once: a thread an output pixel reads its four taps of the
-uint8 BGR frame, flips them to RGB, divides by 255, interpolates and
+``csrc/crops.cu`` once: a block a crop's band of rows shares the rows' and
+columns' taps and a table of k / 255, a thread two output columns reads
+their taps of the uint8 BGR frame, flips them to RGB, interpolates and
 standardizes, and writes the (N, 3, oh, ow) input of the backbone.  On a CPU
 frame it runs ``extract_crops_plain``, the same arithmetic in plain PyTorch.
 
@@ -172,19 +173,39 @@ def extract_crops(img_bgr_u8: torch.Tensor, boxes: torch.Tensor, out_hw=(256, 12
     out = torch.empty((N, 3, oh, ow), dtype=out_dtype, device=dev)
     if N == 0:
         return out
-    frame = img_bgr_u8.contiguous()
     box = boxes[:, :cols].contiguous()
     trig = None
     if is_obb:  # float64 and rounded once: the twin's bits on every device
         trig = torch.stack([exact(torch.cos, box[:, 4]), exact(torch.sin, box[:, 4])]).contiguous()
+    launch_crops(img_bgr_u8.contiguous(), box, trig, out)
+    return out
+
+
+def launch_crops(frame: torch.Tensor, box: torch.Tensor, trig: torch.Tensor | None,
+                 out: torch.Tensor) -> None:
+    """One launch of K5 into ``out`` (N, 3, oh, ow), contiguous, aligned or not
+    (``extract_crops`` allocates it; a test hands the kernel an unaligned
+    view here): ``frame`` (H, W, 3) uint8, ``box`` (N, 4) or, with ``trig``
+    (2, N), (N, 5), contiguous on the card."""
+    (N, _, oh, ow), (H, W) = out.shape, frame.shape[:2]
+    dev = frame.device
+    cols = 4 if trig is None else 5
+    tensors = (frame, box, out) if trig is None else (frame, box, out, trig)
+    if (dev.type != "cuda" or any(x.device != dev or not x.is_contiguous() for x in tensors)
+            or frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3
+            or box.dtype != torch.float32 or tuple(box.shape) != (N, cols)
+            or out.dim() != 4 or out.shape[1] != 3 or out.dtype not in OUT_DTYPES
+            or (trig is not None and (trig.dtype != torch.float32 or tuple(trig.shape) != (2, N)))):
+        raise ValueError("launch_crops: a contiguous (H, W, 3) uint8 frame, (N, 4) float32 "
+                         "boxes (or (N, 5) with (2, N) float32 trig) and an (N, 3, oh, ow) "
+                         "float32 or bfloat16 out, all on one card")
     fn = build.entry("crops", "bmt_crops", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
     with torch.cuda.device(dev):
         rc = fn(frame.data_ptr(), box.data_ptr(), None if trig is None else trig.data_ptr(),
-                out.data_ptr(), H, W, N, oh, ow, int(is_obb), OUT_DTYPES[out_dtype],
+                out.data_ptr(), H, W, N, oh, ow, int(trig is not None), OUT_DTYPES[out.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("crops", "bmt_crops", rc)
     extract_crops.launches += 1
-    return out
 
 
 extract_crops.launches = 0

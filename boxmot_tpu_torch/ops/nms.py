@@ -3,18 +3,22 @@
 Counterpart of ``boxmot_tpu/ops/nms.py`` (``nms``, ``batched_class_nms``,
 ``yolox_decode``).  The JAX ``nms`` is a ``lax.while_loop`` over the dense
 N x N IoU matrix; eager PyTorch would read that loop's condition on the host
-at every step, so on a CUDA tensor ``nms`` launches ``csrc/nms.cu`` once:
-the whole loop runs on the card and the kept indices stay there.  On a CPU
-tensor it runs ``nms_plain``, the JAX loop replayed in plain PyTorch (argmax
-over the alive scores, the kept box's IoU row, masks).  The twin takes the
-kept box's row of ``iou_batch(boxes, boxes)`` as it is needed: the same
-values, in the same float operations, without the N x N matrix (2.2 GB at
-YOLOX's 23,625 anchors).
+at every step, so on a CUDA tensor ``nms`` launches ``csrc/nms.cu`` once: a
+block selects the top-scored candidates tier by tier, sorts them in shared
+memory and scans them in order against the kept boxes, and the kept indices
+stay on the card.  On a CPU tensor it runs ``nms_plain``, the JAX loop
+replayed in plain PyTorch (argmax over the alive scores, the kept box's IoU
+row, masks).  The twin takes the kept box's row of ``iou_batch(boxes,
+boxes)`` as it is needed: the same values, in the same float operations,
+without the N x N matrix (2.2 GB at YOLOX's 23,625 anchors).
 
-``iou_thresh`` is compared as float32, as the JAX loop compares its float32
-IoUs with a Python float.  ``yolox_decode`` is plain PyTorch (elementwise);
-its ``exp`` is evaluated in float64 and rounded once (``geometry.exact``),
-so the card and the CPU decode the same raw head to the same boxes.
+A score is alive when it is at least ``FLT_MIN``: NaN, zero, negative and
+subnormal scores are never kept (XLA flushes subnormals to zero on the TPU
+and the CPU, so the JAX loop reads a subnormal score as 0).  ``iou_thresh``
+is compared as float32, as the JAX loop compares its float32 IoUs with a
+Python float.  ``yolox_decode`` is plain PyTorch (elementwise); its ``exp``
+is evaluated in float64 and rounded once (``geometry.exact``), so the card
+and the CPU decode the same raw head to the same boxes.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from boxmot_tpu_torch.ops.geometry import exact
 from boxmot_tpu_torch.ops.iou import iou_batch
 
 CLASS_OFFSET = 4096.0  # batched_class_nms's coordinate offset a class (nms.py:51-57)
+MIN_ALIVE = torch.finfo(torch.float32).tiny  # FLT_MIN: a smaller score is flushed to 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -48,12 +53,12 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor, max_out: int) -> None:
 
 def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_out: int = 128):
     """The twin of K6: the JAX loop in plain PyTorch.  boxes (N, 4) xyxy,
-    scores (N,) (an entry is a candidate only if its score is > 0) ->
+    scores (N,) (an entry is a candidate only if its score is >= FLT_MIN) ->
     (keep_idx (max_out,) int32 padded with -1, keep_mask (max_out,) bool)."""
     _check(boxes, scores, max_out)
     dev = boxes.device
     keep = torch.full((max_out,), -1, dtype=torch.int32, device=dev)
-    alive = scores > 0
+    alive = scores >= MIN_ALIVE
     neg_inf = torch.full_like(scores, -torch.inf)
     thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=dev)
     index = torch.arange(boxes.shape[0], device=dev)
@@ -72,7 +77,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_out: i
         counts: torch.Tensor | None = None):
     """Greedy NMS as ``nms_plain``; kernel K6 (one launch, no host sync) on a
     CUDA tensor.  ``counts``, a (1,) int64 tensor on the card, gets the number
-    of IoUs the kernel evaluated added to it (for the bound); the twin
+    of IoUs the kernel evaluated added to it (for the record); the twin
     ignores it."""
     _check(boxes, scores, max_out)
     dev = boxes.device
@@ -86,6 +91,8 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_out: i
     boxes, scores = boxes.contiguous(), scores.contiguous()
     if boxes.data_ptr() % 16:
         boxes = boxes.clone()  # the kernel reads a box as one float4
+    if scores.data_ptr() % 16:
+        scores = scores.clone()  # and four scores as one float4
     keep_idx = torch.empty((max_out,), dtype=torch.int32, device=dev)
     keep_mask = torch.empty((max_out,), dtype=torch.bool, device=dev)
     if max_out == 0:

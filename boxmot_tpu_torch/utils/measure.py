@@ -4,10 +4,13 @@ Used by ``chip_smoke.py`` and ``tools/port_kernel_ab.py``; the tracker
 paths never call it.  It imports only torch, so a script can load it by
 file path beside another checkout of the port.
 
-* ``device_ms`` gives a kernel's device time per launch from
-  ``torch.profiler``'s CUPTI trace: the kernel's own run on the card,
-  without the wrapper's host checks, allocations and ctypes call (which a
-  CUDA-event pair around one call would include).
+* ``device_ms_per_call`` gives the device time a call of a function spends
+  in every kernel whose name starts with a prefix (``iou_cost_``,
+  ``nms_``, ...), from ``torch.profiler``'s CUPTI trace: the kernels' own
+  run on the card, without the wrapper's host checks, allocations and
+  ctypes call (which a CUDA-event pair around one call would include).  A
+  kernel made of several launches is timed whole, whatever its launches;
+  for a wrapper that launches one kernel a call it is the time a launch.
 * ``record_calls`` keeps the arguments of the kernel wrappers a step calls,
   so that a kernel can be timed on the inputs the main path gives it.
 * ``profile_steps`` gives the device busy time of a run of steps, and each
@@ -21,11 +24,13 @@ from __future__ import annotations
 
 import contextlib
 import statistics
+import time
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+RETAKE_PAUSE_S = 0.5
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -49,25 +54,71 @@ def _kernel_table(prof) -> dict[str, tuple[int, float]]:
     return table
 
 
-def device_ms(fn, kernel: str, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per launch of the kernels whose name holds
-    ``kernel``, over ``reps`` calls of ``fn`` under the profiler."""
+def kernel_name(name: str) -> str:
+    """A trace's kernel name without its return type, namespaces, template
+    and parameters: ``void (anonymous namespace)::crops_kernel<true,
+    float>(...)`` -> ``crops_kernel``."""
+    base = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return base.split("<")[0].split("(")[0].split("::")[-1].strip()
+
+
+def _traced(fn, calls: int) -> dict[str, tuple[int, float]]:
+    """The kernel table (``_kernel_table``) of a trace of ``calls`` calls of
+    ``fn``, the card synchronized before the trace ends."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_table(prof)
+
+
+def _retaken(take, ok, tries: int = 6):
+    """The first of up to ``tries`` results of ``take()`` that ``ok``
+    accepts, else the last.  A trace now and then loses device events, and
+    the losses come in runs, so each retake waits a moment."""
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(RETAKE_PAUSE_S)
+        got = take()
+        if ok(got):
+            break
+    return got
+
+
+def device_ms_per_call(fn, prefix: str, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds a call of ``fn`` spends in the kernels whose
+    name (``kernel_name``) starts with ``prefix``, over ``reps`` calls under
+    the profiler.  A trace now and then loses device events, so no trace of
+    a single call is relied on (on an H100, traces of one call of K2 lost its
+    launch six times in a row, where traces of 20 calls held 19): a trace of
+    ``reps`` calls that holds fewer than ``reps`` / 2 launches is taken
+    again (``_retaken``); a call's launches are the held launches over
+    ``reps``, rounded, and the mean is over the calls the trace holds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    # a trace now and then loses device events; the mean is over those it
-    # holds, and a trace that lost most of them is taken again
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [(n, us) for name, (n, us) in _kernel_table(prof).items() if kernel in name]
-        launches = sum(n for n, _ in hits)
-        if launches >= reps // 2:
-            return sum(us for _, us in hits) / launches / 1e3
-    raise RuntimeError(f"the profiler saw {launches} launches of {kernel!r} in {reps} calls")
+
+    def matched():
+        hits = [(k, us) for name, (k, us) in _traced(fn, reps).items()
+                if kernel_name(name).startswith(prefix)]
+        return sum(k for k, _ in hits), sum(us for _, us in hits)
+
+    launches, us = _retaken(matched, lambda got: got[0] >= reps / 2)
+    if launches < reps / 2:
+        raise RuntimeError(f"the profiler saw {launches} launches of {prefix!r}* kernels in "
+                           f"{reps} calls")
+    per_call = round(launches / reps)
+    return us / (launches / per_call) / 1e3
+
+
+def kernels_of_call(fn, calls: int = 5) -> list[str]:
+    """The names (``kernel_name``) of the kernels a call of ``fn`` runs on
+    the card, from a trace of ``calls`` calls after a warm-up call (taken
+    again while it holds no device event, ``_retaken``)."""
+    fn()
+    torch.cuda.synchronize()
+    return _retaken(lambda: sorted(kernel_name(name) for name in _traced(fn, calls)), bool)
 
 
 def event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
@@ -133,13 +184,9 @@ def profile_steps(fn, n_steps: int) -> dict:
     events, so ``fn`` is traced until two traces agree on the kernel count,
     at most three times (``settled_trace``); ``traces`` says how many."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     tables, keep = [], None
     while keep is None:
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        tables.append(_kernel_table(prof))
+        tables.append(_traced(fn, 1))
         keep = settled_trace([sum(n for n, _ in t.values()) for t in tables])
     table = tables[keep]
     return {

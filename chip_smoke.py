@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      HybridSORT step; K1 also on a recorded BoT-SORT step's inputs, K1, K2
      (the graveyard's detections x 64 slots among its problems) and K3 on a
      recorded OccluBoost bench step, AABB and OBB, and K1 and K2 on a
-     recorded StrongSORT step (pass 1's costs mostly at the clamp);
+     recorded StrongSORT step (pass 1's costs mostly at the clamp), and K2
+     on costs holding NaN, +inf and -inf;
      the launch floor, an empty kernel's device time through K1's ctypes
      path on one block and on K1's grids, on a line of its own;
      then each kernel timed on the inputs of one recorded bench step: its
@@ -36,16 +37,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the CPU; K5 (the ReID crops) bit-equal to its twin on a seeded
      textured 1080p frame, 64 and 256 boxes, axis-aligned and rotated (past
      every edge, sub-pixel, unit padding boxes, angles of +-pi/2 and +-pi),
-     fp32 and bf16, with its device time beside its bound (bytes), the
-     wrapper's and the twin's times, F.grid_sample's (the library call) and
-     once the TPU design's two dense einsums; K6 (greedy NMS) bit-equal to
-     its twin on its edge sets (no positive score; fewer, exactly and more
-     survivors than max_out; tied scores; duplicate boxes; IoUs exactly at
-     the threshold; zero-area boxes; NaN coordinates; NaN and +-inf scores;
-     N = 1 and N = 1061; batched_class_nms's class offset), on 23,625 random
-     clustered boxes at max_out 256 and 64 and on one yolox_x frame's decoded
-     outputs at 256 and 64, each set with its device time, wrapper time,
-     twin time and bound (no library call: torchvision is absent);
+     fp32 and bf16, and on its edge sets (7 x 5 and 384 x 128 outputs,
+     one-pixel boxes at the frame's corners on an unaligned frame view, an
+     unaligned output), with its device time a call beside its bound
+     (bytes), the wrapper's and the twin's times, F.grid_sample's (the
+     library call) and once the TPU design's two dense einsums; K6 (greedy
+     NMS) bit-equal to its twin on its edge sets (no positive score; fewer,
+     exactly and more survivors than max_out; tied scores; duplicate boxes;
+     IoUs exactly at the threshold; zero-area boxes; NaN coordinates; NaN
+     and +-inf scores; N = 1 and N = 1061; batched_class_nms's class offset;
+     23,625 near-identical boxes; equal scores across tiers and chunks at
+     max_out 256 and 64; fewer survivors than max_out past the first tier;
+     +inf, subnormal, -0.0 and FLT_MIN scores; max_out above N; N = 0), on
+     23,625 random clustered boxes at max_out 256 and 64 and on one yolox_x
+     frame's decoded outputs at 256 and 64, each set with its work (the
+     sorted definition's IoUs counted from the twin's result, ``k6_work``)
+     and wrapper time, the last four and the cluster and cross-tier sets
+     also with device time a call, twin time and bound (bytes; no library
+     call: torchvision is absent), and one call's trace lists only ``nms_*``
+     kernels;
   4. AABB evals: run_eval for the ten trackers (ByteTrack, SFSORT, OC-SORT,
      BoT-SORT, DeepOCSORT, BoostTrack, OccluBoost, StrongSORT, HybridSORT
      and sam2mot, the last a host tracker) on MOT17-mini and synth-long,
@@ -64,7 +74,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      OccluBoost on mmot-mini, held to the JAX package's values, with their
      tracks held against the CPU's;
   6. the live API: 50 frames of MOT17-04-FRCNN (ByteTrack, OC-SORT,
-     sam2mot), the mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT,
+     sam2mot), 20 of them with NaN detections (ByteTrack, OC-SORT:
+     ``run_live_nan``), the mmot-mini frames as (N, 7) detections (ByteTrack, SFSORT,
      OC-SORT, BoT-SORT, OccluBoost), frames of 300 detections, and seeded
      textured 1920 x 1080 frames of a camera panning by known sub-pixel
      steps with MOT17-04's detections moved along: BoT-SORT with ECC on the
@@ -168,7 +179,13 @@ from boxmot_tpu_torch.engine.replay import (
 from boxmot_tpu_torch.models.osnet import build_osnet
 from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.motion.cmc import create_cmc
-from boxmot_tpu_torch.ops.crops import IMAGENET_MEAN, IMAGENET_STD, extract_crops, extract_crops_plain
+from boxmot_tpu_torch.ops.crops import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    extract_crops,
+    extract_crops_plain,
+    launch_crops,
+)
 from boxmot_tpu_torch.ops.fused_iou_cost import (
     IOU_BATCH_EPS,
     empty_launch,
@@ -176,7 +193,8 @@ from boxmot_tpu_torch.ops.fused_iou_cost import (
     fused_iou_cost_plain,
     launch_geometry,
 )
-from boxmot_tpu_torch.ops.geometry import obb_corners, wrap_angle
+from boxmot_tpu_torch.ops.geometry import exact, obb_corners, wrap_angle
+from boxmot_tpu_torch.ops.iou import iou_batch
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
 from boxmot_tpu_torch.ops.nms import CLASS_OFFSET, batched_class_nms, nms, nms_plain
 from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
@@ -792,7 +810,8 @@ def check_k1(rng, step_calls):
     for (trk, det, _), _ in calls:
         g = launch_geometry(trk.shape[0], trk.shape[1], det.shape[1], sms)
         grids.append((trk.shape[0] * g.row_blocks, g.quads * g.lanes))
-    floors = {(b, t): measure.device_ms(lambda: empty_launch(card, b, t), "empty_kernel")
+    floors = {(b, t): measure.device_ms_per_call(lambda: empty_launch(card, b, t),
+                                                 "empty_kernel")
               for b, t in dict.fromkeys(grids)}
     print("launch floor (an empty kernel through K1's ctypes path, device ms a launch): " +
           ", ".join(f"{b} x {t} threads {ms:.5f}" for (b, t), ms in floors.items()))
@@ -800,7 +819,7 @@ def check_k1(rng, step_calls):
     for (trk, det, conf), kw in calls:
         args = [trk, det] if conf is None else [trk, det, conf]
         S, K, D = trk.shape[0], trk.shape[1], det.shape[1]
-        row = (measure.device_ms(lambda: fused_iou_cost(*args, **kw), "iou_cost_kernel"),
+        row = (measure.device_ms_per_call(lambda: fused_iou_cost(*args, **kw), "iou_cost_"),
                measure.event_ms(lambda: fused_iou_cost(*args, **kw)),
                measure.event_ms(lambda: fused_iou_cost_plain(*args, **kw)),
                *k1_bound(trk, det, conf))
@@ -880,6 +899,11 @@ def check_k2(rng, step_calls):
         thresh = torch.linspace(0.3, 0.9, S, device="cuda")
         _k2_same(f"S={S} {R}x{C} per-problem thresholds",
                  *_problem(rng, "iou-like", S=S, R=R, C=C), thresh)
+    # non-finite costs: NaN and +inf never match, -inf (an infinite weight)
+    # runs the auction to its cap through NaN net values
+    for label, specials in NONFINITE.items():
+        cost, rm, cm = (torch.from_numpy(a).cuda() for a in nonfinite_costs(rng, specials))
+        _k2_same(f"costs with {label}", cost, rm, cm, 0.8)
     # OccluBoost's bench step: the first pass, the recovery, GTA and the
     # graveyard (detections x 64 slots), with the per-problem thresholds of
     # the full assignment
@@ -897,7 +921,8 @@ def check_k2(rng, step_calls):
             cost = args[0]
             work = torch.zeros((cost.shape[0], 2), dtype=torch.int32, device="cuda")
             masked_assignment(*args, **kwargs, work=work)
-            row = (measure.device_ms(lambda: masked_assignment(*args, **kwargs), "auction_kernel"),
+            row = (measure.device_ms_per_call(lambda: masked_assignment(*args, **kwargs),
+                                              "auction_"),
                    measure.event_ms(lambda: masked_assignment(*args, **kwargs)),
                    measure.event_ms(lambda: masked_assignment_plain(*args, **kwargs), reps=5,
                                     warmup=1), *k2_bound(cost, args[1], work))
@@ -1042,8 +1067,8 @@ def check_k3(rng, step_calls):
     for kind, (a, b, c1, c2, ops) in timed.items():
         big = kind == "4096^2"
         twin = _twin_in_row_chunks if big else rotated_iou_plain
-        row = (measure.device_ms(lambda: rotated_iou(a, b, c1, c2), "rotated_iou_kernel",
-                                 reps=5 if big else 20),
+        row = (measure.device_ms_per_call(lambda: rotated_iou(a, b, c1, c2), "rotated_iou_",
+                                          reps=5 if big else 20),
                measure.event_ms(lambda: rotated_iou(a, b, c1, c2), reps=5 if big else 50),
                measure.event_ms(lambda: twin(a, b, c1, c2), reps=3 if big else 20, warmup=1),
                *k3_bound(a, b, ops))
@@ -1201,7 +1226,7 @@ def _k4_row(label, layout, card):
     card) and the counted bound."""
     S = card[-2].shape[0]
     replayed = torch.zeros(S, dtype=torch.int32, device="cuda")
-    row = (measure.device_ms(lambda: oru_replay(layout, *card, replayed), "oru_kernel"),
+    row = (measure.device_ms_per_call(lambda: oru_replay(layout, *card, replayed), "oru_"),
            measure.event_ms(lambda: oru_replay(layout, *card, replayed)),
            measure.event_ms(lambda: oru_replay_plain(layout, *card, replayed), reps=5, warmup=1),
            *k4_bound(layout, card[-2], card[-1]))
@@ -1317,6 +1342,28 @@ def crop_boxes(rng, n, obb, size=FRAME_HW):
     return b.astype(np.float32)
 
 
+def crop_edge_boxes(obb, size=FRAME_HW):
+    """K5's edge boxes on a frame of ``size``: one-pixel boxes at the four
+    corners and on the last row and column (their taps are the frame's last
+    bytes, which K5 reads byte by byte), and boxes partly outside the frame;
+    (16, 4) xyxy or (16, 5) xywha."""
+    H, W = size
+    if obb:
+        b = [[W - 0.5, H - 0.5, 1, 1, 0], [0.5, 0.5, 1, 1, 0], [W - 0.5, 0.5, 1, 1, 0],
+             [0.5, H - 0.5, 1, 1, 0], [W - 1, H - 1, 2, 2, 0.3], [W, H, 40, 80, 0.7],
+             [0, 0, 40, 80, -0.7], [W - 0.5, 10, 1, 1, math.pi / 2], [10, H - 0.5, 1, 1, -math.pi],
+             [W / 2, H - 2, 300, 10, 0.05], [W - 3, H / 2, 12, 200, 1.2], [-20, H / 3, 80, 60, 2.0],
+             [W + 10, H + 10, 50, 50, 0.5], [W / 3, -15, 60, 60, -2.5], [W - 1.5, H - 1.5, 1, 1, 0],
+             [W / 2, H / 2, 1, 1, 0.0]]
+    else:
+        b = [[0, 0, 1, 1], [W - 1, H - 1, W, H], [W - 1, 0, W, 1], [0, H - 1, 1, H],
+             [W - 0.5, H - 0.5, W + 0.5, H + 0.5], [-10, -10, 5, 5], [W - 5, H - 5, W + 10, H + 10],
+             [W - 1, 100, W, 101], [100, H - 1, 101, H], [W - 2, H - 2, W - 1, H - 1],
+             [-100, 500, 50, 700], [1800, -50, 1950, 40], [W - 3, H - 3, W, H],
+             [W - 40, H - 1, W, H], [-5, H - 30, 30, H + 5], [W / 2, H / 2, W / 2 + 1, H / 2 + 1]]
+    return np.asarray(b, np.float32)
+
+
 # K5's float operations a pixel of output, counted from csrc/crops.cu: the
 # coordinates (axis-aligned: the two scales and two centre maps; rotated: the
 # box-local offsets and the rotation), the two axes' taps (clamp, floor, the
@@ -1327,8 +1374,9 @@ K5_OPS_PER_PIXEL = {False: 2 + 4 + 6 + 12 + 2 + 3 * 15, True: 2 + 6 + 10 + 12 + 
 
 
 def k5_bound(frame, boxes, obb, dtype):
-    """(least ms, by): the frame and the boxes read once, the crops written
-    once, and K5's counted operations."""
+    """(least ms, by): bytes, the frame and the boxes read once and the crops
+    written once (what the inputs need, whatever the design), against K5's
+    counted operations."""
     n = boxes.shape[0]
     pixels = n * CROP_HW[0] * CROP_HW[1]
     n_bytes = frame.numel() + boxes.numel() * 4 + pixels * 3 * torch.finfo(dtype).bits // 8
@@ -1383,6 +1431,35 @@ def _einsum_crops(frame, boxes):
     return torch.einsum("nih,nhjc->nijc", wy, t)
 
 
+def _k5_edge_sets(rng, frame):
+    """K5's edge sets: (label, frame, boxes, (oh, ow), obb, dtype, out or
+    None), AABB and OBB, fp32 and bf16: 7 x 5 outputs (ow % 4 != 0: scalar
+    stores), (384, 128) outputs, one-pixel boxes at the frame's corners and
+    last pixels and boxes partly outside it (``crop_edge_boxes``) on a frame
+    view whose start is not 4-byte aligned (byte loads), and the kernel
+    writing into an output view that is not 16-byte aligned."""
+    shifted = torch.cat([frame.new_zeros(1), frame.flatten()])[1:].view(frame.shape)
+    sets = []
+    for obb in (False, True):
+        kind = "rotated" if obb else "axis-aligned"
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).removeprefix("torch.")
+            b = torch.from_numpy(crop_boxes(rng, 3, obb)).to(frame.device)
+            sets.append((f"{kind} 3 crops of 7 x 5 {dt}", frame, b, (7, 5), obb, dtype, None))
+            b = torch.from_numpy(crop_boxes(rng, 16, obb)).to(frame.device)
+            sets.append((f"{kind} 16 crops of 384 x 128 {dt}", frame, b, (384, 128), obb, dtype,
+                         None))
+            b = torch.from_numpy(crop_edge_boxes(obb)).to(frame.device)
+            sets.append((f"{kind} one-pixel and edge boxes, unaligned frame, {dt}", shifted, b,
+                         CROP_HW, obb, dtype, None))
+            buf = torch.zeros(len(b) * 3 * CROP_HW[0] * CROP_HW[1] + 1, dtype=dtype,
+                              device=frame.device)
+            out = buf[1:].view(len(b), 3, *CROP_HW)
+            sets.append((f"{kind} edge boxes into an unaligned output, {dt}", frame, b, CROP_HW,
+                         obb, dtype, out))
+    return sets
+
+
 def check_k5(rng):
     """K5 bit-equal to its twin on the card (and, at 64 crops, to the twin on
     the CPU, which the live paths compare against) on a seeded textured
@@ -1401,6 +1478,21 @@ def check_k5(rng):
     rows, library = [], []
     std = torch.tensor(IMAGENET_STD, device=frame.device)[None, :, None, None]
     mean = torch.tensor(IMAGENET_MEAN, device=frame.device)[None, :, None, None]
+    for label, f, boxes, hw, obb, dtype, out in _k5_edge_sets(rng, frame):
+        want = extract_crops_plain(f, boxes, hw, obb, dtype)
+        if out is None:
+            got = extract_crops(f, boxes, hw, obb, dtype)
+        else:  # the kernel into an unaligned view (the wrapper allocates aligned ones)
+            cols = 5 if obb else 4
+            trig = (torch.stack([exact(torch.cos, boxes[:, 4]), exact(torch.sin, boxes[:, 4])])
+                    .contiguous() if obb else None)
+            launch_crops(f, boxes[:, :cols].contiguous(), trig, out)
+            got = out
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {label}: {int((got != want).sum())} values differ from the "
+                                 f"twin")
+        print(f"K5 {label}: bit-equal to the twin")
     for n in (64, 256):
         for obb in (False, True):
             boxes = torch.from_numpy(crop_boxes(rng, n, obb)).cuda()
@@ -1426,12 +1518,12 @@ def check_k5(rng):
             crops = extract_crops(frame, boxes, CROP_HW, obb)
             diff = float((sample() - (crops * std + mean)).abs().max())
             call = lambda: extract_crops(frame, boxes, CROP_HW, obb)  # noqa: E731
-            row = (measure.device_ms(call, "crops_kernel"), measure.event_ms(call),
+            row = (measure.device_ms_per_call(call, "crops_"), measure.event_ms(call),
                    measure.event_ms(lambda: extract_crops_plain(frame, boxes, CROP_HW, obb),
                                     reps=10),
                    *k5_bound(frame, boxes, obb, torch.float32))
             library.append(measure.event_ms(sample))
-            print(f"K5 {kind} {n} crops fp32: device {row[0]:.5f} ms a launch, wrapper "
+            print(f"K5 {kind} {n} crops fp32: device {row[0]:.5f} ms a call, wrapper "
                   f"{row[1]:.5f} ms, plain {row[2]:.5f} ms, bound {row[3]:.5f} ms ({row[4]}); "
                   f"F.grid_sample {library[-1]:.5f} ms (largest difference from K5's crops "
                   f"before standardization {diff:.3g})")
@@ -1456,9 +1548,14 @@ def nms_boxes(rng, n, span=(1440.0, 800.0), clusters=None, size=(8.0, 200.0)):
     return boxes, rng.uniform(0.001, 1.0, n).astype(np.float32)
 
 
-def nms_edge_sets(rng):
+def nms_edge_sets(rng, cluster_n=23625):
     """K6's edge sets: (label, boxes (N, 4), scores (N,), classes (N,) or
-    None for plain NMS, iou_thresh, max_out)."""
+    None for plain NMS, iou_thresh, max_out).  The sets from "one cluster"
+    on reach the sorted scan's edges (``csrc/nms.cu``): every candidate of
+    ``cluster_n`` near-identical boxes examined for one kept; equal scores
+    across its tiers (at max_out 256 a tier holds 512-1024 keys) and chunks;
+    fewer survivors than max_out over more candidates than a tier, so that
+    the next tier runs; scores at the alive rule's edges."""
     sets = []
     b, s = nms_boxes(rng, 300)
     s = (-np.abs(s) * (np.arange(300) % 2)).astype(np.float32)
@@ -1507,6 +1604,34 @@ def nms_edge_sets(rng):
     b, s = nms_boxes(rng, 600, clusters=30)
     cls = rng.integers(0, 3, 600).astype(np.float32)
     sets.append(("batched_class_nms (class x 4096)", b, s, cls, 0.6, 128))
+    b = (np.array([400.0, 200.0, 520.0, 480.0]) + rng.normal(0, 0.5, (cluster_n, 4)))
+    sets.append((f"one cluster of {cluster_n} near-identical boxes", b.astype(np.float32),
+                 rng.uniform(0.01, 1.0, cluster_n).astype(np.float32), None, 0.7, 256))
+    # clusters of 8 consecutive indices: in index order each cluster keeps its
+    # first box, so 256 kept take about 2,048 candidates, past two tiers
+    per, k = 8, 375
+    c = np.repeat(rng.uniform((0, 0), (1440, 800), (k, 2)), per, 0) + rng.normal(0, 2.0,
+                                                                              (k * per, 2))
+    wh = np.repeat(rng.uniform(20, 120, (k, 2)), per, 0)
+    b = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+    sets.append(("every score 1.0 across tiers and chunks", b, np.ones(k * per, np.float32),
+                 None, 0.5, 256))
+    # at max_out 64 the first tier's target is 128 keys: 64 kept take about
+    # 512 candidates, so the scan crosses tiers at the fused step's size too
+    sets.append(("every score 1.0 across tiers at max_out 64", b, np.ones(k * per, np.float32),
+                 None, 0.5, 64))
+    b, s = nms_boxes(rng, 5000, clusters=40, size=(60.0, 120.0))
+    sets.append(("fewer survivors than max_out past the first tier", b, s, None, 0.3, 256))
+    b, s = nms_boxes(rng, 300, clusters=100)
+    s[::5] = np.inf  # ties among +inf: the lowest index first
+    s[1::7] = np.float32(1e-45)  # subnormal: flushed to zero, never kept
+    s[2::11] = np.float32(1e-39)
+    s[3::13] = -0.0
+    s[4::17] = np.finfo(np.float32).tiny  # the least normal: alive
+    sets.append(("+inf, subnormal, -0.0 and FLT_MIN scores", b, s, None, 0.6, 300))
+    b, s = nms_boxes(rng, 50, clusters=45)
+    sets.append(("max_out larger than N", b, s, None, 0.7, 128))
+    sets.append(("N = 0", np.zeros((0, 4), np.float32), np.zeros(0, np.float32), None, 0.7, 16))
     return sets
 
 
@@ -1517,18 +1642,56 @@ def nms_edge_sets(rng):
 K6_OPS_PER_IOU = 9 + 6 + 3 + 2
 
 
-def k6_bound(n, max_out, n_iou):
-    """(least ms, by): the boxes and scores read once (N x 20 bytes), the
-    kept indices and mask written once (max_out x 5), and the IoUs this
-    run's data needed (counted by the kernel)."""
-    return measure.bound_ms(n * 20 + max_out * 5, n_iou * K6_OPS_PER_IOU)
+def k6_work(boxes, scores, keep, thresh, max_out):
+    """The work a call's inputs need, from the twin's result and the sorted
+    order alone (no kernel counter): (candidates examined, the sorted
+    definition's IoUs, the literal loop's IoUs).  The alive candidates
+    (score >= FLT_MIN) in order (score descending, index ascending) are
+    examined up to the max_out-th kept box, or all of them.  A kept one
+    needs its IoU with every box kept before it (none may suppress it); a
+    suppressed one at least one, with a box that suppresses it: the least
+    count, so that the bound is one no design can beat.  The literal loop
+    (the JAX loop, and the kernel's first design) holds every alive
+    candidate against the kept box of every step it survives; that count,
+    which the first design's bound read from the kernel, is printed for the
+    record."""
+    s = scores.cpu().numpy()
+    idx = np.nonzero(s >= np.finfo(np.float32).tiny)[0]
+    order = idx[np.lexsort((idx, -s[idx].astype(np.float64)))]
+    pos = np.full(len(s), -1)
+    pos[order] = np.arange(len(order))
+    kept = keep[keep >= 0].cpu().numpy()
+    if len(kept) == max_out:  # the max_out-th kept box ends the scan (max_out 0: at once)
+        examined = int(pos[kept[-1]]) + 1 if len(kept) else 0
+    else:
+        examined = len(order)
+    sorted_iou = len(kept) * (len(kept) - 1) // 2 + examined - len(kept)
+    literal = 0
+    if len(kept):
+        # the step at which each alive candidate leaves: kept, or first suppressed
+        hit = iou_batch(boxes[torch.from_numpy(kept).to(boxes.device)], boxes) > torch.tensor(
+            thresh, dtype=torch.float32, device=boxes.device)
+        hit[torch.arange(len(kept)), torch.from_numpy(kept).to(boxes.device)] = True
+        first = torch.where(hit.any(0), hit.int().argmax(0), len(kept)).cpu().numpy()[idx]
+        literal = int(np.minimum(first, len(kept) - 1).sum() + len(idx) - len(kept))
+    return examined, sorted_iou, literal
 
 
-def _k6_set(label, boxes, scores, classes, thresh, max_out, reps=10):
+def k6_bound(n, max_out, examined, sorted_iou):
+    """(least ms, by) from what the sorted definition needs on this run's
+    data (``k6_work``), one count for every design: every score read once
+    (N x 4 bytes: the order needs them all), the boxes of the candidates
+    examined read once (x 16; no other box is looked at), the kept indices
+    and mask written once (max_out x 5), and the sorted definition's IoUs."""
+    return measure.bound_ms(n * 4 + examined * 16 + max_out * 5, sorted_iou * K6_OPS_PER_IOU)
+
+
+def _k6_set(label, boxes, scores, classes, thresh, max_out, reps=10, timed=True):
     """K6 bit-equal to its twin (both on the card) on one set, and its line:
-    device ms a launch (torch.profiler), the wrapper's (CUDA events), the
-    twin's and the bound.  Returns the row (device, wrapper, plain, bound,
-    by)."""
+    the work its inputs need (``k6_work``), the wrapper's ms (CUDA events)
+    and, when ``timed``, device ms a call (torch.profiler, every ``nms_*``
+    kernel), the twin's ms and the bound.  Returns the row (device, wrapper,
+    plain, bound, by), or None untimed."""
     dev = torch.device(CARD)
     b, sc = torch.as_tensor(boxes).to(dev), torch.as_tensor(scores).to(dev)
     c = None if classes is None else torch.as_tensor(classes).to(dev)
@@ -1545,27 +1708,44 @@ def _k6_set(label, boxes, scores, classes, thresh, max_out, reps=10):
         via = batched_class_nms(torch.as_tensor(boxes).to(dev), sc, c, thresh, max_out)
         if not torch.equal(via[0], got[0]):
             raise AssertionError(f"K6 {label}: batched_class_nms differs from its offset")
-    n_iou, kept = int(counts), int(got[1].sum())
+    examined, sorted_iou, literal = k6_work(b, sc, want[0], thresh, max_out)
+    kept = int(got[1].sum())
     call = lambda: nms(b, sc, thresh, max_out)  # noqa: E731
-    row = (measure.device_ms(call, "nms_kernel", reps=reps), measure.event_ms(call, reps=reps),
+    head = (f"K6 {label} (N = {b.shape[0]}, max_out {max_out}): bit-equal to the twin, {kept} "
+            f"kept, {examined} candidates examined; IoUs: {sorted_iou} by the sorted definition "
+            f"(the least it needs: the bound's), {int(counts)} evaluated by the kernel, {literal} by the literal loop")
+    if not timed:
+        print(f"{head}; wrapper {measure.event_ms(call, reps=reps):.5f} ms")
+        return None
+    row = (measure.device_ms_per_call(call, "nms_", reps=reps), measure.event_ms(call, reps=reps),
            measure.event_ms(lambda: nms_plain(b, sc, thresh, max_out), reps=2, warmup=1),
-           *k6_bound(b.shape[0], max_out, n_iou))
-    print(f"K6 {label} (N = {b.shape[0]}, max_out {max_out}): bit-equal to the twin, {kept} kept, "
-          f"{n_iou} IoUs; device {row[0]:.5f} ms a launch, wrapper {row[1]:.5f} ms, plain "
-          f"{row[2]:.4f} ms, bound {row[3]:.6f} ms ({row[4]})")
+           *k6_bound(b.shape[0], max_out, examined, sorted_iou))
+    print(f"{head}; device {row[0]:.5f} ms a call, wrapper {row[1]:.5f} ms, plain {row[2]:.4f} ms, "
+          f"bound {row[3]:.6f} ms ({row[4]})")
     return row
+
+
+# the edge sets that keep device, twin and bound times: the scan's slowest
+# input (every candidate of the 23,625 examined) and the sets that cross tiers
+K6_TIMED_EDGE_SETS = ("one cluster of", "every score 1.0 across tiers",
+                      "fewer survivors than max_out past")
 
 
 def check_k6(rng, decoded):
     """K6 bit-equal to its twin on the card on the edge sets
-    (``nms_edge_sets``), on N = 23,625 random clustered boxes (YOLOX's
-    anchors at (800, 1440); a third of the scores below the detector's conf)
-    at max_out 256 and 64, on the decoded outputs of one yolox_x frame
-    (``decoded``: boxes and conf-masked scores) at the detector's 256 and the
-    fused step's 64, each with its times and bound; the kernels line takes
-    the yolox frame's two rows."""
+    (``nms_edge_sets``: its new sets reach the sorted scan's tiers, chunks
+    and the alive rule's edges), on N = 23,625 random clustered boxes
+    (YOLOX's anchors at (800, 1440); a third of the scores below the
+    detector's conf) at max_out 256 and 64, on the decoded outputs of one
+    yolox_x frame (``decoded``: boxes and conf-masked scores) at the
+    detector's 256 and the fused step's 64, each with its times and bound
+    (of the edge sets, those in ``K6_TIMED_EDGE_SETS`` too, the others with
+    the wrapper's time alone);
+    and one call's trace lists only ``nms_*`` kernels (no sort, top-k or
+    library kernel).  The kernels line takes the yolox frame's two rows."""
     for label, boxes, scores, classes, thresh, max_out in nms_edge_sets(rng):
-        _k6_set(label, boxes, scores, classes, thresh, max_out)
+        _k6_set(label, boxes, scores, classes, thresh, max_out, reps=5,
+                timed=label.startswith(K6_TIMED_EDGE_SETS))
     for max_out in (256, 64):
         boxes, scores = nms_boxes(rng, 23625)
         scores[rng.random(23625) < 1 / 3] = -1.0
@@ -1573,6 +1753,10 @@ def check_k6(rng, decoded):
     boxes, masked = decoded
     rows = [_k6_set("yolox_x frame's decoded outputs", boxes, masked, None, 0.7, max_out, reps=5)
             for max_out in (256, FUSED_MAX_DETS)]
+    names = measure.kernels_of_call(lambda: nms(boxes, masked, 0.7, 256))
+    print(f"K6: one call's kernels on the card: {names}")
+    if not names or not all(n.startswith("nms_") for n in names):
+        raise AssertionError(f"K6: a call ran kernels other than nms_*: {names}")
     return {**timing(0.0, rows), "library_ms": None}
 
 
@@ -1959,6 +2143,63 @@ def _live_frames(n_frames):
     img = np.zeros((info.getint("Sequence", "imHeight"), info.getint("Sequence", "imWidth"), 3),
                    np.uint8)
     return frames, img
+
+
+NAN_FRAMES = (4, 5, 11)  # the frames (0-based) in which ``with_nan_detections`` puts NaN
+
+
+def with_nan_detections(frames):
+    """Copies of (N, 6) detection frames in which detection 1 of frames 4, 5
+    and 11 has a NaN x1, and detection 3 of frame 11 a NaN x2 and y2: NaN
+    costs reach the auction and NaN-born tracks reach the Kalman bank."""
+    out = [d.copy() for d in frames]
+    for f in NAN_FRAMES:
+        if f < len(out) and len(out[f]) > 3:
+            out[f][1, 0] = np.nan
+    if len(out) > 11 and len(out[11]) > 3:
+        out[11][3, 2:4] = np.nan
+    return out
+
+
+# auction problems with non-finite costs: the special values each holds
+NONFINITE = {"NaN": (np.nan,), "+inf": (np.inf,), "-inf": (-np.inf,),
+             "NaN and +-inf": (np.nan, np.inf, -np.inf)}
+
+
+def nonfinite_costs(rng, specials, S=2, R=20, C=16, frac=0.1):
+    """(cost (S, R, C) float32, row_mask, col_mask) numpy, uniform costs
+    with about ``frac`` of the entries set to each value of ``specials``
+    (a -inf cost is an infinite weight: the auction runs to its cap)."""
+    cost = rng.uniform(0, 1, (S, R, C)).astype(np.float32)
+    for v in specials:
+        cost[rng.uniform(size=(S, R, C)) < frac] = v
+    return cost, rng.uniform(size=(S, R)) < 0.9, rng.uniform(size=(S, C)) < 0.9
+
+
+def run_live_nan(tracker):
+    """Phase 6a: live ``tracker`` on 20 frames of LIVE_SEQ with NaN
+    detections (``with_nan_detections``), cuda against cpu: rows equal (NaN
+    where the CPU's are NaN), and a NaN reached the card's Kalman state."""
+    frames, img = _live_frames(20)
+    frames = with_nan_detections(frames)
+    trackers = {d: boxmot_tpu_torch.create_tracker(tracker, device=d) for d in ("cuda", "cpu")}
+    n_rows, nan_state = 0, False
+    for f, dets in enumerate(frames, start=1):
+        g = np.asarray(trackers["cuda"].update(dets, img))
+        c = np.asarray(trackers["cpu"].update(dets, img))
+        if g.shape != c.shape or not np.array_equal(g[:, 4:], c[:, 4:], equal_nan=True):
+            raise AssertionError(f"live {tracker} with NaN detections, frame {f}: ids/conf/cls/"
+                                 f"det_ind differ between cuda and cpu")
+        if not np.allclose(g[:, :4], c[:, :4], rtol=0, atol=1e-3, equal_nan=True):
+            raise AssertionError(f"live {tracker} with NaN detections, frame {f}: boxes differ")
+        nan_state |= bool(torch.isnan(trackers["cuda"]._state.mean).any())
+        n_rows += len(g)
+    if not (n_rows and nan_state):
+        raise AssertionError(f"live {tracker} with NaN detections: {n_rows} rows, NaN state "
+                             f"{nan_state}")
+    print(f"live {tracker}, 20 frames of {LIVE_SEQ.name} with NaN detections in frames "
+          f"{[f + 1 for f in NAN_FRAMES]}: {n_rows} rows equal to cpu; NaN-born tracks in the "
+          f"card's Kalman state")
 
 
 def run_live(tracker):
@@ -2357,7 +2598,8 @@ def _fused_profile(label, fused, frames, card):
                                  PROFILE_FRAMES)
     busy = prof["busy_ms_per_step"]
     share = lambda pick: sum(t for kn, (_, t) in prof["by_kernel"].items() if pick(kn)) / busy  # noqa: E731
-    k6 = [(c, t) for kn, (c, t) in prof["by_kernel"].items() if "nms_kernel" in kn]
+    is_k6 = lambda kn: measure.kernel_name(kn).startswith("nms_")  # noqa: E731
+    k6 = [(c, t) for kn, (c, t) in prof["by_kernel"].items() if is_k6(kn)]
     families = {}
     for kn, (c, t) in prof["by_kernel"].items():
         fam = kn.split("<")[0].split("::")[-1].split("(")[0].strip()
@@ -2367,9 +2609,9 @@ def _fused_profile(label, fused, frames, card):
     print(json.dumps({
         "metric": f"fused_{label}_ms_per_frame", "value": frame_ms, "host_ms": ms,
         "kernels_per_frame": prof["kernels_per_step"], "busy_ms_per_frame": busy,
-        "idle_share": 1.0 - busy / frame_ms, "k6_share": share(lambda kn: "nms_kernel" in kn),
-        "k6_ms_per_frame": k6[0][1] if k6 else None,
-        "k5_share": share(lambda kn: "crops_kernel" in kn), "conv_share": share(_is_conv),
+        "idle_share": 1.0 - busy / frame_ms, "k6_share": share(is_k6),
+        "k6_ms_per_frame": sum(t for _, t in k6) if k6 else None,
+        "k5_share": share(lambda kn: measure.kernel_name(kn).startswith("crops_")), "conv_share": share(_is_conv),
         "traces": prof["traces"], "imgsz": list(DET_IMGSZ), "max_dets": FUSED_MAX_DETS,
         "top_kernel_families_launches_ms_per_frame":
             dict(sorted(families.items(), key=lambda kv: -kv[1][1])[:6]), "card": card}))
@@ -2625,7 +2867,8 @@ def run_reid_bench(card, root: Path):
                                              16)
                 busy = prof["busy_ms_per_step"]
                 share = {k: sum(t for kn, (_, t) in prof["by_kernel"].items() if pick(kn)) / busy
-                         for k, pick in (("K5", lambda kn: "crops_kernel" in kn),
+                         for k, pick in (("K5", lambda kn: measure.kernel_name(kn)
+                                                 .startswith("crops_")),
                                          ("conv", _is_conv))}
                 families = {}
                 for kn, (c, t) in prof["by_kernel"].items():
@@ -2760,6 +3003,9 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
     lap("phase 5 (OBB evals)")
     for tracker in ("bytetrack", "ocsort", "sam2mot"):
         drive(f"live {tracker} AABB", lambda: run_live(tracker), RATIOS[tracker][0],
+              sync_free=False)
+    for tracker in ("bytetrack", "ocsort"):
+        drive(f"live {tracker} NaN detections", lambda: run_live_nan(tracker), RATIOS[tracker][0],
               sync_free=False)
     for tracker in ("bytetrack", "sfsort", "ocsort", "botsort", "occluboost"):
         drive(f"live {tracker} OBB", lambda: run_live_obb(tracker), LIVE_OBB_RATIOS[tracker],

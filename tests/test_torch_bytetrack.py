@@ -230,3 +230,24 @@ def test_aabb_step_runs_k1_in_full_then_iou_only_mode():
         assert kw_a == kw_d == {"eps": IOU_BATCH_EPS}
         assert [tuple(a.shape) for a in assoc] == [(1, 32, 4), (1, 64, 4), (1, 64)]
         assert len(dup) == 2 and torch.equal(dup[0], dup[1])
+
+
+def test_live_update_with_nan_detections_equals_jax():
+    """NaN coordinates in some detections (``with_nan_detections``): NaN
+    costs reach the auction and NaN-born tracks the Kalman bank; the rows
+    equal JAX's."""
+    from chip_smoke import NAN_FRAMES, with_nan_detections
+
+    frames = with_nan_detections(_public_frames(ASSETS / "MOT17-mini/train/MOT17-04-FRCNN", 14))
+    img = np.zeros((1080, 1920, 3), np.uint8)
+    jt, tt = boxmot_tpu.create_tracker("bytetrack"), create_tracker("bytetrack", device="cpu")
+    rows, nan_state = 0, False
+    for f, dets in enumerate(frames):
+        want = np.asarray(jt.update(dets, img))
+        got = np.asarray(tt.update(dets, img))
+        assert got.shape == want.shape, f
+        np.testing.assert_array_equal(got[:, 4:], want[:, 4:], err_msg=f"frame {f}")
+        np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=RTOL, atol=1e-3)
+        nan_state |= bool(torch.isnan(tt._state.mean).any())
+        rows += len(got)
+    assert rows > 100 and nan_state and all(np.isnan(frames[f][1, 0]) for f in NAN_FRAMES)

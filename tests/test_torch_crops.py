@@ -138,6 +138,19 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         tc.as_frame(np.zeros((4, 4), np.uint8), "cpu")
 
 
+def test_launch_refuses_what_the_kernel_does_not_take():
+    """``launch_crops`` hands pointers to K5: it takes card tensors of the
+    kernel's shapes and dtypes only (here, on the CPU, it refuses them all)."""
+    img, boxes = torch.from_numpy(_frame()), torch.from_numpy(_aabb())
+    out = torch.empty((len(boxes), 3, *HW))
+    for args in ((img, boxes, None, out), (img.float(), boxes, None, out),
+                 (img, boxes[:, :3].contiguous(), None, out),
+                 (img, boxes, torch.zeros((2, len(boxes))), out),
+                 (img, boxes, None, out.half())):
+        with pytest.raises(ValueError, match="one card"):
+            tc.launch_crops(*args)
+
+
 # the behaviours of tests/test_reid.py:17-66, on the port's twin
 
 

@@ -13,23 +13,26 @@ import numpy as np
 import pytest
 import torch
 
-from boxmot_tpu_torch.ops.crops import extract_crops, extract_crops_plain
+from boxmot_tpu_torch.ops.crops import extract_crops, extract_crops_plain, launch_crops
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
-from boxmot_tpu_torch.ops.geometry import obb_corners
+from boxmot_tpu_torch.ops.geometry import exact, obb_corners
 from boxmot_tpu_torch.ops.lap import masked_assignment, masked_assignment_plain, uses_shared_weights
 from boxmot_tpu_torch.ops.nms import batched_class_nms, nms, nms_plain
 from boxmot_tpu_torch.ops.oru import oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
 from chip_smoke import (
+    NONFINITE,
     ORU_EDGES,
     XYSCR_EDGES,
     _nonfinite_boxes,
     _tiny_boxes,
     crop_boxes,
+    crop_edge_boxes,
     crop_frame,
     crossed_quads,
     nms_boxes,
     nms_edge_sets,
+    nonfinite_costs,
     same_or_both_nan,
     oru_edge_inputs,
     oru_inputs,
@@ -183,6 +186,20 @@ def test_auction_kernel_r2c_identical_to_twin(card, kind, R, C):
     assert masked_assignment.launches == before + 1
     assert torch.equal(got, want) and torch.equal(caps[0], caps[1])
     assert torch.equal(work[0], work[1]) and int(work[0][:, 0].max()) > 0
+
+
+@pytest.mark.parametrize("label", list(NONFINITE))
+def test_auction_kernel_on_nonfinite_costs_identical_to_twin(card, label):
+    """NaN, +inf and -inf costs: r2c and capped as the twin's, on both of
+    K2's paths."""
+    for seed, (R, C) in enumerate(((20, 16), (256, 512))):
+        cost, rm, cm = (torch.from_numpy(a).to(card) for a in nonfinite_costs(
+            np.random.default_rng(seed), NONFINITE[label], R=R, C=C))
+        caps = [torch.zeros(2, dtype=torch.int32, device=card) for _ in range(2)]
+        got = masked_assignment(cost, rm, cm, 0.8, caps[0])
+        want = masked_assignment_plain(cost, rm, cm, 0.8, caps[1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(caps[0], caps[1])
 
 
 def test_auction_kernel_counts_the_iteration_cap(card):
@@ -387,11 +404,13 @@ def test_oru_kernel_on_hybridsort_steps_bit_equal_to_twin_on_the_cpu(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
-@pytest.mark.parametrize("n, hw", [(64, (256, 128)), (3, (7, 5)), (300, (64, 32))])
+@pytest.mark.parametrize("n, hw", [(64, (256, 128)), (3, (7, 5)), (300, (64, 32)),
+                                   (256, (256, 128)), (16, (384, 128))])
 def test_crops_kernel_bit_equal_to_twin(card, n, hw, obb, dtype):
     """K5 against its twin on the card and on the CPU: a textured 1080p frame,
     boxes past every edge, sub-pixel, unit padding boxes, angles of +-pi/2 and
-    +-pi; ragged crop sizes (7 x 5) and more crops than one facade chunk."""
+    +-pi; ragged crop sizes (7 x 5: scalar stores), more crops than one
+    facade chunk, 256 crops and (384, 128) outputs."""
     rng = np.random.default_rng(n + obb)
     frame = torch.from_numpy(crop_frame(n)).to(card)
     boxes = torch.from_numpy(crop_boxes(rng, n, obb)).to(card)
@@ -401,6 +420,30 @@ def test_crops_kernel_bit_equal_to_twin(card, n, hw, obb, dtype):
     torch.cuda.synchronize()
     assert got.shape == (n, 3, *hw) and got.dtype == dtype
     assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+def test_crops_kernel_edge_boxes_and_unaligned_output(card, obb, dtype):
+    """One-pixel boxes at the frame's corners and last pixels, boxes partly
+    outside it, on a frame view whose start is not 4-byte aligned; and the
+    kernel writing into an output view whose start is not 16-byte aligned
+    (the wrapper allocates its own, so ``launch_crops`` hands the view)."""
+    frame = torch.from_numpy(crop_frame(5)).to(card)
+    boxes = torch.from_numpy(crop_edge_boxes(obb)).to(card)
+    for f in (frame, torch.cat([frame.new_zeros(1), frame.flatten()])[1:].view(frame.shape)):
+        want = extract_crops_plain(f, boxes, (256, 128), obb, dtype)
+        assert torch.equal(extract_crops(f, boxes, (256, 128), obb, dtype), want)
+    assert f.data_ptr() % 4 != 0
+    cols = 5 if obb else 4
+    trig = (torch.stack([exact(torch.cos, boxes[:, 4]), exact(torch.sin, boxes[:, 4])]).contiguous()
+            if obb else None)
+    buf = torch.zeros(want.numel() + 1, dtype=dtype, device=card)
+    out = buf[1:].view(want.shape)
+    assert out.data_ptr() % 16 != 0
+    launch_crops(frame, boxes[:, :cols].contiguous(), trig, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_crops_kernel_takes_an_empty_batch_and_counts_launches(card):

@@ -17,6 +17,7 @@ import torch
 from boxmot_tpu.ops.lap import linear_assignment_np
 from boxmot_tpu.ops.lap import masked_assignment as jax_masked_assignment
 from boxmot_tpu_torch.ops.lap import MAX_COLS, MAX_ROWS, masked_assignment, masked_assignment_plain
+from chip_smoke import NONFINITE, nonfinite_costs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,6 +76,19 @@ def test_twin_r2c_identical_to_jax(kind, R, C, thresh):
     np.testing.assert_array_equal(got, _jax_r2c(cost, rm, cm, thresh))
     assert got.dtype == np.int32
     assert capped.tolist() == [0] * S
+
+
+@pytest.mark.parametrize("label", list(NONFINITE))
+def test_twin_r2c_identical_to_jax_on_nonfinite_costs(label):
+    """NaN and +inf costs never match; a -inf cost is an infinite weight and
+    runs the auction to its cap, where the twin returns JAX's partial
+    assignment."""
+    cost, rm, cm = nonfinite_costs(np.random.default_rng(len(label)), NONFINITE[label])
+    capped = torch.zeros(cost.shape[0], dtype=torch.int32)
+    got = masked_assignment(torch.from_numpy(cost), torch.from_numpy(rm), torch.from_numpy(cm),
+                            0.8, capped).numpy()
+    np.testing.assert_array_equal(got, _jax_r2c(cost, rm, cm, 0.8))
+    assert (capped > 0).any() == ("-inf" in label)
 
 
 @pytest.mark.parametrize("R, C", [(12, 9), (30, 30), (60, 25)])

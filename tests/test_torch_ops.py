@@ -232,3 +232,48 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
 def test_profile_keeps_a_trace_that_another_confirms(counts, keep):
     from boxmot_tpu_torch.utils.measure import settled_trace
     assert settled_trace(counts) == keep
+
+
+@pytest.mark.parametrize("prefix, tables, want", [
+    # one launch a call (K1-K6's wrappers): the time a launch; a whole kernel
+    # name is a prefix of itself
+    ("iou_cost_kernel",
+     [{"void iou_cost_kernel<true>(float4 const*)": (4, 12.0), "empty_kernel()": (4, 1.0)}],
+     3.0e-3),
+    # two kernels a call, each timed: a call's sum; other names left out
+    ("nms_", [{"void (anonymous namespace)::nms_select(int)": (4, 8.0),
+               "nms_scan(int)": (4, 20.0), "elementwise_kernel": (4, 9.0)}], 7.0e-3),
+    # a trace that lost a few launches: the mean over the calls it holds
+    ("auction_", [{"auction_kernel<true>()": (3, 6.6)}], 2.2e-3),
+    ("nms_", [{"nms_select(int)": (4, 8.0), "nms_scan(int)": (3, 15.0)}], 23.0 / 3.5 * 1e-3),
+    # a trace that lost most launches is taken again, through a run of losses
+    ("oru_", [{"oru_kernel<0>()": (1, 1.0)}, {}, {}, {"oru_kernel<0>()": (3, 6.0)}], 2.0e-3),
+])
+def test_device_ms_per_call_sums_a_calls_prefixed_kernels(monkeypatch, prefix, tables, want):
+    from boxmot_tpu_torch.utils import measure
+    seen = iter(tables)
+    monkeypatch.setattr(measure, "_traced", lambda fn, calls: next(seen))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(measure, "RETAKE_PAUSE_S", 0.0)
+    got = measure.device_ms_per_call(lambda: None, prefix, reps=4, warmup=0)
+    assert got == pytest.approx(want)
+    assert next(seen, None) is None  # no trace taken past the one kept
+
+
+def test_device_ms_per_call_raises_when_every_trace_loses_the_kernel(monkeypatch):
+    from boxmot_tpu_torch.utils import measure
+    monkeypatch.setattr(measure, "_traced", lambda fn, calls: {"nms_scan()": (3, 1.0)})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(measure, "RETAKE_PAUSE_S", 0.0)
+    with pytest.raises(RuntimeError, match="3 launches of 'nms_'"):
+        measure.device_ms_per_call(lambda: None, "nms_", reps=8, warmup=0)
+    monkeypatch.setattr(measure, "_traced", lambda fn, calls: {})
+    with pytest.raises(RuntimeError, match="0 launches of 'nms_'"):
+        measure.device_ms_per_call(lambda: None, "nms_", reps=8, warmup=0)
+
+
+def test_kernel_name_strips_type_namespace_template_and_parameters():
+    from boxmot_tpu_torch.utils.measure import kernel_name
+    assert kernel_name("void (anonymous namespace)::crops_kernel<true, float>(unsigned char "
+                       "const*, float*)") == "crops_kernel"
+    assert kernel_name("nms_sorted_scan(float4 const*, float const*, int)") == "nms_sorted_scan"

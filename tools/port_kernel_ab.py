@@ -46,9 +46,21 @@ measured the same way.  On one CUDA card it:
    appearance, 5 % of detections missed, frame 64 of 65, as chip_smoke.py's
    phase 3 records it) and on the all-rejoin XYSCR set (``oru_inputs`` at
    8 x 256, gaps 2-31), and the same AABB step profile as in 6, with K4's
-   device ms per step, on 5 % missed.
+   device ms per step, on 5 % missed;
+9. K6 (greedy NMS) on chip_smoke.py's phase 3 inputs: one yolox_x frame's
+   decoded outputs (seeded calibrated weights, MOT17-04's first frame; made
+   once and kept in ``build/scratch/k6_inputs.pt`` so that checkouts timed
+   in turns share them) and 23,625 random clustered boxes with a third of the scores below
+   the detector's conf, each at max_out 256 and 64: device ms a call (every
+   ``nms_*`` kernel), the wrapper's ms, and its kept indices against the
+   twin's;
+10. K5 (the ReID crops) on 64 and 256 boxes of phase 3's seeded 1080p
+   frame, axis-aligned and rotated, fp32: device ms a call (every
+   ``crops_*`` kernel) and the wrapper's ms.
 
-It prints one JSON object and appends it to chiprun_out/port_kernel_ab.jsonl.
+``--sections`` picks among ``trackers`` (steps 2-8), ``k6`` and ``k5``
+(all three by default).  It prints one JSON object and appends it to
+chiprun_out/port_kernel_ab.jsonl.
 Compare two checkouts only within one run on one card, in turns
 (A, B, B, A).
 """
@@ -69,6 +81,9 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
+# the yolox_x frame's decoded outputs for step 9, made by the first run and
+# read by the others, so that checkouts timed in turns share them
+K6_INPUTS = HERE / "build" / "scratch" / "k6_inputs.pt"
 
 
 def _load_measure():
@@ -83,7 +98,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, required=True)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--sections", default="trackers,k6,k5",
+                    help="comma-separated: trackers (steps 2-8), k6, k5")
     args = ap.parse_args()
+    sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
         print("port_kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
@@ -91,12 +109,6 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     from boxmot_tpu_torch.csrc import build
-    from boxmot_tpu_torch.engine.replay import batch_replay, init_states, pack_frames
-    from boxmot_tpu_torch.ops import fused_iou_cost as fic
-    from boxmot_tpu_torch.ops.geometry import obb_corners
-    from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
-    from boxmot_tpu_torch.trackers import bytetrack
-    from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
 
     import boxmot_tpu_torch
     if Path(boxmot_tpu_torch.__file__).resolve().parents[1] != root:
@@ -104,17 +116,95 @@ def main() -> int:
     measure = _load_measure()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        list(pool.map(build.build, ("iou_cost", "auction", "rotated_iou", "oru")))
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        list(pool.map(build.build, ("iou_cost", "auction", "rotated_iou", "oru", "crops", "nms")))
 
     result = {"label": args.label or str(root), "card": smi}
+    if "k6" in sections:
+        result.update(_k6(cs, measure, K6_INPUTS))
+    if "k5" in sections:
+        result.update(_k5(cs, measure))
+    if "trackers" in sections:
+        result.update(_trackers(cs, measure))
+    line = json.dumps(result)
+    print(line)
+    out = HERE / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with open(out / "port_kernel_ab.jsonl", "a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+def _k6(cs, measure, inputs: Path) -> dict:
+    """Step 9: K6 on the yolox_x frame's decoded outputs and on the random
+    clustered boxes, at max_out 256 and 64."""
+    from boxmot_tpu_torch.ops.nms import nms, nms_plain
+
+    if not inputs.exists():
+        import tempfile
+
+        from boxmot_tpu_torch.detectors.registry import YoloXDetector
+
+        frames = cs.mot17_frames()["MOT17-04-FRCNN"]
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = cs.yolox_checkpoint(Path(tmp), "yolox_x", frames[:2], cs.DET_IMGSZ,
+                                       device="cuda")
+            det = YoloXDetector(str(ckpt), device="cuda", imgsz=cs.DET_IMGSZ)
+            boxes, masked = cs.decoded_scores(det, frames[0])
+        inputs.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"boxes": boxes.cpu(), "scores": masked.cpu()}, inputs)
+    saved = torch.load(inputs)
+    rng = np.random.default_rng(0)
+    b, s = cs.nms_boxes(rng, 23625)
+    s[rng.random(23625) < 1 / 3] = -1.0
+    sets = {"yolox": (saved["boxes"].cuda(), saved["scores"].cuda()),
+            "clustered": (torch.from_numpy(b).cuda(), torch.from_numpy(s).cuda())}
+    result = {}
+    for label, (boxes, scores) in sets.items():
+        for max_out in (256, 64):
+            call = lambda: nms(boxes, scores, 0.7, max_out)  # noqa: E731
+            got, want = call(), nms_plain(boxes, scores, 0.7, max_out)
+            key = f"k6_{label}_{max_out}"
+            result[f"{key}_equal_to_twin"] = bool(torch.equal(got[0], want[0]))
+            result[f"{key}_device_ms_per_call"] = measure.device_ms_per_call(call, "nms_")
+            result[f"{key}_wrapper_ms"] = measure.event_ms(call)
+    return result
+
+
+def _k5(cs, measure) -> dict:
+    """Step 10: K5 on 64 and 256 boxes of the seeded 1080p frame."""
+    from boxmot_tpu_torch.ops.crops import extract_crops
+
+    frame = torch.from_numpy(cs.crop_frame(1)).cuda()
+    result = {}
+    for n in (64, 256):
+        for obb in (False, True):
+            boxes = torch.from_numpy(cs.crop_boxes(np.random.default_rng(n), n, obb)).cuda()
+            call = lambda: extract_crops(frame, boxes, cs.CROP_HW, obb)  # noqa: E731
+            key = f"k5_{'obb' if obb else 'aabb'}_{n}"
+            result[f"{key}_device_ms_per_call"] = measure.device_ms_per_call(call, "crops_")
+            result[f"{key}_wrapper_ms"] = measure.event_ms(call)
+    return result
+
+
+def _trackers(cs, measure) -> dict:
+    """Steps 2-8, with the checkout's port (``main`` has put it first on
+    the path)."""
+    from boxmot_tpu_torch.engine.replay import batch_replay, init_states, pack_frames
+    from boxmot_tpu_torch.ops import fused_iou_cost as fic
+    from boxmot_tpu_torch.ops.geometry import obb_corners
+    from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
+    from boxmot_tpu_torch.trackers import bytetrack
+    from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
+
+    result = {}
     paths = {
         "aabb": (ByteTrackConfig(capacity=cs.CAPACITY), cs.synthetic_frames, 6),
         "obb": (ByteTrackConfig(capacity=cs.CAPACITY, is_obb=True),
                 lambda n, d, seed: cs.synthetic_obb_frames(n, d, seed=seed, miss=0.0), 7),
     }
-    kernels = {"fused_iou_cost": "iou_cost_kernel", "masked_assignment": "auction_kernel",
-               "rotated_iou": "rotated_iou_kernel"}
+    kernels = {"fused_iou_cost": "iou_cost_", "masked_assignment": "auction_",
+               "rotated_iou": "rotated_iou_"}
     k1_calls = []  # K1's arguments at the AABB bench step
     for label, (cfg, frames_fn, cols) in paths.items():
         packed = [pack_frames(frames_fn(cs.N_FRAMES, cs.N_DETS, seed=s), D=cs.D_BENCH,
@@ -131,8 +221,8 @@ def main() -> int:
                     a = [a[0], a[1]] + [obb_corners(x).contiguous() for x in (a[0], a[1])]
                 if name == "fused_iou_cost" and len(a) == 2 and torch.equal(*a):
                     a = [a[0], a[0]]  # the step passes one box tensor twice
-                times.append(measure.device_ms(lambda: getattr(bytetrack, name)(*a, **kw),
-                                               kernels[name]))
+                times.append(measure.device_ms_per_call(
+                    lambda: getattr(bytetrack, name)(*a, **kw), kernels[name]))
                 if name == "fused_iou_cost":
                     k1_calls.append(a)
             result[f"{label}_{name}_device_ms_per_launch"] = times
@@ -179,13 +269,14 @@ def main() -> int:
             g = fic.launch_geometry(S, K, D, sms)
             grids.add((S * g.row_blocks, g.quads * g.lanes))
         result["launch_floor_ms"] = {
-            f"{b}x{t}": measure.device_ms(lambda: fic.empty_launch(torch.device("cuda"), b, t),
-                                          "empty_kernel") for b, t in sorted(grids)}
+            f"{b}x{t}": measure.device_ms_per_call(
+                lambda: fic.empty_launch(torch.device("cuda"), b, t), "empty_kernel")
+            for b, t in sorted(grids)}
     rng = np.random.default_rng(0)
     a, b = (torch.from_numpy(cs._obbs(rng, 1, 4096)).cuda() for _ in range(2))
     c1, c2 = (obb_corners(x).contiguous() for x in (a, b))
-    result["rotated_iou_4096_device_ms"] = measure.device_ms(
-        lambda: rotated_iou(a, b, c1, c2), "rotated_iou_kernel", reps=5, warmup=2)
+    result["rotated_iou_4096_device_ms"] = measure.device_ms_per_call(
+        lambda: rotated_iou(a, b, c1, c2), "rotated_iou_", reps=5, warmup=2)
     result.update(_ocsort(cs, measure))
     if hasattr(cs, "appearance_batch"):
         from boxmot_tpu_torch.engine.eval import build_replay_config
@@ -203,13 +294,7 @@ def main() -> int:
         cfg = build_replay_config("hybridsort", capacity=cs.CAPACITY)
         result.update(_hybridsort_k4(cs, measure, cfg))
         result.update(_appearance(cs, measure, "hybridsort", cfg, miss=cs.MISS))
-    line = json.dumps(result)
-    print(line)
-    out = HERE / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    with open(out / "port_kernel_ab.jsonl", "a") as f:
-        f.write(line + "\n")
-    return 0
+    return result
 
 
 def _ocsort(cs, measure) -> dict:
@@ -236,8 +321,8 @@ def _ocsort(cs, measure) -> dict:
         sets[f"all_rejoin_{'obb' if obb else 'aabb'}"] = [
             layout, *(t.cuda() for t in (*tensors, rejoin, gap, replayed))]
     for label, args in sets.items():
-        result[f"oru_{label}_device_ms_per_launch"] = measure.device_ms(
-            lambda: ocsort.oru_replay(*args), "oru_kernel")
+        result[f"oru_{label}_device_ms_per_launch"] = measure.device_ms_per_call(
+            lambda: ocsort.oru_replay(*args), "oru_")
         result[f"oru_{label}_slots_rejoining"] = int(args[7].sum())
         result[f"oru_{label}_longest_gap"] = int(torch.where(args[7], args[8], 0).max())
 
@@ -280,8 +365,8 @@ def _hybridsort_k4(cs, measure, cfg) -> dict:
     sets["all_rejoin_xyscr"] = [layout, *(t.cuda() for t in (*tensors, rejoin, gap, replayed))]
     result = {}
     for label, args in sets.items():
-        result[f"oru_{label}_device_ms_per_launch"] = measure.device_ms(
-            lambda: hybridsort.oru_replay(*args), "oru_kernel")
+        result[f"oru_{label}_device_ms_per_launch"] = measure.device_ms_per_call(
+            lambda: hybridsort.oru_replay(*args), "oru_")
         result[f"oru_{label}_slots_rejoining"] = int(args[7].sum())
         result[f"oru_{label}_longest_gap"] = int(torch.where(args[7], args[8], 0).max())
     return result
