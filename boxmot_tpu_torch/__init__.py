@@ -8,11 +8,14 @@ compensation (ECC on the device), on one NVIDIA H100, or on the CPU
 through each kernel's plain PyTorch twin; and sam2mot, a host tracker in
 both packages.  A live appearance tracker can compute its embeddings from
 the frame with the ReID facade (``reid``: crops on the card, OSNet from
-torchreid checkpoints).  Images become tracks through the YOLOX detector
-(``detectors``: ``YoloXDetector``, ``Detector``, yolox checkpoints, NMS on
-the card), the staged ``engine.inference.DetectorReIDPipeline`` or the
+torchreid checkpoints, ResNet, MobileNetV2, LMBN, MLFN, CSPReID and HACNN).
+Images become tracks through the YOLOX detector or the vendored
+``yololite*`` predictor (``detectors``: ``YoloXDetector``,
+``UltralyticsDetector``, ``Detector``, yolox checkpoints, NMS on the card),
+the staged ``engine.inference.DetectorReIDPipeline`` or the
 fused ``engine.fused.FusedLiveTracker`` (detect, crop, ReID and track on
-the card with no host sync inside a frame).  The hot ops of the tracker
+the card with no host sync inside a frame); ``run_generate`` writes the
+detection, mask, embedding and warp caches that ``run_eval`` reads.  The hot ops of the tracker
 steps and the detector's NMS are kernels written by hand for Hopper
 (``csrc/``), built with nvcc on first use.  The package imports torch, numpy, scipy and cv2 (the OBB metric),
 and nothing of JAX or of the JAX package: it keeps its own copies of the
@@ -31,10 +34,14 @@ Entry points, on the card unless ``device="cpu"`` is given::
     det = create_detector("yolox_x_MOT17_ablation.pt")  # a yolox checkpoint
     live = FusedLiveTracker(det, ReID("osnet_x0_25"), "occluboost")
     live.update(frame_bgr)  # (M, 8) rows
+    boxmot_tpu_torch.run_generate(root, cache_root, detector="yololite-seg",
+                                  detector_model=create_detector("yololite-seg.pt"),
+                                  reid_model=ReID("osnet_x0_25"), cmc_method="ecc")
 """
 
 from boxmot_tpu_torch.engine.eval import run_eval
 from boxmot_tpu_torch.engine.eval_obb import run_eval_obb
+from boxmot_tpu_torch.engine.generate import run_generate
 from boxmot_tpu_torch.trackers.zoo import create_tracker
 
-__all__ = ["create_tracker", "run_eval", "run_eval_obb"]
+__all__ = ["create_tracker", "run_eval", "run_eval_obb", "run_generate"]

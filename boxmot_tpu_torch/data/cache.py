@@ -13,6 +13,9 @@ reference's
     <root>/<detector>/masks/seg/<seq>.npy                  (frame, bit-packed 160 x 160 mask)
 
 with the embedding rows aligned row for row with the detection rows.
+``AppendableNpyWriter`` (a copy too) streams rows into such a file and
+rewrites its header in place on every append, so that an interrupted
+generation resumes; its files are byte-equal to the JAX writer's.
 """
 
 from __future__ import annotations
@@ -20,6 +23,71 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+
+class AppendableNpyWriter:
+    """Stream float32 rows into a .npy file with a resumable header.
+
+    The header is written with a padded shape field so it can be rewritten
+    in place as rows are appended (same trick as the reference
+    AppendableNpyWriter, data/cache.py:140-259).
+    """
+
+    def __init__(self, path: Path, n_cols: int):
+        self.path = Path(path)
+        self.n_cols = n_cols
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._rows = 0
+        if self.path.exists():
+            existing = np.load(self.path, mmap_mode="r")
+            if existing.ndim != 2 or existing.shape[1] != n_cols:
+                raise ValueError(
+                    f"existing cache {self.path} has shape {existing.shape}, "
+                    f"expected (*, {n_cols})"
+                )
+            self._rows = existing.shape[0]
+            del existing
+            self._fh = open(self.path, "r+b")
+            self._fh.seek(0, 2)
+        else:
+            self._fh = open(self.path, "w+b")
+            self._write_header(0)
+
+    def _write_header(self, rows: int):
+        self._fh.seek(0)
+        header = {
+            "descr": "<f4",
+            "fortran_order": False,
+            "shape": (rows, self.n_cols),
+        }
+        np.lib.format.write_array_header_2_0(self._fh, header)
+        self._header_len = self._fh.tell()
+
+    @property
+    def rows(self) -> int:
+        return self._rows
+
+    def append(self, rows: np.ndarray):
+        rows = np.asarray(rows, np.float32).reshape(-1, self.n_cols)
+        if not len(rows):
+            return
+        self._fh.seek(0, 2)
+        self._fh.write(rows.tobytes())
+        self._rows += len(rows)
+        self._write_header(self._rows)
+        self._fh.seek(0, 2)
+        self._fh.flush()
+
+    def close(self):
+        if not self._fh.closed:
+            self._write_header(self._rows)
+            self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def det_cache_path(root: Path, detector: str, seq: str) -> Path:

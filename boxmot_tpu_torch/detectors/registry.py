@@ -4,9 +4,10 @@ boxmot_tpu/detectors/registry.py).
 ``get_detector_class`` maps weights to a backend by file name as the JAX
 registry does: ``yolox*`` to ``YoloXDetector``, ``rtdetr*`` / ``rt-detr*``
 to ``RTDetrDetector``, anything else to ``UltralyticsDetector``.  The port
-runs YOLOX on the card; the ultralytics adapter (with the ``yololite*``
-predictor the JAX package vendors) and the RT-DETR adapter are not ported
-and raise ``NotImplementedError`` (ROADMAP Queue A item 18).
+runs YOLOX and the vendored ``yololite*`` predictor
+(``detectors/yolo_lite.py``) on the card.  Any other ultralytics stem needs
+the ``ultralytics`` package and RT-DETR needs ``transformers``; where they
+are absent the adapters raise the JAX package's ``ImportError``s.
 ``PublicDetections`` replays per-frame detections, as in JAX.
 
 ``YoloXDetector`` keeps the three-stage contract of ``BaseDetectorBackend``:
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from boxmot_tpu_torch.detectors.base import BaseDetectorBackend, Detections
+from boxmot_tpu_torch.detectors.yolo_lite import LiteYOLO
 from boxmot_tpu_torch.models.convert import load_yolox
 from boxmot_tpu_torch.models.yolox import build_yolox
 from boxmot_tpu_torch.ops.crops import IMAGENET_MEAN, IMAGENET_STD
@@ -57,22 +59,153 @@ class PublicDetections(BaseDetectorBackend):
         return Detections(xyxy=raw[:, :4], conf=raw[:, 4], cls=raw[:, 5])
 
 
-class UltralyticsDetector(BaseDetectorBackend):
-    """The ultralytics adapter (and its ``yololite*`` predictor): not ported."""
+def _as_numpy(values) -> np.ndarray:
+    """Torch tensors (cuda or cpu) and arrays -> float32 numpy
+    (reference boxmot/detectors/ultralytics.py:151-156)."""
+    if hasattr(values, "cpu"):
+        values = values.cpu()
+    if hasattr(values, "numpy"):
+        values = values.numpy()
+    return np.asarray(values, dtype=np.float32)
 
-    def __init__(self, weights, *args, **kwargs):
-        raise NotImplementedError(
-            f"no PyTorch backend for detector weights {str(weights)!r}: the port has YOLOX; the "
-            "ultralytics adapter and the yololite predictor are ROADMAP Queue A item 18")
+
+class UltralyticsDetector(BaseDetectorBackend):
+    """Adapter over the ultralytics YOLO predictor (a copy of the JAX
+    package's; reference boxmot/detectors/ultralytics.py:17-204), covering
+    all three result families the reference extracts:
+
+      * detect models  -> result.boxes  {xyxy, conf, cls}
+      * segment models -> result.boxes + result.masks.data (binarized
+        at 0.5 to uint8, ultralytics.py:183-189)
+      * OBB models     -> result.obb {xywhr, conf, cls} -> (N,7) dets
+        (ultralytics.py:166-172)
+      * pose models    -> result.boxes as usual (the reference tracks
+        pose models through their boxes, ci.yml:398-424) + keypoints
+        carried on Detections.keypoints for track re-association
+    """
+
+    def __init__(self, weights, device="cuda", half=False, conf=0.25,
+                 iou=0.7, classes=None, agnostic_nms=False, **kwargs):
+        super().__init__(weights, device, half)
+        if Path(str(weights)).stem.lower().startswith("yololite"):
+            # vendored offline predictor with the same result surface, on
+            # ``device`` (the card unless the caller asks for the CPU)
+            self.model = LiteYOLO(str(weights), device=device)
+        else:
+            try:
+                from ultralytics import YOLO  # noqa: PLC0415
+            except ImportError as exc:
+                raise ImportError(
+                    "ultralytics is not installed in this environment; install "
+                    "it, use the vendored predictor (--detector yololite[-seg|"
+                    "-obb|-pose]), or replay cached detections "
+                    "(--detector public)"
+                ) from exc
+            self.model = YOLO(str(weights))
+        self.conf = conf
+        self.iou = iou
+        self.classes = classes
+        self.agnostic_nms = agnostic_nms
+
+    def preprocess(self, img):
+        return img, None
+
+    def process(self, batch):
+        kwargs = {"conf": self.conf, "verbose": False}
+        # only pass non-default knobs: recorded fakes and older
+        # predictor signatures need not accept every option
+        if self.iou != 0.7:
+            kwargs["iou"] = self.iou
+        if self.classes is not None:
+            kwargs["classes"] = self.classes
+        if self.agnostic_nms:
+            kwargs["agnostic_nms"] = True
+        return self.model.predict(batch, **kwargs)[0]
+
+    def postprocess(self, raw, meta) -> Detections:
+        obb = getattr(raw, "obb", None)
+        if obb is not None:
+            if len(obb) == 0:
+                return Detections(
+                    xyxy=np.zeros((0, 4), np.float32),
+                    conf=np.zeros((0,), np.float32),
+                    cls=np.zeros((0,), np.float32),
+                    is_obb=True,
+                    xywha=np.zeros((0, 5), np.float32),
+                )
+            xywhr = _as_numpy(obb.xywhr)
+            conf = _as_numpy(obb.conf).reshape(-1)
+            cls = _as_numpy(obb.cls).reshape(-1)
+            # axis-aligned hull of the rotated rect (host numpy)
+            cx, cy, w, h, a = xywhr.T
+            ex = np.abs(w / 2 * np.cos(a)) + np.abs(h / 2 * np.sin(a))
+            ey = np.abs(w / 2 * np.sin(a)) + np.abs(h / 2 * np.cos(a))
+            xyxy = np.stack(
+                [cx - ex, cy - ey, cx + ex, cy + ey], axis=1
+            ).astype(np.float32)
+            return Detections(
+                xyxy=xyxy, conf=conf, cls=cls, is_obb=True, xywha=xywhr
+            )
+
+        boxes = raw.boxes
+        if boxes is None or len(boxes) == 0:
+            return Detections(
+                xyxy=np.zeros((0, 4), np.float32),
+                conf=np.zeros((0,), np.float32),
+                cls=np.zeros((0,), np.float32),
+            )
+        masks = None
+        raw_masks = getattr(raw, "masks", None)
+        if raw_masks is not None and len(raw_masks) > 0:
+            masks = (_as_numpy(raw_masks.data) > 0.5).astype(np.uint8)
+        keypoints = None
+        raw_kpts = getattr(raw, "keypoints", None)
+        if raw_kpts is not None and len(raw_kpts) > 0:
+            keypoints = _as_numpy(raw_kpts.data)  # (N, K, 3)
+        return Detections(
+            xyxy=_as_numpy(boxes.xyxy),
+            conf=_as_numpy(boxes.conf).reshape(-1),
+            cls=_as_numpy(boxes.cls).reshape(-1),
+            masks=masks,
+            keypoints=keypoints,
+        )
 
 
 class RTDetrDetector(BaseDetectorBackend):
-    """The HF-transformers RT-DETR adapter: not ported."""
+    """HF-transformers RT-DETR adapter (the JAX package's body;
+    detectors/rtdetr.py:15) on ``device``, the card unless the caller asks
+    for the CPU: the model and the processor's tensors live there, and the
+    kept rows come back to the host."""
 
-    def __init__(self, weights, *args, **kwargs):
-        raise NotImplementedError(
-            f"no PyTorch backend for detector weights {str(weights)!r}: the port has YOLOX; the "
-            "RT-DETR adapter is ROADMAP Queue A item 18")
+    def __init__(self, weights, device="cuda", half=False, conf=0.5, **kwargs):
+        super().__init__(weights, device, half)
+        try:
+            from transformers import AutoModelForObjectDetection, AutoImageProcessor  # noqa: PLC0415
+        except ImportError as exc:
+            raise ImportError("transformers is required for RT-DETR") from exc
+        self.device = resolve_device(device)
+        self.processor = AutoImageProcessor.from_pretrained(str(weights))
+        self.model = AutoModelForObjectDetection.from_pretrained(str(weights)).to(self.device)
+        self.conf = conf
+
+    def preprocess(self, img):
+        inputs = self.processor(images=img[..., ::-1], return_tensors="pt")
+        return {k: v.to(self.device) for k, v in inputs.items()}, img.shape[:2]
+
+    def process(self, batch):
+        with torch.no_grad():
+            return self.model(**batch)
+
+    def postprocess(self, raw, meta) -> Detections:
+        res = self.processor.post_process_object_detection(
+            raw, threshold=self.conf,
+            target_sizes=torch.tensor([meta], device=self.device)
+        )[0]
+        return Detections(
+            xyxy=_as_numpy(res["boxes"]),
+            conf=_as_numpy(res["scores"]),
+            cls=_as_numpy(res["labels"]),
+        )
 
 
 def letterbox_u8(img: np.ndarray, imgsz):

@@ -1,7 +1,7 @@
-"""Typed eval result.
+"""Typed eval and cache-generation results.
 
-The port's own copy of ``ValidationResult`` and its base from
-``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
+The port's own copy of ``ValidationResult``, ``GenerateResult`` and their
+base from ``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
 that index the raw mapping keep working, with attribute accessors and a
 summary (role mirror of the reference's
 boxmot/engine/workflows/results.py:136).
@@ -46,4 +46,22 @@ class ValidationResult(WorkflowResult):
         return (
             f"HOTA {100 * self.hota:.2f}  MOTA {100 * self.mota:.2f}  "
             f"IDF1 {100 * self.idf1:.2f}"
+        )
+
+
+class GenerateResult(WorkflowResult):
+    """Cache-generation output: {seq: {dets, embs}} (results.py:26x)."""
+
+    @property
+    def total_dets(self) -> int:
+        return sum(s["dets"] for s in self.values())
+
+    @property
+    def total_embs(self) -> int:
+        return sum(s["embs"] for s in self.values())
+
+    def summary(self) -> str:
+        return (
+            f"{self.total_dets} detections / {self.total_embs} embeddings "
+            f"across {len(self)} sequences"
         )

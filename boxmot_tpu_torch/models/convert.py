@@ -1,5 +1,5 @@
-"""OSNet and YOLOX weights: torchreid and yolox checkpoints, and the JAX
-package's Flax variables.
+"""ReID, YOLOX and yololite weights: torchreid and yolox checkpoints, and
+the JAX package's Flax variables.
 
 Counterpart of the OSNet part of ``boxmot_tpu/models/convert.py``.  The
 port's ``OSNet`` modules carry torchreid's attribute names, so a torchreid
@@ -21,9 +21,22 @@ rules (a ``{"model": sd}`` wrapper and the ``model.`` prefix go,
 ``num_batches_tracked`` is ignored, a key outside ``yolox_key_spec`` raises)
 and ``yolox_state_dict_from_flax`` is a JAX-free copy of ``export_yolox``
 over the Flax variables as numpy trees.
+
+The other ReID backbones (ResNet, MobileNetV2, LMBN, MLFN, CSPReID, HACNN)
+and the yololite predictor's ``LiteNet`` carry the Flax modules' names, so
+``backbone_state_dict_from_flax`` (one function for every family) and
+``yololite_state_dict_from_flax`` walk the Flax tree leaf by leaf
+(``_flax_leaves``): HWIO kernels become OIHW, dense kernels are transposed,
+LayerNorm and BatchNorm scales and biases become ``weight`` and ``bias``,
+batch statistics ``running_mean`` and ``running_var``; LMBN's OSNet blocks
+map to the port's torchreid names and LiteNet's auto-named modules to the
+port's.  Checkpoints of those backbones have no converter, in either
+package (``convert_checkpoint`` raises the JAX package's ``ValueError``).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -55,11 +68,18 @@ def load_state_dict(path_or_dict) -> dict:
 
 def convert_checkpoint(path_or_dict, model_name: str) -> dict:
     """A torchreid checkpoint as the state dict of the port's ``model_name``
-    module (float32 tensors), every key checked against the module's."""
-    if model_name not in OSNET_VARIANTS:
+    module (float32 tensors), every key checked against the module's.  Only
+    OSNet checkpoints convert, as in the JAX package (convert.py:111-124):
+    any other backbone raises its ``ValueError``; CLIP's converter is not
+    ported yet."""
+    if model_name.startswith("clip"):
         raise NotImplementedError(
-            f"no PyTorch backbone for {model_name!r} yet: the port has the OSNet family; the other "
-            "backbones are ROADMAP Queue A item 16")
+            f"no PyTorch backbone for {model_name!r} yet: CLIP-ReID and its converter are ROADMAP "
+            "Queue A item 16")
+    if model_name not in OSNET_VARIANTS:
+        raise ValueError(
+            f"no checkpoint converter for {model_name!r}; convert the weights "
+            "offline or train with boxmot_tpu.reid.training")
     sd = {k: v for k, v in load_state_dict(path_or_dict).items()
           if not k.startswith("classifier") and "num_batches_tracked" not in k}
     expected = {k for k in build_osnet(model_name).state_dict() if "num_batches_tracked" not in k}
@@ -257,3 +277,114 @@ def yolox_state_dict_from_flax(variables, name: str) -> dict:
             if "bias" in node:
                 sd[f"{tk}.bias"] = np.asarray(node["bias"])
     return load_yolox(sd, name)
+
+
+# Flax leaf name -> PyTorch parameter or buffer name
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flax_leaves(variables, rename) -> dict:
+    """Every leaf of Flax ``{"params", "batch_stats"}`` (numpy arrays) under
+    the PyTorch key ``rename(module path) + "." + leaf``: HWIO kernels
+    become OIHW, a dense (in, out) kernel (out, in), LayerNorm and BatchNorm
+    scales ``weight``, batch statistics ``running_mean`` / ``running_var``."""
+    sd = {}
+
+    def walk(tree, path, leaves):
+        for k, v in tree.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, (*path, k), leaves)
+                continue
+            a = np.asarray(v)
+            if k == "kernel":
+                a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+            sd[f"{rename(path)}.{leaves[k]}"] = a
+
+    walk(variables["params"], (), _PARAM_LEAVES)
+    walk(variables.get("batch_stats", {}), (), _STAT_LEAVES)
+    return sd
+
+
+def _state_dict_for(model: torch.nn.Module, sd: dict) -> dict:
+    """``sd`` checked key by key against ``model``'s state dict, as float32
+    tensors; a batch norm that Flax built without a bias
+    (``use_bias=False``, a BNNeck) gets PyTorch's bias at 0."""
+    for prefix, module in model.named_modules():
+        if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
+            sd.setdefault(f"{prefix}.bias", np.zeros(module.num_features, np.float32))
+    expected = {k for k in model.state_dict() if "num_batches_tracked" not in k}
+    unused = sorted(set(sd) - expected)
+    if unused:
+        raise ValueError(f"unmapped Flax variables: {unused[:8]}...")
+    missing = sorted(expected - set(sd))
+    if missing:
+        raise ValueError(f"the Flax variables lack keys of {type(model).__name__}: "
+                         f"{missing[:8]}...")
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def _dotted(path) -> str:
+    return ".".join(path)
+
+
+# an OSBlock's Flax names -> the port's torchreid names: the streams
+# conv2_{t}_{u} (conv2a, conv2b.u, ...), OSBlockINin's bare conv3 and its in3,
+# and the stem's instance norm ``in`` (``bn`` in the port's ConvLayer)
+_OS_STREAMS = {"1": "conv2a", "2": "conv2b", "3": "conv2c", "4": "conv2d"}
+
+
+def _osnet_path(path) -> str:
+    out = []
+    for i, seg in enumerate(path):
+        m = re.fullmatch(r"conv2_([1-4])_(\d)", seg)
+        if m:
+            out.append(_OS_STREAMS[m[1]] + ("" if m[1] == "1" else f".{m[2]}"))
+        elif seg == "in3":
+            out.append("IN")
+        elif seg == "in":
+            out.append("bn")
+        elif seg == "conv3" and i == len(path) - 1:
+            out.append("conv3.conv")  # OSBlockINin's conv3 is a bare convolution
+        else:
+            out.append(seg)
+    return ".".join(out)
+
+
+# LiteNet's Flax module names per task (auto-named in creation order) -> the port's
+_LITE_COMMON = {"ConvBNSiLU_0": "stem.0", "ConvBNSiLU_1": "stem.1", "ConvBNSiLU_2": "stem.2",
+                "ConvBNSiLU_3": "stem.3", "ConvBNSiLU_4": "neck", "ConvBNSiLU_5": "box_stem",
+                "Conv_0": "box", "ConvBNSiLU_6": "cls_stem", "Conv_1": "cls"}
+_LITE_HEADS = {
+    "detect": {},
+    "obb": {"ConvBNSiLU_7": "angle_stem", "Conv_2": "angle"},
+    "segment": {"ConvBNSiLU_7": "proto_stem", "Conv_2": "proto", "ConvBNSiLU_8": "coef_stem",
+                "Conv_3": "coef"},
+    "pose": {"ConvBNSiLU_7": "kpt_stem", "Conv_2": "kpt"},
+}
+
+
+def backbone_state_dict_from_flax(variables, name: str) -> dict:
+    """The JAX package's Flax variables of ReID backbone ``name`` (ResNet,
+    MobileNetV2, LMBN, MLFN, CSPReID or HACNN; numpy arrays) as the state
+    dict of the port's module, checked key by key.  The port's modules carry
+    the Flax names, but for LMBN's OSNet blocks (torchreid names)."""
+    from boxmot_tpu_torch.reid.core import build_model  # noqa: PLC0415
+
+    rename = _osnet_path if name.startswith("lmbn") else _dotted
+    return _state_dict_for(build_model(name), _flax_leaves(variables, rename))
+
+
+def yololite_state_dict_from_flax(variables, task: str, nc: int = 3) -> dict:
+    """The JAX ``LiteYOLO``'s Flax variables (``model.variables`` as numpy
+    arrays) of head ``task`` with ``nc`` classes as the state dict of the
+    port's ``LiteNet`` (for ``LiteYOLO(...).model.load_state_dict``)."""
+    from boxmot_tpu_torch.detectors.yolo_lite import LiteNet  # noqa: PLC0415
+
+    names = {**_LITE_COMMON, **_LITE_HEADS[task]}
+    inner = {"Conv_0": "conv", "LayerNorm_0": "norm"}
+
+    def rename(path):
+        return ".".join([names[path[0]], *(inner[p] for p in path[1:])])
+
+    return _state_dict_for(LiteNet(task, nc), _flax_leaves(variables, rename))

@@ -185,7 +185,9 @@ class ECC:
         self.prev = None
 
     def preprocess(self, img) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(img)).to(self.device)
+        # a frame decoded as a BGR view of RGB has negative strides
+        x = img.to(self.device) if torch.is_tensor(img) else torch.from_numpy(
+            np.ascontiguousarray(img)).to(self.device)
         g = to_gray(x, bgr=self.bgr) if x.dim() == 3 else x.to(torch.float32)
         if self.scale < 1.0:
             hw = (max(int(g.shape[0] * self.scale), 8), max(int(g.shape[1] * self.scale), 8))

@@ -120,14 +120,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      detections and crops; the bf16 tier; and the timing lines on 50 seeded
      textured 1080p frames (detector ms a frame in fp32 and bf16, fused ms a
      frame, kernels, busy ms, idle share and K6's share from a 16-frame
-     profile).
-Every path of phases 4-8 runs with the launch counters set to 0 just before
+     profile);
+  9. cache generation, the yololite predictor and the ReID backbones beyond
+     OSNet: (a) (in phase 3, ``check_k6_lite``) K6 at the yololite shape
+     (256 anchors, max_out 64, the class offset 512) bit-equal to its twin,
+     class-aware, with every score below conf, agnostic and with a
+     ``classes`` filter, timed beside its bound; each yololite task (detect, segment, OBB, pose) through ``predict`` on
+     the 12 MOT17-mini frames and a seeded textured 1080p frame, K6's kept
+     indices equal to the twin's on the card's own decoded outputs, the kept
+     anchors equal to the CPU's and their heads within ``LITE_TOL`` (boxes
+     1e-3 px, scores 1e-5, masks and keypoints 1e-4, at the net's 256 x 256
+     input), a line a task (ms a 1080p frame, a 16-call profile) and one
+     call's trace listing an ``nms_*`` kernel; (b) ``run_generate`` on
+     MOT17-mini with yololite-seg, the seeded osnet_x0_25 and ECC (seconds a
+     sequence by stage, frames/s), its caches against the same run on the
+     CPU (a worker's; ``_check_gen_caches``), the embeddings-only re-run over
+     its det caches, with frame_group 4 and with batch_size (a warning)
+     within 1e-5 of its embeddings, a trace of ``_fill_embeddings`` listing a
+     ``crops_*`` kernel, and ``run_eval`` over its caches on the card and
+     the CPU (sam2mot from the mask cache, BoT-SORT with embeddings and
+     warps: metrics equal, MOT rows bit-equal); (c) ``get_features`` of
+     resnet50, resnet101, mobilenetv2 x1.0 and x1.4, lmbn_n, lmbn_ain_n,
+     mlfn, cspreid_n and hacnn (160 x 64) on 64 boxes of a seeded 1080p
+     frame, card against CPU (1e-4) and bf16 against fp32 (cosine >= 0.99),
+     with a line each (ms a call, crops/s, kernels a call, K5's share).
+Every path of phases 4-9 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; the detector:
 one K6 a frame, one K5 with ReID, and the fused step the tracker's own on
-top; OC-SORT and
+top; the yololite predictor: one K6 a frame; run_generate: one K6 and one
+K5 a frame; OC-SORT and
 DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; StrongSORT: 1 IoU launch
 to 2 auctions; BoostTrack, OccluBoost and HybridSORT: as ``boost_ratio`` and
 ``hybrid_ratio`` count them from the config's options; sam2mot: none; the
@@ -147,11 +171,13 @@ import configparser
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -159,10 +185,15 @@ import torch
 
 import boxmot_tpu_torch
 from boxmot_tpu_torch.csrc import build
+from boxmot_tpu_torch.data.cache import det_cache_path, load_cached_dets_per_frame
 from boxmot_tpu_torch.data.loaders import iter_source
+from boxmot_tpu_torch.detectors import create_detector
 from boxmot_tpu_torch.detectors.detector import Detector
 from boxmot_tpu_torch.detectors import registry as registry_mod
 from boxmot_tpu_torch.detectors.registry import YoloXDetector, letterbox_u8, standardize_host
+from boxmot_tpu_torch.detectors.yolo_lite import MAX_OUT, LiteYOLO
+from boxmot_tpu_torch.engine import generate as generate_mod
+from boxmot_tpu_torch.engine.generate import load_frame, run_generate
 from boxmot_tpu_torch.engine import fused as fused_mod
 from boxmot_tpu_torch.engine.fused import FusedLiveTracker
 from boxmot_tpu_torch.engine.inference import DetectorReIDPipeline
@@ -182,6 +213,7 @@ from boxmot_tpu_torch.motion.cmc import create_cmc
 from boxmot_tpu_torch.ops.crops import (
     IMAGENET_MEAN,
     IMAGENET_STD,
+    as_frame,
     extract_crops,
     extract_crops_plain,
     launch_crops,
@@ -1721,7 +1753,7 @@ def _k6_set(label, boxes, scores, classes, thresh, max_out, reps=10, timed=True)
            measure.event_ms(lambda: nms_plain(b, sc, thresh, max_out), reps=2, warmup=1),
            *k6_bound(b.shape[0], max_out, examined, sorted_iou))
     print(f"{head}; device {row[0]:.5f} ms a call, wrapper {row[1]:.5f} ms, plain {row[2]:.4f} ms, "
-          f"bound {row[3]:.6f} ms ({row[4]})")
+          f"bound {row[3]:.3g} ms ({row[4]})")
     return row
 
 
@@ -1760,10 +1792,12 @@ def check_k6(rng, decoded):
     return {**timing(0.0, rows), "library_ms": None}
 
 
-def drive(label, fn, ratio, sync_free=True):
+def drive(label, fn, ratio, sync_free=True, n_steps=None):
     """Drive one path with every launch counter at 0; ``ratio`` gives the
     fixed launches per step of the kernels the path must run (others must
-    not run at all; an empty ratio, a host tracker's, lets none run).  A ``sync_free`` path runs under
+    not run at all; an empty ratio, a host tracker's, lets none run), and
+    ``n_steps``, where given, the number of steps, so that each of them
+    launches exactly its ratio times ``n_steps``.  A ``sync_free`` path runs under
     set_sync_debug_mode("error"), so any host sync in it raises."""
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
@@ -1777,6 +1811,8 @@ def drive(label, fn, ratio, sync_free=True):
     steps = {counts[k] / w for k, w in ratio.items()}
     if ratio and (min(counts[k] for k in ratio) <= 0 or len(steps) != 1):
         raise AssertionError(f"{label}: launches {counts} are not {ratio} per step")
+    if n_steps is not None and steps != {n_steps}:
+        raise AssertionError(f"{label}: launches {counts} are not {ratio} x {n_steps} steps")
     if any(counts[k] for k in counts if k not in ratio):
         raise AssertionError(f"{label}: a kernel outside the path launched: {counts}")
     for k, v in counts.items():
@@ -1810,8 +1846,18 @@ def cpu_job(kind, tracker, arg):
     mmot-mini and the tracks of its replay; for "reid", the replay outputs of
     the cache-fed config (``REID_PARAMS``) over the seeded caches under
     ``arg`` (``reid_caches``), for OccluBoost with each sequence's gap rows
-    and resurrections from its final state."""
+    and resurrections from its final state; for "generate", the det, mask and
+    warp caches of phase 9b's ``run_generate`` on the CPU ({"dets/<seq>":
+    rows, ...})."""
     torch.set_num_threads(1)
+    if kind == "generate":  # phase 9b's run on the CPU: dets, masks and warps
+        torch.set_num_threads(4)
+        with tempfile.TemporaryDirectory() as tmp:
+            run_generate(ROOTS["mot17_mini"], Path(tmp), detector=GEN_DETECTOR,
+                         detector_model=create_detector(f"{GEN_DETECTOR}.pt", device="cpu"),
+                         cmc_method="ecc", device="cpu")
+            return {f"{next(k for k in ('dets', 'masks', 'warps') if k in p.parts)}/{p.stem}":
+                    np.load(p) for p in Path(tmp).rglob("*.npy")}
     if kind == "yolox":  # the detector's raw heads: a yolox_x forward is some 800 GFLOP
         torch.set_num_threads(4)
         return yolox_raw_heads(*arg)
@@ -1861,6 +1907,7 @@ def start_cpu_references(pool, cache_root: Path) -> dict:
     submit("reid", "occluboost", str(cache_root))
     for tracker in OBB_EVAL:
         submit("obb", tracker, None)
+    submit("generate", None, None)
     return jobs
 
 
@@ -2833,17 +2880,58 @@ def _is_conv(kernel_name: str) -> bool:
     return any(k in n for k in ("conv", "fprop", "implicit_gemm", "depthwise", "cudnn"))
 
 
+def _call_profile(fn, n) -> dict:
+    """Kernels a call, device busy ms a call, the shares of busy time of K5
+    (``crops_*``), K6 (``nms_*``) and the convolutions, and the four kernel
+    families that take most of it (launches and ms a call), from a profile
+    of ``fn`` running ``n`` calls."""
+    prof = measure.profile_steps(fn, n)
+    busy = prof["busy_ms_per_step"]
+    share = lambda pick: sum(t for kn, (_, t) in prof["by_kernel"].items() if pick(kn)) / busy  # noqa: E731
+    families = {}
+    for kn, (c, t) in prof["by_kernel"].items():
+        launches, total = families.get(measure.kernel_name(kn), (0.0, 0.0))
+        families[measure.kernel_name(kn)] = (launches + c, total + t)
+    return {"kernels_per_call": prof["kernels_per_step"], "busy_ms_per_call": busy,
+            "k5_share": share(lambda kn: measure.kernel_name(kn).startswith("crops_")),
+            "k6_share": share(lambda kn: measure.kernel_name(kn).startswith("nms_")),
+            "conv_share": share(_is_conv), "traces": prof["traces"],
+            "top_kernel_families_launches_ms_per_call":
+                dict(sorted(families.items(), key=lambda kv: -kv[1][1])[:4])}
+
+
+def _host_ms(fn, reps=10, warmup=3):
+    """(median, all) host milliseconds of ``fn`` (which returns host data)."""
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms
+
+
+def reid_line(metric, reid, boxes, img, card, **extra):
+    """Print one ReID line: ``reid.get_features(boxes, img)``'s ms a call
+    (host clock, median of 10: the frame's upload, K5, the backbone and the
+    features' copy back, which waits for the card), crops/s, the device's
+    idle share and a 16-call profile (``_call_profile``), with ``extra``."""
+    call = lambda: reid.get_features(boxes, img)  # noqa: E731
+    ms, host = _host_ms(call)
+    prof = _call_profile(lambda: [call() for _ in range(16)], 16)
+    print(json.dumps({"metric": metric, "ms_per_call": ms, "crops_per_s": len(boxes) / ms * 1e3,
+                      "host_ms": host, "idle_share": 1.0 - prof["busy_ms_per_call"] / ms, **extra,
+                      **prof, "card": card}))
+
+
 def run_reid_bench(card, root: Path):
-    """Phase 7f: ReID lines at full width, on the card: ``get_features`` of
-    osnet_x1_0 (the widest published OSNet) and osnet_x0_25 (the default)
-    from seeded torchreid checkpoints, 256 x 128 crops, 32 / 64 / 256
-    person-like boxes of a textured 1080p frame, fp32 and bf16: ms a call
-    (host clock: the frame's upload, K5, the backbone and the features' copy
-    back, which waits for the card), crops/s, and a 16-call profile (kernels
-    a call, device busy ms, host ms, K5's and the convolutions' shares of
-    busy time, the top kernel families).  Checks the card's fp32 features
-    against the CPU port's on 8 crops (1e-4) and bf16 against fp32 (cosine
-    >= 0.99)."""
+    """Phase 7f: ReID lines at full width, on the card (``reid_line``):
+    ``get_features`` of osnet_x1_0 (the widest published OSNet) and
+    osnet_x0_25 (the default) from seeded torchreid checkpoints, 256 x 128
+    crops, 32 / 64 / 256 person-like boxes of a textured 1080p frame, fp32
+    and bf16.  Checks the card's fp32 features against the CPU port's on 8
+    crops (1e-4) and bf16 against fp32 (cosine >= 0.99)."""
     img = crop_frame(4)
     rng = np.random.default_rng(12)
     # person-like boxes only: the first rows of crop_boxes are its edge cases
@@ -2855,35 +2943,8 @@ def run_reid_bench(card, root: Path):
             reid = ReID(weights=weights, device="cuda", half=half)
             dtype = "bf16" if half else "fp32"
             for n in REID_BENCH_CROPS:
-                b = boxes[n]
-                for _ in range(3):
-                    reid.get_features(b, img)
-                ms = []
-                for _ in range(10):
-                    t0 = time.perf_counter()
-                    feats[dtype, n] = reid.get_features(b, img)
-                    ms.append((time.perf_counter() - t0) * 1e3)
-                prof = measure.profile_steps(lambda: [reid.get_features(b, img) for _ in range(16)],
-                                             16)
-                busy = prof["busy_ms_per_step"]
-                share = {k: sum(t for kn, (_, t) in prof["by_kernel"].items() if pick(kn)) / busy
-                         for k, pick in (("K5", lambda kn: measure.kernel_name(kn)
-                                                 .startswith("crops_")),
-                                         ("conv", _is_conv))}
-                families = {}
-                for kn, (c, t) in prof["by_kernel"].items():
-                    fam = kn.split("<")[0].split("::")[-1].split("(")[0].strip()
-                    launches, total = families.get(fam, (0.0, 0.0))
-                    families[fam] = (launches + c, total + t)
-                top = sorted(families.items(), key=lambda kv: -kv[1][1])[:6]
-                call_ms = statistics.median(ms)
-                print(json.dumps({
-                    "metric": f"reid_{name}_{dtype}_{n}crops", "ms_per_call": call_ms,
-                    "crops_per_s": n / call_ms * 1e3, "host_ms": ms,
-                    "kernels_per_call": prof["kernels_per_step"], "busy_ms_per_call": busy,
-                    "idle_share": 1.0 - busy / call_ms, "k5_share": share["K5"],
-                    "conv_share": share["conv"], "traces": prof["traces"],
-                    "top_kernel_families_launches_ms_per_call": dict(top), "card": card}))
+                reid_line(f"reid_{name}_{dtype}_{n}crops", reid, boxes[n], img, card)
+                feats[dtype, n] = reid.get_features(boxes[n], img)
         small, large = REID_BENCH_CROPS[0], REID_BENCH_CROPS[-1]
         cpu = ReID(weights=weights, device="cpu").get_features(boxes[small][:8], img)
         err = float(np.abs(feats["fp32", small][:8] - cpu).max())
@@ -2960,6 +3021,330 @@ def run_throughput(card, lap):
         lap(f"phase 7c ({label} line)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: cache generation on the card, the yololite predictor (K6 at 256
+# anchors) and the ReID backbones beyond OSNet (K5)
+
+LITE_TASKS = {"detect": "yololite.pt", "segment": "yololite-seg.pt", "obb": "yololite-obb.pt",
+              "pose": "yololite-pose.pt"}
+LITE_CONF = 0.05  # phase 9a's conf: most anchors pass it, so K6 keeps its max_out of 64
+GEN_DETECTOR = "yololite-seg"  # phase 9b's detector (masks) and ReID
+GEN_REID = "osnet_x0_25"
+GEN_BATCH = 8  # the AutoBatcher's batch in 9b's batch_size re-run
+ECC_SCALE = 0.15  # ECC's working scale: a warp's translation tolerance is 1e-3 px at it
+BACKBONES = ("resnet50", "resnet101", "mobilenetv2_x1_0", "mobilenetv2_x1_4", "lmbn_n",
+             "lmbn_ain_n", "mlfn", "cspreid_n", "hacnn")
+BACKBONE_CROPS = 64
+
+
+def lite_nms_inputs(model, img, conf=LITE_CONF, classes=None, agnostic=False):
+    """(boxes with the class offset, conf-masked scores): what ``model``
+    (a ``LiteYOLO``) hands K6 for a BGR frame, on its device."""
+    padded, _ = model.letterbox(img)
+    mask = torch.from_numpy(model.class_mask(classes)).to(model.device)
+    *_, boxes, masked = model.decode(torch.from_numpy(padded).to(model.device), conf, mask,
+                                     agnostic)
+    return boxes, masked
+
+
+def lite_outputs(model, img, conf=LITE_CONF) -> dict:
+    """``model.program``'s kept rows of a frame on the host, keyed by anchor:
+    {anchor: {head: values}} at the net's 256 x 256 input (boxes, keypoints
+    and masks before the host's rescale and binarization)."""
+    padded, _ = model.letterbox(img)
+    res = model.program(torch.from_numpy(padded).to(model.device), conf, 0.7,
+                        torch.from_numpy(model.class_mask(None)).to(model.device), False)
+    res = {k: v.cpu().numpy() for k, v in res.items()}
+    keep = res.pop("mask")
+    return {int(a): {k: v[i] for k, v in res.items() if k != "keep_idx"}
+            for i, a in enumerate(res["keep_idx"]) if keep[i]}
+
+
+# head -> (tolerance card vs CPU, what it is)
+LITE_TOL = {"xyxy": 1e-3, "conf": 1e-5, "cls": 0.0, "angle": 1e-5, "masks": 1e-4, "kpts": 1e-4}
+
+
+def _lite_vs_cpu(task, gpu, cpu, frames) -> dict:
+    """The card's kept rows against the CPU's, frame by frame: the same
+    anchors kept, each head within ``LITE_TOL``; K6's kept indices equal the
+    twin's on the card's own decoded boxes and scores.  Returns the worst
+    difference a head, and the kept counts."""
+    worst, kept = {}, []
+    for i, img in enumerate(frames):
+        boxes, masked = lite_nms_inputs(gpu, img)
+        got, want = nms(boxes, masked, 0.7, MAX_OUT), nms_plain(boxes, masked, 0.7, MAX_OUT)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"yololite {task} frame {i}: K6 differs from its twin")
+        g, c = lite_outputs(gpu, img), lite_outputs(cpu, img)
+        if set(g) != set(c):
+            raise AssertionError(f"yololite {task} frame {i}: the card kept anchors "
+                                 f"{sorted(set(g) - set(c))}, the CPU {sorted(set(c) - set(g))}")
+        kept.append(len(g))
+        for a in g:
+            for head, v in g[a].items():
+                err = float(np.abs(v.astype(np.float64) - c[a][head]).max())
+                worst[head] = max(worst.get(head, 0.0), err)
+    for head, err in worst.items():
+        if not err <= LITE_TOL[head]:
+            raise AssertionError(f"yololite {task}: {head} differs by {err} card vs CPU "
+                                 f"(tolerance {LITE_TOL[head]})")
+    return {"worst": worst, "kept": kept}
+
+
+def check_k6_lite(rng):
+    """K6 at phase 9a's shape, run in phase 3 with the other kernel checks:
+    the yololite predictor's NMS input on a seeded textured 1080p frame (256
+    anchors, max_out 64, the class offset 512), class-aware, with every
+    score below conf, agnostic and with a ``classes`` filter; each bit-equal
+    to the twin on the card, the first timed beside its bound
+    (``k6_bound``).  In phase 3, not 9a: after phases 4-8, traces that hold
+    nothing but a kernel launched through ctypes lost every launch (20
+    calls, six traces in a row, twice), where traces that mix them with
+    PyTorch's kernels kept them."""
+    model = LiteYOLO("yololite.pt", device=CARD)
+    img = crop_frame(int(rng.integers(1000)))
+    rows = {}
+    for label, kw in (("class-aware", {}), ("every score below conf", {"conf": 1.5}),
+                      ("agnostic", {"agnostic": True}), ("classes [1]", {"classes": [1]})):
+        boxes, masked = lite_nms_inputs(model, img, **kw)
+        rows[label] = _k6_set(f"yololite {label}", boxes, masked, None, 0.7, MAX_OUT, reps=20,
+                              timed=label == "class-aware")
+    return rows["class-aware"]
+
+
+def run_lite_phase(card, seqs):
+    """Phase 9a: each yololite task on the card through ``predict`` (counted:
+    one K6 launch a frame) on the 12 MOT17-mini frames and a seeded textured
+    1080p frame, against the same seeded predictor on the CPU
+    (``_lite_vs_cpu``); one call's trace lists an ``nms_*`` kernel; and a
+    line a task: ms a 1080p frame (host clock, median of 10) and a 16-call
+    profile."""
+    frames = [f for fs in seqs.values() for f in fs] + [crop_frame(9)]
+    for task, weights in LITE_TASKS.items():
+        gpu, cpu = LiteYOLO(weights, device="cuda"), LiteYOLO(weights, device="cpu")
+        res = drive(f"yololite {task} predict", lambda: [
+            gpu(f, conf=LITE_CONF)[0] for f in frames], {"nms": 1}, sync_free=False,
+            n_steps=len(frames))
+        cmp = _lite_vs_cpu(task, gpu, cpu, frames)
+        n = [len(r.boxes) for r in res]
+        print(f"yololite {task} on {len(frames)} frames: K6 bit-equal to its twin; kept "
+              f"{min(cmp['kept'])}-{max(cmp['kept'])} anchors a frame, card vs CPU (the same "
+              f"anchors) worst {cmp['worst']}; {min(n)}-{max(n)} boxes a frame after the host's "
+              f"drop of slivers")
+        img = frames[-1]
+        ms, host = _host_ms(lambda: gpu(img, conf=LITE_CONF))
+        padded = torch.from_numpy(gpu.letterbox(img)[0])
+        prof = _call_profile(lambda: [gpu.program(padded.to(gpu.device), LITE_CONF, 0.7, torch.ones(
+            gpu.nc, device=gpu.device), False) for _ in range(PROFILE_FRAMES)], PROFILE_FRAMES)
+        print(json.dumps({"metric": f"yololite_{task}_1080p_ms_per_frame", "value": ms,
+                          "host_ms": host, **prof, "card": card}))
+    names = measure.kernels_of_call(lambda: gpu(frames[-1], conf=LITE_CONF))
+    print(f"yololite: one predict call's kernels on the card include {sorted(set(names))[:12]}")
+    if not any(n.startswith("nms_") for n in names):
+        raise AssertionError(f"yololite: no nms_* kernel in a predict call: {names}")
+
+
+def _stage_seconds(t0, marks) -> dict:
+    """{sequence: {stage: seconds}} from run_generate's progress reports
+    (time, sequence, frame, frames): it reports every frame of each stage in
+    turn (detect, embed, warp), so a stage ends at its last report before
+    the frame count starts again or the next sequence begins."""
+    out, prev, stage = {}, t0, 0
+    for i, (t, seq, cur, _) in enumerate(marks):
+        nxt = marks[i + 1] if i + 1 < len(marks) else None
+        if nxt is None or nxt[1] != seq or nxt[2] <= cur:
+            out.setdefault(seq, {})[("detect", "embed", "warp")[stage]] = t - prev
+            prev = t
+            stage = stage + 1 if nxt is not None and nxt[1] == seq else 0
+    return out
+
+
+def _emb_files(root: Path) -> dict:
+    return {p.stem: np.load(p) for p in sorted((root / GEN_DETECTOR / "embs").rglob("*.npy"))}
+
+
+def _sorted_frame_rows(rows):
+    """A permutation of det rows ordering each frame's rows by (x1, y1): the
+    card's and the CPU's NMS list near-tied boxes in either order."""
+    return np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))
+
+
+def _check_gen_caches(card_root: Path, cpu: dict, det, reid_cpu) -> None:
+    """Phase 9b's caches on the card against the CPU run's (``cpu``, a
+    worker's): det rows of the same frames and count within 1e-3 (each
+    frame's rows in (x1, y1) order), mask bits equal but for pixels whose
+    probability lies within 1e-5 of 0.5 (counted), warps within 1e-3 (the
+    translation 1e-3 px at ECC's scale), and the embeddings against the CPU
+    ReID's fill over the card's det rows, within 1e-4."""
+    from boxmot_tpu_torch.data import cache as cache_mod
+    from boxmot_tpu_torch.data.mot import MOTDataset
+
+    side = cache_mod.MASK_SIDE
+    for seq in MOTDataset(ROOTS["mot17_mini"]):
+        rel = lambda kind: f"{kind}/{seq.name}"  # noqa: E731
+        g_det = np.load(cache_mod.det_cache_path(card_root, GEN_DETECTOR, seq.name))
+        c_det = cpu[rel("dets")]
+        pg, pc = _sorted_frame_rows(g_det), _sorted_frame_rows(c_det)
+        if g_det.shape != c_det.shape or not np.array_equal(g_det[pg, 0], c_det[pc, 0]):
+            raise AssertionError(f"{seq.name}: det rows differ in count or frames card vs CPU")
+        det_err = float(np.abs(g_det[pg] - c_det[pc]).max(initial=0.0))
+        g_m = np.load(cache_mod.mask_cache_path(card_root, GEN_DETECTOR, seq.name))
+        bits = [np.unpackbits(m[:, 1:].astype(np.uint8), axis=-1)[:, : side * side]
+                for m in (g_m[pg], cpu[rel("masks")][pc])]
+        differ = bits[0] != bits[1]
+        # the probabilities, in the card's row order, of the frames with a differing bit
+        near = np.zeros(differ.shape, bool)
+        for f in np.unique(g_m[pg][differ.any(1), 0].astype(int)):
+            probs = det.model(load_frame(seq.img_paths[f - 1]), conf=det.conf)[0].masks.data
+            H, W = probs.shape[1:]
+            ys = (np.arange(side) * (H / side)).astype(int).clip(0, H - 1)
+            xs = (np.arange(side) * (W / side)).astype(int).clip(0, W - 1)
+            near[g_m[:, 0] == f] = (np.abs(probs[:, ys][:, :, xs] - 0.5) <= 1e-5).reshape(
+                len(probs), -1)
+        near = near[pg]
+        g_w = np.load(cache_mod.warp_cache_path(card_root, "ecc", seq.name))
+        c_w = cpu[rel("warps")]
+        lin = float(np.abs(g_w[:, [1, 2, 4, 5]] - c_w[:, [1, 2, 4, 5]]).max())
+        trans = float(np.abs(g_w[:, [3, 6]] - c_w[:, [3, 6]]).max())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "embs.npy"
+            generate_mod._fill_embeddings(
+                seq, cache_mod.load_cached_dets_per_frame(
+                    cache_mod.det_cache_path(card_root, GEN_DETECTOR, seq.name), seq.seq_length),
+                path, reid_cpu, frame_cache=False)
+            c_e = np.load(path)
+        g_e = np.load(cache_mod.emb_cache_path(card_root, GEN_DETECTOR, GEN_REID, seq.name))
+        emb_err = float(np.abs(g_e - c_e).max()) if g_e.shape == c_e.shape else math.inf
+        print(f"generate {seq.name} card vs CPU: {len(g_det)} det rows, max diff {det_err:.3g}; "
+              f"mask bits: {int(differ.sum())} of {differ.size} differ, "
+              f"{int((differ & near).sum())} of them within 1e-5 of 0.5; warps: linear "
+              f"{lin:.3g}, translation {trans:.3g} px; embeddings (the CPU's fill over the "
+              f"card's det rows) {emb_err:.3g}")
+        if not (det_err <= 1e-3 and not (differ & ~near).any() and lin <= 1e-3
+                and trans <= 1e-3 / ECC_SCALE and emb_err <= 1e-4):
+            raise AssertionError(f"generate {seq.name}: the card's caches differ from the CPU's")
+
+
+def run_generate_phase(card, root: Path, cpu_jobs):
+    """Phase 9b: ``run_generate`` on MOT17-mini on the card (yololite-seg, the
+    ReID facade's seeded osnet_x0_25, ECC), counted: one K6 and one K5 launch
+    a frame; seconds a sequence by stage and frames/s; its caches against the
+    CPU run (``_check_gen_caches``); the embeddings-only re-run over its det
+    caches, with frame_group 4 and with batch_size (which warns) against it;
+    a trace of ``_fill_embeddings`` lists a ``crops_*`` kernel; and
+    ``run_eval`` over the card's caches on the card and on the CPU: sam2mot
+    from the mask cache, metrics equal, and BoT-SORT with ``reid`` and
+    ``cmc_method``, rows bit-equal."""
+    from boxmot_tpu_torch.data.mot import MOTDataset
+
+    data = ROOTS["mot17_mini"]
+    det = create_detector(f"{GEN_DETECTOR}.pt", device="cuda")
+    reid = ReID(GEN_REID, device="cuda")
+    marks = []
+    t0 = time.perf_counter()
+    stats = drive("run_generate yololite-seg + osnet_x0_25 + ECC", lambda: run_generate(
+        data, root / "card", detector=GEN_DETECTOR, detector_model=det, reid_model=reid,
+        cmc_method="ecc", device="cuda",
+        progress=lambda *a: marks.append((time.perf_counter(), *a))),
+        {"nms": 1, "extract_crops": 1}, sync_free=False)
+    seconds = time.perf_counter() - t0
+    n_frames = sum(len(q.img_paths) for q in MOTDataset(data))
+    stages = _stage_seconds(t0, marks)
+    print(json.dumps({"metric": "generate_mot17_mini_seconds", "value": seconds,
+                      "frames_per_s": n_frames / seconds, "stage_seconds": stages,
+                      "stats": stats, "card": card}))
+    cpu, waited = _cpu_result(cpu_jobs, ("generate", None, None))
+    print(f"waited {waited:.1f} s for the CPU run of run_generate")
+    _check_gen_caches(root / "card", cpu, det, ReID(GEN_REID, device="cpu"))
+
+    want = _emb_files(root / "card")
+    for label, kw in (("embeddings-only", {}), ("frame_group 4", {"frame_group": 4}),
+                      ("batch_size + frame_group 4", {"batch_size": GEN_BATCH,
+                                                      "frame_group": 4})):
+        out = root / label.replace(" ", "_")
+        shutil.copytree(root / "card" / GEN_DETECTOR / "dets", out / GEN_DETECTOR / "dets")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            drive(f"run_generate {label}", lambda: run_generate(
+                data, out, detector=GEN_DETECTOR, reid_model=reid, device="cuda", **kw),
+                {"extract_crops": 1}, sync_free=False)
+            s = time.perf_counter() - t0
+        warned = [str(w.message) for w in caught if "frame_group" in str(w.message)]
+        got = _emb_files(out)
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        same = all(np.array_equal(got[k], want[k]) for k in want)
+        print(f"generate {label} on the card: {s:.3f} s, embeddings against the full run's: "
+              f"max diff {err:.3g} (bit-equal: {same}); warnings: {warned}")
+        if got.keys() != want.keys() or not err <= 1e-5 or bool(warned) != ("batch_size" in kw):
+            raise AssertionError(f"generate {label}: embeddings or warning differ")
+
+    seq = MOTDataset(data).sequences[0]
+    dets = load_cached_dets_per_frame(det_cache_path(root / "card", GEN_DETECTOR, seq.name),
+                                      seq.seq_length)
+    calls = iter(range(1000))
+    names = measure.kernels_of_call(lambda: generate_mod._fill_embeddings(
+        seq, dets, root / "trace" / f"{next(calls)}.npy", reid, frame_cache=False), calls=2)
+    print(f"_fill_embeddings: one call's kernels on the card include {sorted(set(names))[:12]}")
+    if not any(n.startswith("crops_") for n in names):
+        raise AssertionError(f"_fill_embeddings ran no crops_* kernel: {names}")
+
+    for tracker, kw, ratio in (("sam2mot", {}, {}),
+                               ("botsort", {"reid": GEN_REID, "cmc_method": "ecc"},
+                                RATIOS["botsort"][0])):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            out = root / "eval" / tracker / dev
+            run = lambda: boxmot_tpu_torch.run_eval(  # noqa: E731
+                data, tracker, device=dev, cache_root=root / "card", detector=GEN_DETECTOR,
+                output_dir=out, **kw)
+            t0 = time.perf_counter()
+            metrics = drive(f"run_eval {tracker} on the generated caches", run, ratio,
+                            sync_free=False) if dev == "cuda" else run()
+            res[dev] = ({k: float(metrics["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")},
+                        _mot_rows(out), time.perf_counter() - t0)
+        (gm, grows, gs), (cm, crows, cs) = res["cuda"], res["cpu"]
+        equal = grows.keys() == crows.keys() and all(np.array_equal(grows[k], crows[k])
+                                                      for k in grows)
+        print(f"eval {tracker} over the card's caches: cuda {gm} in {gs:.3f} s, cpu {cm} in "
+              f"{cs:.3f} s; MOT rows bit-equal: {equal}")
+        if gm != cm or not equal or not grows:
+            raise AssertionError(f"eval {tracker} over the generated caches: cuda differs from cpu")
+
+
+def run_backbone_bench(card):
+    """Phase 9c: each backbone of ``BACKBONES`` through the ReID facade on the
+    card (seeded weights, its convolutions' batch norms calibrated on 32
+    crops of the frame, ``calibrate_batch_norms``), 64 person-like boxes of
+    a seeded textured 1080p frame, 256 x 128 crops (HACNN 160 x 64): the
+    card's fp32 features against the CPU's (1e-4) and bf16's against fp32
+    (cosine >= 0.99); a line each (``reid_line``)."""
+    img = crop_frame(4)
+    rng = np.random.default_rng(13)
+    boxes = crop_boxes(rng, BACKBONE_CROPS + 8, False)[8:]
+    calib = crop_boxes(rng, 40, False)[8:]
+    for name in BACKBONES:
+        hw = (160, 64) if name == "hacnn" else CROP_HW
+        gpu = ReID(model_name=name, device="cuda", crop_hw=hw)
+        calibrate_batch_norms(gpu.model, extract_crops(as_frame(img, gpu.device), torch.from_numpy(
+            calib).to(gpu.device), hw))
+        cpu = ReID(model_name=name, device="cpu", crop_hw=hw)
+        bf16 = ReID(model_name=name, device="cuda", crop_hw=hw, half=True)
+        for other in (cpu, bf16):
+            other.model.load_state_dict(gpu.model.state_dict())
+        feats = drive(f"ReID {name}", lambda: gpu.get_features(boxes, img), {"extract_crops": 1},
+                      sync_free=False, n_steps=1)
+        err = float(np.abs(feats - cpu.get_features(boxes, img)).max())
+        cos = float(np.min(np.sum(feats * bf16.get_features(boxes, img), axis=1)))
+        spread = float(1.0 - np.min(feats @ feats.T))
+        reid_line(f"reid_{name}_fp32_{BACKBONE_CROPS}crops", gpu, boxes, img, card,
+                  crop_hw=list(hw), feature_dim=gpu.feature_dim, max_abs_err_vs_cpu=err,
+                  bf16_least_cosine=cos, largest_cosine_distance_between_crops=spread)
+        if not (err <= 1e-4 and cos >= 0.99):
+            raise AssertionError(f"ReID {name}: the card's features differ (fp32 vs cpu {err}, "
+                                 f"bf16 cosine {cos})")
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, all started together."""
     names = [src for _, src, _ in KERNELS.values()]
@@ -2973,7 +3358,7 @@ def build_kernels():
 
 
 def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
-    """Phases 3-8; returns phase 3's timing entries and K4's XYSCR rows."""
+    """Phases 3-9; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
     det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
     decoded = decoded_scores(det, seqs["MOT17-04-FRCNN"][0])
@@ -2988,6 +3373,7 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
     checks["extract_crops"] = check_k5(rng)
     checks["nms"] = check_k6(rng, decoded)
     del decoded
+    check_k6_lite(rng)
     lap("phase 3 (kernels against their twins)")
 
     check_sync_mode_is_live()
@@ -3039,6 +3425,12 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
     lap("phase 7f (ReID lines)")
     run_detector_phase(smi, ckpt, seqs, cpu_heads)
     lap("phase 8 (the detector and the fused live step)")
+    run_lite_phase(smi, seqs)
+    lap("phase 9a (yololite)")
+    run_generate_phase(smi, cache_root.parent / "generate", cpu_jobs)
+    lap("phase 9b (run_generate)")
+    run_backbone_bench(smi)
+    lap("phase 9c (ReID backbones)")
     return checks, xyscr_rows
 
 

@@ -24,6 +24,8 @@ tolerances, the raw head within 1e-4).
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -190,12 +192,21 @@ def test_detector_streams_a_sequence_with_callbacks(detectors):
         runner.add_callback("on_nothing", print)
 
 
-def test_registry_routes_and_refuses():
+def test_registry_routes_and_refuses(monkeypatch):
     assert get_detector_class("weights/yolox_x_MOT17_ablation.pt") is YoloXDetector
     det = create_detector("yolox_nano.pt", device="cpu", imgsz=(64, 96))
     assert isinstance(det, YoloXDetector) and det.imgsz == (64, 96)
-    for weights in ("yolov8n.pt", "yololite-seg.pt", "rtdetr-l", "rt-detr-x"):
-        with pytest.raises(NotImplementedError, match="item 18"):
+    # the vendored yololite predictor builds; other ultralytics stems need the
+    # ultralytics package and RT-DETR transformers (hidden here, so that
+    # nothing is fetched from its hub), as in the JAX registry
+    lite = create_detector("yololite-seg.pt", device="cpu")
+    assert type(lite).__name__ == "UltralyticsDetector" and lite.model.task == "segment"
+    monkeypatch.setitem(sys.modules, "ultralytics", None)
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    for weights, match in (("yolov8n.pt", "ultralytics is not installed"),
+                           ("rtdetr-l", "transformers is required for RT-DETR"),
+                           ("rt-detr-x", "transformers is required for RT-DETR")):
+        with pytest.raises(ImportError, match=match):
             create_detector(weights, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):

@@ -194,8 +194,10 @@ def test_port_import_and_eval_leave_jax_out():
     DeepOCSORT computing their embeddings with ``reid_weights``, the facade's
     ``get_features_multi`` on rotated boxes) and its detector API (a seeded
     YOLOX through ``YoloXDetector``, ``Detector``, ``DetectorReIDPipeline``
-    and the fused ``FusedLiveTracker`` with OccluBoost and OSNet), loads
-    neither JAX, nor yaml, nor any module of the JAX package."""
+    and the fused ``FusedLiveTracker`` with OccluBoost and OSNet; the
+    yololite predictor through ``create_detector`` and ``run_generate`` with
+    it, OSNet and ECC), loads neither JAX, nor yaml, nor any module of the
+    JAX package."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
@@ -261,6 +263,18 @@ def test_port_import_and_eval_leave_jax_out():
         "                         'new_track_thresh': 0.1}, max_dets=16)\n"
         "rows = [fused.update(img) for _ in range(3)][-1]\n"
         "assert len(rows) > 0 and rows.shape[1] == 8, rows\n"
+        "import pathlib, tempfile\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    data = pathlib.Path(tmp) / 'data'\n"
+        "    data.mkdir()\n"
+        "    (data / 'MOT17-02-FRCNN').symlink_to(pathlib.Path('assets/MOT17-mini/train/'\n"
+        "                                                      'MOT17-02-FRCNN').resolve())\n"
+        "    lite = create_detector('yololite.pt', device='cpu')\n"
+        "    assert type(lite).__name__ == 'UltralyticsDetector' and len(lite(img)) > 0\n"
+        "    s = boxmot_tpu_torch.run_generate(data, pathlib.Path(tmp) / 'cache', detector='yl',\n"
+        "                                      detector_model=lite, reid_model=reid,\n"
+        "                                      cmc_method='ecc', device='cpu')\n"
+        "    assert s.total_dets == s.total_embs > 0 and s['MOT17-02-FRCNN']['warps'] == 4, s\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from boxmot_tpu_torch.detectors.yolo_lite import MAX_OUT, LiteYOLO
 from boxmot_tpu_torch.ops.crops import extract_crops, extract_crops_plain, launch_crops
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost, fused_iou_cost_plain
 from boxmot_tpu_torch.ops.geometry import exact, obb_corners
@@ -30,6 +31,7 @@ from chip_smoke import (
     crop_edge_boxes,
     crop_frame,
     crossed_quads,
+    lite_nms_inputs,
     nms_boxes,
     nms_edge_sets,
     nonfinite_costs,
@@ -501,6 +503,25 @@ def test_nms_kernel_bit_equal_to_twin_at_yolox_width(card, max_out):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].sum()) == max_out and int(counts) > 0
+
+
+@pytest.mark.parametrize("variant", [{}, {"conf": 1.5}, {"agnostic": True}, {"classes": [1]}],
+                         ids=["class-aware", "every-score-below-conf", "agnostic", "classes"])
+def test_nms_kernel_bit_equal_to_twin_at_yololite_shape(card, variant):
+    """The yololite predictor's NMS input on the card (256 anchors, max_out
+    64, the class offset 512): K6 against its twin, and one kernel launch a
+    predict call."""
+    model = LiteYOLO("yololite-seg.pt", device=card)
+    img = crop_frame(11)
+    boxes, masked = lite_nms_inputs(model, img, **variant)
+    assert boxes.shape == (256, 4) and boxes.device.type == "cuda"
+    got, want = nms(boxes, masked, 0.7, MAX_OUT), nms_plain(boxes, masked, 0.7, MAX_OUT)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (int(got[1].sum()) == 0) == ("conf" in variant)
+    before = nms.launches
+    model(img, conf=0.05)
+    assert nms.launches == before + 1
 
 
 @pytest.mark.parametrize("iou_only", [False, True], ids=["iou+cost", "iou-only"])

@@ -158,8 +158,11 @@ def test_checkpoint_key_rules(checkpoint):
     with pytest.raises(ValueError, match="lacks"):
         tconvert.convert_checkpoint({k: v for k, v in plain.items() if k != "fc.0.bias"},
                                     "osnet_x0_25")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # only OSNet checkpoints convert, as in the JAX package; CLIP's converter is item 16
+    with pytest.raises(ValueError, match="no checkpoint converter for 'resnet50'"):
         tconvert.convert_checkpoint(plain, "resnet50")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tconvert.convert_checkpoint(plain, "clip")
 
 
 def test_get_features_contract(facades):
@@ -257,11 +260,16 @@ def test_infer_model_name_equals_jax():
 
 
 def test_unported_backbones_and_runtimes_raise(tmp_path):
-    for name in ("resnet50", "clip", "lmbn_n", "vit_tiny", "hacnn"):
+    # the backbones of item 16's first five steps build (tests/test_torch_backbones.py
+    # holds them to JAX); ViT, CSL-TinyViT and CLIP still raise naming item 16
+    for name in ("resnet50", "lmbn_n", "hacnn", "mobilenetv2"):
+        assert ReID(model_name=name, device="cpu").model_name == name
+    assert create_reid("mlfn_market1501.pt", device="cpu").model_name == "mlfn"
+    for name in ("clip", "vit_tiny", "csl_tinyvit_7m", "csl_tinyvit_lmbn"):
         with pytest.raises(NotImplementedError, match="item 16"):
             ReID(model_name=name, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
-        create_reid("mlfn_market1501.pt", device="cpu")
+        create_reid("vit_nano_market1501.pt", device="cpu")
     saved = tmp_path / "savedmodel"
     saved.mkdir()
     (saved / "saved_model.pb").write_bytes(b"")
