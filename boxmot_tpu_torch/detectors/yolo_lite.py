@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from boxmot_tpu_torch.models.layers import LN_EPS
 from boxmot_tpu_torch.ops.geometry import exact
 from boxmot_tpu_torch.ops.nms import nms
 from boxmot_tpu_torch.utils.device import resolve_device
@@ -46,7 +47,6 @@ STRIDE = 16
 N_PROTO = 8
 N_KPT = 17  # COCO keypoint schema (what yolov8*-pose emits)
 MAX_OUT = 64  # NMS keeps at most this many boxes a frame
-LN_EPS = 1e-6  # Flax LayerNorm's epsilon
 
 
 def task_of(weights) -> str:

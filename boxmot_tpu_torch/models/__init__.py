@@ -1,1 +1,3 @@
-"""ReID backbones of the port (OSNet) and their weight loading."""
+"""The port's models: every ReID backbone of the JAX package (OSNet, ResNet,
+MobileNetV2, LMBN, MLFN, CSPReID, HACNN, the ViTs, CSL-TinyViT, CLIP-ReID
+and its tokenizer), YOLOX, and their weight loading."""

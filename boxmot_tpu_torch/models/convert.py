@@ -22,16 +22,19 @@ rules (a ``{"model": sd}`` wrapper and the ``model.`` prefix go,
 and ``yolox_state_dict_from_flax`` is a JAX-free copy of ``export_yolox``
 over the Flax variables as numpy trees.
 
-The other ReID backbones (ResNet, MobileNetV2, LMBN, MLFN, CSPReID, HACNN)
-and the yololite predictor's ``LiteNet`` carry the Flax modules' names, so
-``backbone_state_dict_from_flax`` (one function for every family) and
-``yololite_state_dict_from_flax`` walk the Flax tree leaf by leaf
-(``_flax_leaves``): HWIO kernels become OIHW, dense kernels are transposed,
-LayerNorm and BatchNorm scales and biases become ``weight`` and ``bias``,
-batch statistics ``running_mean`` and ``running_var``; LMBN's OSNet blocks
-map to the port's torchreid names and LiteNet's auto-named modules to the
-port's.  Checkpoints of those backbones have no converter, in either
-package (``convert_checkpoint`` raises the JAX package's ``ValueError``).
+The other ReID backbones (ResNet, MobileNetV2, LMBN, MLFN, CSPReID, HACNN,
+ViT, CSL-TinyViT, CLIP) carry the Flax modules' names but for LMBN's OSNet
+blocks (torchreid names).  ``flax_paths`` gives each port parameter and
+batch statistic its Flax path, and ``backbone_state_dict_from_flax``
+fills a model's state dict through it (``state_dict_from_flax_paths``):
+HWIO kernels become OIHW, dense kernels are transposed, LayerNorm and
+BatchNorm scales and biases become ``weight`` and ``bias``, batch
+statistics ``running_mean`` and ``running_var``.  The trainer keys its
+optimizer masks by the same paths.  The yololite predictor's ``LiteNet``
+has auto-named Flax modules: ``yololite_state_dict_from_flax`` walks the
+Flax tree leaf by leaf (``_flax_leaves``) and renames them.  Checkpoints
+of those backbones but CLIP have no converter, in either package
+(``convert_checkpoint`` raises the JAX package's ``ValueError``).
 """
 
 from __future__ import annotations
@@ -68,14 +71,12 @@ def load_state_dict(path_or_dict) -> dict:
 
 def convert_checkpoint(path_or_dict, model_name: str) -> dict:
     """A torchreid checkpoint as the state dict of the port's ``model_name``
-    module (float32 tensors), every key checked against the module's.  Only
-    OSNet checkpoints convert, as in the JAX package (convert.py:111-124):
-    any other backbone raises its ``ValueError``; CLIP's converter is not
-    ported yet."""
+    module (float32 tensors), every key checked against the module's.  OSNet
+    and CLIP checkpoints convert, as in the JAX package (convert.py:111-124;
+    CLIP through ``convert_clip``, its image encoder at 256 x 128): any
+    other backbone raises its ``ValueError``."""
     if model_name.startswith("clip"):
-        raise NotImplementedError(
-            f"no PyTorch backbone for {model_name!r} yet: CLIP-ReID and its converter are ROADMAP "
-            "Queue A item 16")
+        return convert_clip(path_or_dict)["visual"]
     if model_name not in OSNET_VARIANTS:
         raise ValueError(
             f"no checkpoint converter for {model_name!r}; convert the weights "
@@ -288,7 +289,10 @@ def _flax_leaves(variables, rename) -> dict:
     """Every leaf of Flax ``{"params", "batch_stats"}`` (numpy arrays) under
     the PyTorch key ``rename(module path) + "." + leaf``: HWIO kernels
     become OIHW, a dense (in, out) kernel (out, in), LayerNorm and BatchNorm
-    scales ``weight``, batch statistics ``running_mean`` / ``running_var``."""
+    scales ``weight``, batch statistics ``running_mean`` / ``running_var``;
+    a raw parameter (``self.param`` of a module: ``cls_token``, ``gate``,
+    ``attention_biases``, LayerNorm2d's ``weight``) keeps its name and
+    layout."""
     sd = {}
 
     def walk(tree, path, leaves):
@@ -299,7 +303,8 @@ def _flax_leaves(variables, rename) -> dict:
             a = np.asarray(v)
             if k == "kernel":
                 a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
-            sd[f"{rename(path)}.{leaves[k]}"] = a
+            key = leaves.get(k, k)  # a raw parameter (cls_token, gate, ...) keeps its name
+            sd[f"{rename(path)}.{key}" if path else key] = a
 
     walk(variables["params"], (), _PARAM_LEAVES)
     walk(variables.get("batch_stats", {}), (), _STAT_LEAVES)
@@ -308,12 +313,8 @@ def _flax_leaves(variables, rename) -> dict:
 
 def _state_dict_for(model: torch.nn.Module, sd: dict) -> dict:
     """``sd`` checked key by key against ``model``'s state dict, as float32
-    tensors; a batch norm that Flax built without a bias
-    (``use_bias=False``, a BNNeck) gets PyTorch's bias at 0."""
-    for prefix, module in model.named_modules():
-        if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
-            sd.setdefault(f"{prefix}.bias", np.zeros(module.num_features, np.float32))
-    expected = {k for k in model.state_dict() if "num_batches_tracked" not in k}
+    tensors."""
+    expected = set(model.state_dict())
     unused = sorted(set(sd) - expected)
     if unused:
         raise ValueError(f"unmapped Flax variables: {unused[:8]}...")
@@ -324,31 +325,151 @@ def _state_dict_for(model: torch.nn.Module, sd: dict) -> dict:
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 
-def _dotted(path) -> str:
-    return ".".join(path)
+# ---------------------------------------------------------------------------
+# The inverse: each port parameter's Flax path
+# ---------------------------------------------------------------------------
+
+_NORMS = (torch.nn.LayerNorm, torch.nn.modules.batchnorm._BatchNorm, torch.nn.GroupNorm,
+          torch.nn.modules.instancenorm._InstanceNorm)
+_STREAM_T = {"conv2a": 1, "conv2b": 2, "conv2c": 3, "conv2d": 4}
 
 
-# an OSBlock's Flax names -> the port's torchreid names: the streams
-# conv2_{t}_{u} (conv2a, conv2b.u, ...), OSBlockINin's bare conv3 and its in3,
-# and the stem's instance norm ``in`` (``bn`` in the port's ConvLayer)
-_OS_STREAMS = {"1": "conv2a", "2": "conv2b", "3": "conv2c", "4": "conv2d"}
+def _torchreid_segments(model: torch.nn.Module, segs: list[str]) -> tuple[list[str], object]:
+    """The Flax module path of the port's torchreid-named module path
+    ``segs`` (OSNet, and LMBN's OSNet blocks), and the module it names: the
+    inverse of ``_export_osnet`` / ``_export_osnet_ain``."""
+    from boxmot_tpu_torch.models.osnet import OSBlock  # noqa: PLC0415
 
-
-def _osnet_path(path) -> str:
-    out = []
-    for i, seg in enumerate(path):
-        m = re.fullmatch(r"conv2_([1-4])_(\d)", seg)
-        if m:
-            out.append(_OS_STREAMS[m[1]] + ("" if m[1] == "1" else f".{m[2]}"))
-        elif seg == "in3":
-            out.append("IN")
-        elif seg == "in":
-            out.append("bn")
-        elif seg == "conv3" and i == len(path) - 1:
-            out.append("conv3.conv")  # OSBlockINin's conv3 is a bare convolution
+    out, mod, i = [], model, 0
+    while i < len(segs):
+        s = segs[i]
+        child = mod[int(s)] if s.isdigit() else getattr(mod, s)
+        nxt = segs[i + 1] if i + 1 < len(segs) else None
+        if isinstance(child, torch.nn.Sequential) and nxt is not None and nxt.isdigit() \
+                and re.fullmatch(r"conv[2-4]", s):  # OSNet's stage: blocks, then a transition
+            block = child[int(nxt)]
+            if isinstance(block, OSBlock):
+                out.append(f"{s}_{nxt}")
+                mod, i = block, i + 2
+            else:
+                out.append(f"transition{s[-1]}")
+                mod, i = block[0], i + 3
+        elif re.fullmatch(r"pool[23]", s):  # OSNet-AIN's transition
+            out.append(f"transition{s[-1]}")
+            mod, i = child[0], i + 2
+        elif s == "fc" and isinstance(child, torch.nn.Sequential):
+            out.append({"0": "fc", "1": "fc_bn"}[nxt])
+            mod, i = child[int(nxt)], i + 2
+        elif s in _STREAM_T:
+            t = _STREAM_T[s]
+            out.append(f"conv2_{t}_{0 if t == 1 else nxt}")
+            mod, i = (child, i + 1) if t == 1 else (child[int(nxt)], i + 2)
+        elif s == "conv2" and isinstance(child, torch.nn.ModuleList):  # AIN streams
+            u = segs[i + 3]
+            out.append(f"conv2_{int(nxt) + 1}_{u}")
+            mod, i = child[int(nxt)].layers[int(u)], i + 4
+        elif s == "IN":
+            out.append("in3" if mod.in_inside else "ibn")
+            mod, i = child, i + 1
+        elif s == "conv3" and getattr(child, "bn", True) is None:  # OSBlockINin's bare conv
+            out.append("conv3")
+            mod, i = child.conv, i + 2
+        elif s == "bn" and isinstance(child, torch.nn.modules.instancenorm._InstanceNorm):
+            out.append("in")
+            mod, i = child, i + 1
         else:
-            out.append(seg)
-    return ".".join(out)
+            out.append(s)
+            mod, i = child, i + 1
+    return out, mod
+
+
+def flax_paths(model: torch.nn.Module, name: str) -> dict:
+    """Every entry of ``model``'s state dict that has a Flax counterpart ->
+    (collection, *Flax path): ``("params", "block0", "attn", "qkv",
+    "kernel")``, ``("batch_stats", ..., "mean")``.  Convolution and linear
+    weights are ``kernel``, norm weights ``scale``, running statistics
+    ``mean`` / ``var``; other parameters keep their names.  A bias-free
+    batch norm's zero bias (a buffer) and ``num_batches_tracked`` have none.
+    ``name`` is the backbone's model name; OSNet's and LMBN's torchreid
+    names map back through ``_torchreid_segments`` wherever they sit in
+    ``model`` (a backbone alone or under a trainer's ``backbone.``)."""
+    torchreid = name.startswith(("osnet", "lmbn"))
+    out = {}
+    for mname, module in model.named_modules():
+        own = [n for n, _ in module.named_parameters(recurse=False)]
+        stats = [n for n, _ in module.named_buffers(recurse=False)
+                 if n in ("running_mean", "running_var")]
+        if not own and not stats:
+            continue
+        segs = mname.split(".") if mname else []
+        if torchreid and segs and segs[0] == "backbone":
+            inner, _ = _torchreid_segments(model.get_submodule("backbone"), segs[1:])
+            fpath = ["backbone", *inner]
+        elif torchreid and segs and not hasattr(model, "backbone"):
+            fpath, _ = _torchreid_segments(model, segs)
+        else:
+            fpath = segs
+        for pname in own:
+            leaf = pname
+            if pname == "weight" and isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
+                leaf = "kernel"
+            elif pname == "weight" and isinstance(module, _NORMS):
+                leaf = "scale"
+            out[f"{mname}.{pname}" if mname else pname] = ("params", *fpath, leaf)
+        for bname in stats:
+            out[f"{mname}.{bname}"] = ("batch_stats", *fpath, bname.removeprefix("running_"))
+    return out
+
+
+def state_dict_from_flax_paths(model: torch.nn.Module, name: str, variables) -> dict:
+    """Flax ``{"params", "batch_stats"}`` (numpy) as ``model``'s state dict
+    through ``flax_paths``: HWIO kernels to OIHW, dense kernels transposed;
+    a bias-free batch norm's bias stays 0.  Every Flax leaf must be used."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    used = set()
+    for key, (coll, *path) in flax_paths(model, name).items():
+        node = variables.get(coll, {})
+        for p in path:
+            if p not in node:
+                raise ValueError(f"the Flax variables lack {coll}/{'/'.join(path)} of "
+                                 f"{type(model).__name__} ({key})")
+            node = node[p]
+        a = np.asarray(node, np.float32)
+        if path[-1] == "kernel":
+            a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+        if tuple(a.shape) != tuple(sd[key].shape):
+            raise ValueError(f"{key}: Flax {'/'.join(path)} has shape {a.shape}, the port "
+                             f"{tuple(sd[key].shape)}")
+        sd[key] = torch.from_numpy(np.array(a))
+        used.add((coll, *path))
+    leaves = set()
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, (*path, k))
+            else:
+                leaves.add((*path, k))
+
+    for coll in ("params", "batch_stats"):
+        walk({coll: variables.get(coll, {})}, ())
+    unused = sorted("/".join(p) for p in leaves - used)
+    if unused:
+        raise ValueError(f"unmapped Flax variables: {unused[:8]}...")
+    return sd
+
+
+def backbone_state_dict_from_flax(variables, name: str, crop_hw=(256, 128),
+                                  model: torch.nn.Module | None = None) -> dict:
+    """The JAX package's Flax variables of ReID backbone ``name`` (numpy
+    arrays) as the state dict of ``model`` (by default ``build_model(name,
+    crop_hw)``: the ViTs' and CLIP's positional embeddings are sized from
+    the crop; pass the model for another size, e.g. a narrow ``ClipReID``
+    or a ``ClipTextEncoder``)."""
+    from boxmot_tpu_torch.reid.core import build_model  # noqa: PLC0415
+
+    model = build_model(name, crop_hw) if model is None else model
+    return state_dict_from_flax_paths(model, name, variables)
 
 
 # LiteNet's Flax module names per task (auto-named in creation order) -> the port's
@@ -364,17 +485,6 @@ _LITE_HEADS = {
 }
 
 
-def backbone_state_dict_from_flax(variables, name: str) -> dict:
-    """The JAX package's Flax variables of ReID backbone ``name`` (ResNet,
-    MobileNetV2, LMBN, MLFN, CSPReID or HACNN; numpy arrays) as the state
-    dict of the port's module, checked key by key.  The port's modules carry
-    the Flax names, but for LMBN's OSNet blocks (torchreid names)."""
-    from boxmot_tpu_torch.reid.core import build_model  # noqa: PLC0415
-
-    rename = _osnet_path if name.startswith("lmbn") else _dotted
-    return _state_dict_for(build_model(name), _flax_leaves(variables, rename))
-
-
 def yololite_state_dict_from_flax(variables, task: str, nc: int = 3) -> dict:
     """The JAX ``LiteYOLO``'s Flax variables (``model.variables`` as numpy
     arrays) of head ``task`` with ``nc`` classes as the state dict of the
@@ -388,3 +498,190 @@ def yololite_state_dict_from_flax(variables, task: str, nc: int = 3) -> dict:
         return ".".join([names[path[0]], *(inner[p] for p in path[1:])])
 
     return _state_dict_for(LiteNet(task, nc), _flax_leaves(variables, rename))
+
+
+# ---------------------------------------------------------------------------
+# CLIP (ViT text and image towers): boxmot_tpu/models/convert.py:223-380
+# ---------------------------------------------------------------------------
+
+
+def _resample_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of ``jax.image.resize(..., "bilinear")`` along one
+    axis (``scale_and_translate``'s ``compute_weight_mat``, antialiased): a
+    triangle kernel at the output's half-pixel sample points, widened by
+    n_in / n_out when shrinking, each column normalized, columns whose
+    sample lies outside the input zeroed.  Float32, as JAX computes it."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))  # JAX: 1. / scale of Python floats
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x).astype(f32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0)).astype(f32)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _resize_clip_pos_embed(pos, gh: int, gw: int) -> np.ndarray:
+    """A ViT positional embedding's square grid resampled to (gh, gw), the CLS
+    row kept.  JAX resizes with ``jax.image.resize(..., "bilinear")``, which
+    antialiases when it shrinks (14 -> 8 columns from ViT-B/16's grid to 16 x
+    8), unlike ``F.interpolate(align_corners=False)``; this applies the same
+    triangle-filter matrices (``_resample_matrix``), one axis at a time."""
+    pos = np.asarray(pos, np.float32)
+    cls_row, grid = pos[:1], pos[1:]
+    gs = round(len(grid) ** 0.5)
+    if gs * gs != len(grid):
+        raise ValueError(f"non-square source grid: {len(grid)} positions")
+    if (gs, gs) != (gh, gw):
+        g = grid.reshape(gs, gs, -1).astype(np.float64)
+        g = np.einsum("hwc,hH->Hwc", g, _resample_matrix(gs, gh).astype(np.float64))
+        g = np.einsum("Hwc,wW->HWc", g, _resample_matrix(gs, gw).astype(np.float64))
+        grid = g.astype(np.float32)
+    return np.concatenate([cls_row, grid.reshape(gh * gw, -1)], axis=0)
+
+
+def _set(tree: dict, path, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = np.asarray(value)
+
+
+class _ClipMapper:
+    """torch keys -> the Flax tree of ``ClipReID`` / ``ClipTextEncoder``, with
+    a record of the keys used (the JAX ``_Mapper``'s CLIP half)."""
+
+    def __init__(self, sd):
+        self.sd, self.params, self.batch_stats, self.used = sd, {}, {}, set()
+
+    def take(self, key, path, tree=None, value=None):
+        self.used.add(key)
+        _set(self.params if tree is None else tree, path,
+             self.sd[key] if value is None else value)
+
+    def dense(self, tk, path):
+        self.take(f"{tk}.weight", (*path, "kernel"), value=self.sd[f"{tk}.weight"].T)
+        if f"{tk}.bias" in self.sd:
+            self.take(f"{tk}.bias", (*path, "bias"))
+
+    def norm(self, tk, path):
+        self.take(f"{tk}.weight", (*path, "scale"))
+        self.take(f"{tk}.bias", (*path, "bias"))
+
+    def blocks(self, prefix, n_layers):
+        """transformer.resblocks.{i} -> resblock{i}."""
+        for i in range(n_layers):
+            tb, fb = f"{prefix}transformer.resblocks.{i}", (f"resblock{i}",)
+            self.norm(f"{tb}.ln_1", (*fb, "ln_1"))
+            self.norm(f"{tb}.ln_2", (*fb, "ln_2"))
+            self.take(f"{tb}.attn.in_proj_weight", (*fb, "qkv", "kernel"),
+                      value=self.sd[f"{tb}.attn.in_proj_weight"].T)
+            self.take(f"{tb}.attn.in_proj_bias", (*fb, "qkv", "bias"))
+            self.dense(f"{tb}.attn.out_proj", (*fb, "out_proj"))
+            self.dense(f"{tb}.mlp.c_fc", (*fb, "c_fc"))
+            self.dense(f"{tb}.mlp.c_proj", (*fb, "c_proj"))
+
+
+def _layers(sd, prefix: str, depth: int) -> int:
+    return len({k.split(".")[depth] for k in sd if k.startswith(prefix)})
+
+
+def convert_clip(path_or_dict, h_grid: int = 16, w_grid: int = 8) -> dict:
+    """An OpenAI CLIP checkpoint, or a CLIP-ReID fine-tune, for the port.
+
+    Key naming: OpenAI's (``visual.*``, ``transformer.*``) or CLIP-ReID's
+    (``image_encoder.*``, ``text_encoder.*``, ``bottleneck*``,
+    ``prompt_learner.cls_ctx``); the tower sizes come from the state dict,
+    and the image positional embedding is resampled to the ReID patch grid
+    (16 x 8 for 256 x 128 crops, ``_resize_clip_pos_embed``).  Returns::
+
+        {"visual": state dict of ClipReID (float32 tensors),
+         "visual_config": {"width", "layers", "heads", "proj_dim", "crop_hw"},
+         "text": state dict of ClipTextEncoder,
+         "text_config": {"width", "layers", "heads", "context", "proj_dim"},
+         "token_embedding": (vocab, width) float32 array,
+         "logit_scale": float,
+         "prompt_cls_ctx": (identities, n_ctx, width) array or None}
+
+    The JAX ``convert_clip`` returns the same weights as Flax trees; this
+    builds those trees the same way, key for key (the ``_Mapper`` ledger:
+    every key of the checkpoint must be used, but ``classifier*``,
+    ``num_batches_tracked``, the BNNecks' zero biases and the prompt
+    learner's template buffers), and carries them into the port's modules.
+    Heads are 64 wide (at least one), as in every CLIP tower.
+    """
+    from boxmot_tpu_torch.models.clip_reid import ClipReID, ClipTextEncoder  # noqa: PLC0415
+
+    sd = {}
+    for k, v in load_state_dict(path_or_dict).items():
+        k = k.removeprefix("text_encoder.")
+        if k.startswith("image_encoder."):
+            k = "visual." + k.removeprefix("image_encoder.")
+        sd[k] = v
+    for meta in ("input_resolution", "context_length", "vocab_size"):
+        sd.pop(meta, None)
+    if "visual.proj" not in sd:
+        raise ValueError("only ViT CLIP checkpoints are supported (no RN50)")
+
+    m = _ClipMapper(sd)
+    m.take("visual.conv1.weight", ("conv1", "kernel"),
+           value=np.transpose(sd["visual.conv1.weight"], (2, 3, 1, 0)))
+    m.take("visual.class_embedding", ("class_embedding",))
+    m.take("visual.proj", ("proj",))
+    m.take("visual.positional_embedding", ("positional_embedding",),
+           value=_resize_clip_pos_embed(sd["visual.positional_embedding"], h_grid, w_grid))
+    m.norm("visual.ln_pre", ("ln_pre",))
+    m.norm("visual.ln_post", ("ln_post",))
+    v_layers = _layers(sd, "visual.transformer.resblocks", 3)
+    m.blocks("visual.", v_layers)
+    width, proj_dim = sd["visual.proj"].shape
+    for neck, dim in (("bottleneck", width), ("bottleneck_proj", proj_dim)):
+        if f"{neck}.weight" in sd:  # a CLIP-ReID fine-tune's BNNecks
+            m.take(f"{neck}.weight", (neck, "scale"))
+            m.take(f"{neck}.running_mean", (neck, "mean"), m.batch_stats)
+            m.take(f"{neck}.running_var", (neck, "var"), m.batch_stats)
+            m.used.add(f"{neck}.bias")  # zeros; the neck is bias-free
+        else:
+            _set(m.params, (neck, "scale"), np.ones(dim, np.float32))
+            _set(m.batch_stats, (neck, "mean"), np.zeros(dim, np.float32))
+            _set(m.batch_stats, (neck, "var"), np.ones(dim, np.float32))
+    visual_config = {"width": int(width), "layers": v_layers, "heads": max(1, int(width) // 64),
+                     "proj_dim": int(proj_dim),
+                     "crop_hw": (h_grid * sd["visual.conv1.weight"].shape[-2],
+                                 w_grid * sd["visual.conv1.weight"].shape[-1])}
+    visual = backbone_state_dict_from_flax(
+        {"params": m.params, "batch_stats": m.batch_stats}, "clip",
+        model=ClipReID(**visual_config))
+
+    mt = _ClipMapper(sd)
+    mt.used = m.used  # one ledger for both towers
+    t_layers = _layers(sd, "transformer.resblocks", 2)
+    mt.blocks("", t_layers)
+    mt.take("positional_embedding", ("positional_embedding",))
+    mt.take("text_projection", ("text_projection",))
+    mt.norm("ln_final", ("ln_final",))
+    t_width = sd["ln_final.weight"].shape[0]
+    text_config = {"width": int(t_width), "layers": t_layers, "heads": max(1, int(t_width) // 64),
+                   "context": int(sd["positional_embedding"].shape[0]),
+                   "proj_dim": int(sd["text_projection"].shape[1])}
+    text = backbone_state_dict_from_flax({"params": mt.params}, "clip",
+                                         model=ClipTextEncoder(**text_config))
+    mt.used |= {"token_embedding.weight", "logit_scale"}
+    out = {"visual": visual, "visual_config": visual_config, "text": text,
+           "text_config": text_config,
+           "token_embedding": np.asarray(sd["token_embedding.weight"], np.float32),
+           "logit_scale": float(np.asarray(sd.get("logit_scale", 0.0))),
+           "prompt_cls_ctx": None}
+    if "prompt_learner.cls_ctx" in sd:
+        mt.used.add("prompt_learner.cls_ctx")
+        out["prompt_cls_ctx"] = np.asarray(sd["prompt_learner.cls_ctx"], np.float32)
+        # the template buffers are recomputed from the tokenizer
+        mt.used.update(k for k in sd if k.startswith("prompt_learner.token_"))
+    unused = [k for k in sd if k not in mt.used and not k.startswith("classifier")
+              and "num_batches_tracked" not in k]
+    if unused:
+        raise ValueError(f"unmapped CLIP checkpoint keys: {unused[:8]}...")
+    return out

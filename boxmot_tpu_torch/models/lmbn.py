@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from boxmot_tpu_torch.models.layers import BiasFreeBatchNorm1d
 from boxmot_tpu_torch.models.osnet import Conv1x1, ConvLayer, OSBlock
 
 FEAT = 512  # every head's width
@@ -37,7 +38,7 @@ class BNNeck3(nn.Module):
     def __init__(self, cin: int, feat_dim: int = FEAT):
         super().__init__()
         self.reduction = nn.Linear(cin, feat_dim, bias=False)
-        self.bn = nn.BatchNorm1d(feat_dim)
+        self.bn = BiasFreeBatchNorm1d(feat_dim)
 
     def forward(self, x):
         return self.bn(self.reduction(x))
@@ -48,7 +49,7 @@ class BNNeckBN(nn.Module):
 
     def __init__(self, channels: int = FEAT):
         super().__init__()
-        self.bn = nn.BatchNorm1d(channels)
+        self.bn = BiasFreeBatchNorm1d(channels)
 
     def forward(self, x):
         return self.bn(x)

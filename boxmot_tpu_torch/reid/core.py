@@ -10,14 +10,20 @@ contract.  The JAX package pads a call's crops to a static bucket for
 XLA's compile cache; eager PyTorch needs none, so a crop's feature is the
 same, within the backbone's rounding, alone or in any batch.
 
-Backbones (``MODEL_BUILDERS``): the OSNet family (``models/osnet.py``),
-ResNet-50/101 and MobileNetV2 x1.0/x1.4 (``models/backbones.py``), LMBN and
-LMBN-AIN (``models/lmbn.py``), MLFN, CSPReID-n and HACNN (which takes 160
-x 64 crops: the default ``crop_hw`` of (256, 128) fails its assertion, as
-in the JAX package).  ``MODEL_NAMES`` keeps the JAX ``MODEL_FACTORY``'s
-names in its order, so ``infer_model_name`` resolves a weights file exactly
-as the JAX package does; ViT, CSL-TinyViT and CLIP raise
-``NotImplementedError`` (ROADMAP Queue A item 16).
+Backbones (``MODEL_BUILDERS``), every name of the JAX ``MODEL_FACTORY``:
+the OSNet family (``models/osnet.py``), the ViTs (``models/vit.py``: six
+variants), CSL-TinyViT (``models/csl_tinyvit.py``: ten variants and
+aliases), LMBN and LMBN-AIN (``models/lmbn.py``), CSPReID-n, MLFN, HACNN
+(which takes 160 x 64 crops: the default ``crop_hw`` of (256, 128) fails its
+assertion, as in the JAX package), CLIP-ReID's image encoder
+(``models/clip_reid.py``), ResNet-50/101 and MobileNetV2 x1.0/x1.4
+(``models/backbones.py``).  The ViTs and CLIP size their positional
+embeddings from the crop, as Flax does at ``init``, so ``build_model``
+takes ``crop_hw``.  ``MODEL_NAMES`` keeps the JAX ``MODEL_FACTORY``'s names
+in its order, so ``infer_model_name`` resolves a weights file exactly as
+the JAX package does.  Checkpoints convert for OSNet and CLIP
+(``models/convert.py``); any other backbone's raises the JAX package's
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,11 +36,14 @@ import torch
 
 from boxmot_tpu_torch.models import convert as convert_mod
 from boxmot_tpu_torch.models.backbones import build_mobilenetv2, build_resnet50, build_resnet101
+from boxmot_tpu_torch.models.clip_reid import build_clip_reid
+from boxmot_tpu_torch.models.csl_tinyvit import build_csl_tinyvit
 from boxmot_tpu_torch.models.cspreid import build_cspreid
 from boxmot_tpu_torch.models.hacnn import build_hacnn
 from boxmot_tpu_torch.models.lmbn import build_lmbn
 from boxmot_tpu_torch.models.mlfn import build_mlfn
 from boxmot_tpu_torch.models.osnet import OSNET_VARIANTS, build_osnet
+from boxmot_tpu_torch.models.vit import build_vit
 from boxmot_tpu_torch.ops.crops import as_frame, extract_crops
 from boxmot_tpu_torch.utils.device import resolve_device
 
@@ -51,32 +60,33 @@ VIT_VARIANTS = ("vit_nano", "vit_nano_ain", "vit_nano_ain_os", "vit_tiny", "vit_
 MODEL_NAMES = (*OSNET_VARIANTS, *VIT_VARIANTS, *CSL_VARIANTS, "lmbn_n", "lmbn_ain_n",
                "cspreid_n", "mlfn", "hacnn", "clip", "resnet50", "resnet101", "mobilenetv2_x1_0",
                "mobilenetv2_x1_4", "mobilenetv2")
-# the names the port builds (the JAX MODEL_FACTORY's builders of these names)
+# the JAX MODEL_FACTORY's builders, by name
 MODEL_BUILDERS = {
     **{name: partial(build_osnet, name) for name in OSNET_VARIANTS},
+    **{name: partial(build_vit, name) for name in VIT_VARIANTS},
+    **{name: partial(build_csl_tinyvit, name) for name in CSL_VARIANTS},
     "lmbn_n": partial(build_lmbn, "lmbn_n"),
     "lmbn_ain_n": partial(build_lmbn, "lmbn_ain_n"),
     "cspreid_n": build_cspreid,
     "mlfn": build_mlfn,
     "hacnn": build_hacnn,
+    "clip": build_clip_reid,
     "resnet50": build_resnet50,
     "resnet101": build_resnet101,
     "mobilenetv2_x1_0": build_mobilenetv2,
     "mobilenetv2_x1_4": partial(build_mobilenetv2, width=1.4),
     "mobilenetv2": build_mobilenetv2,
 }
+CROP_SIZED = (*VIT_VARIANTS, "clip")  # positional embeddings sized from the crop
 
 
-def build_model(name: str) -> torch.nn.Module:
-    """Backbone ``name`` of ``MODEL_BUILDERS``, with PyTorch's default
-    initialization; the other names of ``MODEL_NAMES`` raise
-    ``NotImplementedError`` naming ROADMAP Queue A item 16."""
-    if name not in MODEL_NAMES:
-        raise KeyError(f"unknown ReID model {name!r}")
+def build_model(name: str, crop_hw=(256, 128)) -> torch.nn.Module:
+    """Backbone ``name`` of ``MODEL_NAMES`` for ``crop_hw`` crops, with
+    PyTorch's default initialization."""
     if name not in MODEL_BUILDERS:
-        raise NotImplementedError(
-            f"no PyTorch backbone for {name!r} yet: ViT, CSL-TinyViT and CLIP-ReID are ROADMAP "
-            "Queue A item 16")
+        raise KeyError(f"unknown ReID model {name!r}")
+    if name in CROP_SIZED:
+        return MODEL_BUILDERS[name](crop_hw=tuple(crop_hw))
     return MODEL_BUILDERS[name]()
 
 
@@ -103,8 +113,6 @@ class ReID:
         self.model_name = model_name or infer_model_name(weights)
         if self.model_name not in MODEL_NAMES:
             raise KeyError(f"unknown ReID model {self.model_name!r}")
-        if self.model_name not in MODEL_BUILDERS:
-            build_model(self.model_name)  # raises, naming the item
         if weights is not None and str(weights).endswith(".msgpack"):
             raise NotImplementedError(
                 "flax .msgpack checkpoints need flax's serialization: ROADMAP Queue A item 22")
@@ -112,7 +120,7 @@ class ReID:
         # that a model built without weights is the same on every device
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            model = build_model(self.model_name)
+            model = build_model(self.model_name, crop_hw)
         if weights is not None and Path(str(weights)).exists():
             convert_mod.load_weights(model, convert_mod.convert_checkpoint(str(weights),
                                                                            self.model_name))

@@ -179,11 +179,13 @@ def settled_trace(kernel_counts: list[int]) -> int | None:
     counts in order: the latest one whose count an earlier trace matches;
     after three traces of which no two agree, the one with the most kernels
     (a trace loses device events, it never gains them); else None, to take
-    another."""
-    if kernel_counts[-1] in kernel_counts[:-1]:
+    another.  An empty trace agrees with none: late in a long run on an
+    H100, two traces in a row of only ``F.scaled_dot_product_attention``
+    held no device event.  After six empty traces, the last."""
+    if kernel_counts[-1] and kernel_counts[-1] in kernel_counts[:-1]:
         return len(kernel_counts) - 1
-    if len(kernel_counts) >= 3:
-        return max(range(len(kernel_counts)), key=kernel_counts.__getitem__)
+    if len(kernel_counts) >= 3 and any(kernel_counts) or len(kernel_counts) >= 6:
+        return max(range(len(kernel_counts)), key=lambda i: (kernel_counts[i], i))
     return None
 
 
@@ -192,10 +194,13 @@ def profile_steps(fn, n_steps: int) -> dict:
     host waits for); per step: kernels launched, device busy ms, and each
     kernel's (launches, device ms).  A trace now and then loses device
     events, so ``fn`` is traced until two traces agree on the kernel count,
-    at most three times (``settled_trace``); ``traces`` says how many."""
+    at most three times, six while they are empty (``settled_trace``);
+    ``traces`` says how many."""
     torch.cuda.synchronize()
     tables, keep = [], None
     while keep is None:
+        if tables and not tables[-1]:
+            time.sleep(RETAKE_PAUSE_S)  # losses come in runs
         tables.append(_traced(fn, 1))
         keep = settled_trace([sum(n for n, _ in t.values()) for t in tables])
     table = tables[keep]

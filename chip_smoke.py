@@ -143,15 +143,43 @@ Phases, in order; any failure raises and the script exits non-zero:
      resnet50, resnet101, mobilenetv2 x1.0 and x1.4, lmbn_n, lmbn_ain_n,
      mlfn, cspreid_n and hacnn (160 x 64) on 64 boxes of a seeded 1080p
      frame, card against CPU (1e-4) and bf16 against fp32 (cosine >= 0.99),
-     with a line each (ms a call, crops/s, kernels a call, K5's share).
-Every path of phases 4-9 runs with the launch counters set to 0 just before
+     with a line each (ms a call, crops/s, kernels a call, K5's share);
+ 10. the transformer backbones and ReID training: (a) each of the 17
+     transformer names (vit_nano, vit_nano_ain, vit_nano_ain_os, vit_tiny,
+     vit_tiny_parts, vit_tiny_parts3, the ten CSL-TinyViT names, clip)
+     through ``ReID`` on 8 crops of 256 x 128, card against CPU (1e-4, TF32
+     off) and bf16 against fp32 (cosine >= 0.99); (b) a line for
+     vit_nano_ain_os, vit_tiny_parts3, csl_tinyvit_7m, csl_tinyvit_23m_lmbn
+     and clip at 64 crops (``reid_line``) with the matrix products' and the
+     plain attention's shares of busy time, and
+     ``F.scaled_dot_product_attention``'s time on the same inputs (measured,
+     not used); (c) ``ReIDTrainer`` for osnet_x0_25 and vit_nano on a seeded
+     Market-1501-layout dataset (``reid_dataset``: 32 identities x 8
+     JPEGs, 16 test identities), P x K = 16 x 4, 256 x 128, 20 steps,
+     with cuDNN's deterministic algorithms, against the same run on the CPU
+     (a worker's; first loss 1e-4 relative, every loss finite, the 20-step
+     drift printed: osnet_x0_25's float32 trajectory is chaotic), 5 steps
+     from the CPU's state at steps 0, 5, 10 and 15 (losses within 5 %, the
+     first 1e-4; the state after one step, parameters, batch statistics,
+     Adam's moments and EMA, the card's and the CPU's, against the same
+     step in float64: the card's error within ``STEP_RATIO`` x the CPU's),
+     ``evaluate()`` on the card against the CPU (mAP 1e-3), 10 steps +
+     checkpoint + resume against 20 straight (1e-5), and a line (ms a step,
+     steps/s, kernels, busy, idle); (d) a seeded
+     full-size CLIP ViT-B/16 checkpoint through ``convert_clip``: the facade
+     from the file, card against CPU, and ``learn_identity_prompts`` with
+     the converted text tower, 3 steps, card against CPU; (e) live BoT-SORT
+     with ``reid_weights="vit_nano"`` on 20 textured frames of MOT17-04's
+     detections, rows equal to the CPU's.
+Every path of phases 4-10 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; the detector:
 one K6 a frame, one K5 with ReID, and the fused step the tracker's own on
 top; the yololite predictor: one K6 a frame; run_generate: one K6 and one
-K5 a frame; OC-SORT and
+K5 a frame; a ReID call: one K5; ReID training and prompt learning: none;
+OC-SORT and
 DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; StrongSORT: 1 IoU launch
 to 2 auctions; BoostTrack, OccluBoost and HybridSORT: as ``boost_ratio`` and
 ``hybrid_ratio`` count them from the config's options; sam2mot: none; the
@@ -182,6 +210,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import boxmot_tpu_torch
 from boxmot_tpu_torch.csrc import build
@@ -207,6 +236,7 @@ from boxmot_tpu_torch.engine.replay import (
     resolve_tracker,
     wants_embs,
 )
+from boxmot_tpu_torch.models.convert import convert_clip
 from boxmot_tpu_torch.models.osnet import build_osnet
 from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.motion.cmc import create_cmc
@@ -233,6 +263,9 @@ from boxmot_tpu_torch.ops.oru import MAX_ORU, oru_replay, oru_replay_plain
 from boxmot_tpu_torch.ops.oru import launch_geometry as k4_geometry
 from boxmot_tpu_torch.ops.rotated_iou import rotated_iou, rotated_iou_counted, rotated_iou_plain
 from boxmot_tpu_torch.reid import ReID
+from boxmot_tpu_torch.reid import core as reid_core
+from boxmot_tpu_torch.reid.training.clip_prompt import PromptStageConfig, learn_identity_prompts
+from boxmot_tpu_torch.reid.training.trainer import ReIDTrainer, TrainConfig
 from boxmot_tpu_torch.trackers import (
     boosttrack,
     botsort,
@@ -1848,8 +1881,27 @@ def cpu_job(kind, tracker, arg):
     ``arg`` (``reid_caches``), for OccluBoost with each sequence's gap rows
     and resurrections from its final state; for "generate", the det, mask and
     warp caches of phase 9b's ``run_generate`` on the CPU ({"dets/<seq>":
-    rows, ...})."""
+    rows, ...}); for "train", the losses of phase 10c's ``ReIDTrainer`` run
+    of model ``tracker`` on the dataset under ``arg``, its checkpoints at
+    each step of TRAIN_SEGMENTS and one step later, and the checkpoints of
+    one step in float64 from each of TRAIN_SEGMENTS."""
     torch.set_num_threads(1)
+    if kind == "train":  # phase 10c's run on the CPU: every step's loss, some checkpoints
+        torch.set_num_threads(1)  # it runs beside phases 4-9's host-bound loops
+        trainer = ReIDTrainer(train_config(Path(arg), tracker), device="cpu")
+        ckpts = {}
+        while trainer.step < TRAIN_STEPS:
+            if trainer.step in TRAIN_SEGMENTS or trainer.step - 1 in TRAIN_SEGMENTS:
+                ckpts[trainer.step] = str(trainer.save_checkpoint(
+                    Path(arg).parent / f"{tracker}_cpu_{trainer.step}.pt"))
+            trainer.fit(steps=trainer.step + 1, log_every=1)
+        exact, truth = ReIDTrainer(trainer.cfg, device="cpu", dtype=torch.float64), {}
+        for s0 in TRAIN_SEGMENTS:
+            exact.load_checkpoint(Path(ckpts[s0]))
+            exact.fit(steps=s0 + 1, log_every=1)
+            truth[s0 + 1] = str(exact.save_checkpoint(
+                Path(arg).parent / f"{tracker}_cpu64_{s0 + 1}.pt"))
+        return [h["loss"] for h in trainer.history], ckpts, truth
     if kind == "generate":  # phase 9b's run on the CPU: dets, masks and warps
         torch.set_num_threads(4)
         with tempfile.TemporaryDirectory() as tmp:
@@ -1888,10 +1940,11 @@ APPEARANCE_EVALS = ("strongsort", "hybridsort")
 CPU_WORKERS = 6
 
 
-def start_cpu_references(pool, cache_root: Path) -> dict:
-    """Submit every CPU reference of phases 4-5: the three longest first
+def start_cpu_references(pool, cache_root: Path, train_root: Path) -> dict:
+    """Submit every CPU reference of phases 4-10: the three longest first
     (HybridSORT's and StrongSORT's cache-fed replays, StrongSORT's synth-long
-    eval, needed late), then the rest in the order the phases read them."""
+    eval, needed late), then the rest in the order the phases read them;
+    phase 10c's training runs on ``train_root`` last."""
     jobs = {}
 
     def submit(kind, tracker, arg, key=None):
@@ -1908,6 +1961,8 @@ def start_cpu_references(pool, cache_root: Path) -> dict:
     for tracker in OBB_EVAL:
         submit("obb", tracker, None)
     submit("generate", None, None)
+    for model in TRAIN_MODELS:
+        submit("train", model, str(train_root))
     return jobs
 
 
@@ -2474,17 +2529,19 @@ def yolox_checkpoint(root: Path, name: str, frames, imgsz, seed: int = 0,
     return path
 
 
-def run_live_reid(tracker, weights: Path):
-    """Phase 6e: the live tracker computing its embeddings with its ReID
-    (``create_tracker(tracker, reid_weights=weights)``, osnet_x0_25, K5 on the
-    card) from 50 seeded textured 1080p frames with MOT17-04's detections,
+def run_live_reid(tracker, weights, n_frames=50):
+    """Phase 6e (and 10e): the live tracker computing its embeddings with its
+    ReID (``create_tracker(tracker, reid_weights=weights)``: a seeded
+    osnet_x0_25 checkpoint, or in 10e the name vit_nano, seeded weights; K5
+    on the card) from ``n_frames`` seeded textured 1080p frames with
+    MOT17-04's detections,
     CMC off, cuda against cpu: ids, conf, cls and det_ind equal, boxes within
     1e-3 px, each frame's features within 1e-4; prints BoT-SORT's smallest
     margin of an appearance distance to its threshold (scaled and not) beside
     the largest feature difference (DeepOCSORT's embedding cost enters its
     assignment with no threshold).  Every frame has detections, so K5
     launches once a frame (one class bank, at most 256 crops)."""
-    frames, _ = _live_frames(50)
+    frames, _ = _live_frames(n_frames)
     img = crop_frame(3)
     kw = {"use_cmc": False} if tracker == "botsort" else {"cmc_off": True}
     trackers = {d: boxmot_tpu_torch.create_tracker(tracker, device=d, reid_weights=weights, **kw)
@@ -2518,14 +2575,14 @@ def run_live_reid(tracker, weights: Path):
                                  f"features by {feat_err}")
         n_rows += len(g)
     if n_rows == 0:
-        raise AssertionError(f"live {tracker} with ReID: no track was emitted in 50 frames")
+        raise AssertionError(f"live {tracker} with ReID: no track was emitted in {n_frames} frames")
     what = (f"smallest margin of an appearance distance to its threshold {margin:.3g}"
             if thr is not None else "no appearance threshold")
-    print(f"live {tracker} with ReID (osnet_x0_25 from a seeded torchreid checkpoint), 50 textured "
-          f"1080p frames of {LIVE_SEQ.name}'s detections: {n_rows} rows equal to cpu (ids, "
-          f"det_ind, cls, conf exact; max box diff {worst:.3g} px); largest feature difference "
-          f"{feat_err:.3g}, {what}; cuda update median {statistics.median(update_ms[1:]):.3f} "
-          f"ms/frame (host clock, frames 2-50)")
+    print(f"live {tracker} with ReID ({trackers['cuda'].model.model_name}, {Path(str(weights)).name}"
+          f"), {n_frames} textured 1080p frames of {LIVE_SEQ.name}'s detections: {n_rows} rows "
+          f"equal to cpu (ids, det_ind, cls, conf exact; max box diff {worst:.3g} px); largest "
+          f"feature difference {feat_err:.3g}, {what}; cuda update median "
+          f"{statistics.median(update_ms[1:]):.3f} ms/frame (host clock, frames 2-{n_frames})")
     if not all(len(d) for d in frames):
         raise AssertionError("a frame without detections: K5's launches are not one a frame")
 
@@ -3035,6 +3092,7 @@ ECC_SCALE = 0.15  # ECC's working scale: a warp's translation tolerance is 1e-3 
 BACKBONES = ("resnet50", "resnet101", "mobilenetv2_x1_0", "mobilenetv2_x1_4", "lmbn_n",
              "lmbn_ain_n", "mlfn", "cspreid_n", "hacnn")
 BACKBONE_CROPS = 64
+CHECK_CROPS = 8  # crops of 9c's and 10a's card-against-CPU check of each name
 
 
 def lite_nms_inputs(model, img, conf=LITE_CONF, classes=None, agnostic=False):
@@ -3317,8 +3375,10 @@ def run_backbone_bench(card):
     card (seeded weights, its convolutions' batch norms calibrated on 32
     crops of the frame, ``calibrate_batch_norms``), 64 person-like boxes of
     a seeded textured 1080p frame, 256 x 128 crops (HACNN 160 x 64): the
-    card's fp32 features against the CPU's (1e-4) and bf16's against fp32
-    (cosine >= 0.99); a line each (``reid_line``)."""
+    card's fp32 features against the CPU's on the first CHECK_CROPS crops
+    (1e-4, as phase 7f checks; each crop's features are the batch's row)
+    and bf16's against fp32 on all 64 (cosine >= 0.99); a line each
+    (``reid_line``)."""
     img = crop_frame(4)
     rng = np.random.default_rng(13)
     boxes = crop_boxes(rng, BACKBONE_CROPS + 8, False)[8:]
@@ -3334,7 +3394,7 @@ def run_backbone_bench(card):
             other.model.load_state_dict(gpu.model.state_dict())
         feats = drive(f"ReID {name}", lambda: gpu.get_features(boxes, img), {"extract_crops": 1},
                       sync_free=False, n_steps=1)
-        err = float(np.abs(feats - cpu.get_features(boxes, img)).max())
+        err = float(np.abs(feats[:CHECK_CROPS] - cpu.get_features(boxes[:CHECK_CROPS], img)).max())
         cos = float(np.min(np.sum(feats * bf16.get_features(boxes, img), axis=1)))
         spread = float(1.0 - np.min(feats @ feats.T))
         reid_line(f"reid_{name}_fp32_{BACKBONE_CROPS}crops", gpu, boxes, img, card,
@@ -3343,6 +3403,450 @@ def run_backbone_bench(card):
         if not (err <= 1e-4 and cos >= 0.99):
             raise AssertionError(f"ReID {name}: the card's features differ (fp32 vs cpu {err}, "
                                  f"bf16 cosine {cos})")
+
+
+# phase 10: the transformer backbones, ReID training and CLIP's prompt learning
+TRANSFORMERS = (*reid_core.VIT_VARIANTS, *reid_core.CSL_VARIANTS, "clip")
+TRANSFORMER_LINES = ("vit_nano_ain_os", "vit_tiny_parts3", "csl_tinyvit_7m", "csl_tinyvit_23m_lmbn",
+                     "clip")
+TRAIN_MODELS = ("osnet_x0_25", "vit_nano")
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PK = 20, 5, (16, 4)
+TRAIN_IDS, TRAIN_VIEWS, TEST_IDS = 32, 8, 16  # 10c's dataset: identities, JPEGs each, test ids
+# 10c: the card also trains SEGMENT_STEPS steps from the CPU run's state at each of these
+TRAIN_SEGMENTS, SEGMENT_STEPS = (0, 5, 10, 15), 5
+NOISE_GRAD = 1e-6  # a parameter whose step gradient RMS is below this x the largest element's
+# 10c's one float32 step from the CPU's state, on the card and on the CPU, each against the
+# same step in float64: the card's error at most STEP_RATIO x the CPU's + STEP_FLOOR (read on
+# an H100: ratios up to 1.9; between two CPU thread counts at 128 x 64, up to 4.6)
+STEP_RATIO, STEP_FLOOR = 10.0, 1e-6
+STATE_KINDS = ("params", "batch_stats", "mu", "nu", "ema")
+PROMPT_STEPS, PROMPT_BATCH = 3, 32
+
+
+def train_config(root: Path, model: str, **kw) -> TrainConfig:
+    """Phase 10c's configuration: ``model`` at P x K = 16 x 4, 256 x 128,
+    TRAIN_STEPS steps (TRAIN_WARMUP of warmup) on ``reid_dataset(root)``."""
+    return TrainConfig(model=model, data_root=str(root), crop_hw=CROP_HW, p=TRAIN_PK[0],
+                       k=TRAIN_PK[1], steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, seed=0, **kw)
+
+
+def reid_dataset(root: Path, seed: int = 0) -> Path:
+    """A seeded Market-1501-layout dataset under ``root``: TRAIN_IDS
+    identities x TRAIN_VIEWS 256 x 128 JPEGs in ``bounding_box_train`` (half
+    from camera 1, half from camera 2), and TEST_IDS other identities with
+    one query image (camera 1) and three gallery images (camera 2).  An
+    identity is a stack of 3-6 colored horizontal bands with a texture of its
+    own (``default_rng((seed, pid))``); each view shifts it by up to 12 px,
+    scales its brightness by 0.8-1.2 and adds noise.  Nothing is downloaded;
+    about 1 s to write."""
+    import cv2
+
+    def person(pid):
+        rng = np.random.default_rng((seed, pid))
+        bands = int(rng.integers(3, 7))
+        colors = rng.integers(0, 256, (bands, 3)).astype(np.float32)
+        edges = np.sort(rng.integers(0, 256, bands - 1))
+        img = np.repeat(colors[np.searchsorted(edges, np.arange(256))][:, None], 128, axis=1)
+        texture = rng.normal(0, 25, (16, 8, 3)).astype(np.float32)
+        return img + cv2.resize(texture, (128, 256), interpolation=cv2.INTER_LINEAR)
+
+    splits = (("bounding_box_train", range(1, TRAIN_IDS + 1), (1, 2), TRAIN_VIEWS // 2),
+              ("query", range(101, 101 + TEST_IDS), (1,), 1),
+              ("bounding_box_test", range(101, 101 + TEST_IDS), (2,), 3))
+    for split, pids, cams, views in splits:
+        (root / split).mkdir(parents=True, exist_ok=True)
+        for pid in pids:
+            base = person(pid)
+            for cam in cams:
+                rng = np.random.default_rng((seed, pid, cam, len(split)))
+                for v in range(views):
+                    dy, dx = (int(d) for d in rng.integers(-12, 13, 2))
+                    img = np.roll(base, (dy, dx), axis=(0, 1)) * rng.uniform(0.8, 1.2)
+                    img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+                    cv2.imwrite(str(root / split / f"{pid:04d}_c{cam}s1_{v:06d}_00.jpg"), img)
+    return root
+
+
+def _gemm_share(prof: dict) -> float:
+    """The share of a profile's busy time in matrix products (cuBLAS and
+    CUTLASS gemm kernels, by name; cuDNN's implicit-GEMM convolutions not)."""
+    t = sum(ms for kn, (_, ms) in prof["by_kernel"].items()
+            if "gemm" in kn.lower() and not _is_conv(kn))
+    return t / prof["busy_ms_per_step"]
+
+
+@contextlib.contextmanager
+def recorded_attention():
+    """Every call of the transformers' ``attention`` (ViT, CSL-TinyViT's
+    windows, CLIP's image tower) while the context holds, its inputs kept."""
+    from boxmot_tpu_torch.models import clip_reid as clip_mod
+    from boxmot_tpu_torch.models import csl_tinyvit as csl_mod
+    from boxmot_tpu_torch.models import vit as vit_mod
+
+    real, calls = vit_mod.attention, []
+
+    def rec(q, k, v, scale, bias=None):
+        calls.append((q.clone(), k.clone(), v.clone(), scale, None if bias is None else bias.clone()))
+        return real(q, k, v, scale, bias)
+
+    mods = (vit_mod, csl_mod, clip_mod)
+    for m in mods:
+        m.attention = rec
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.attention = real
+
+
+def attention_profile(reid, boxes, img) -> dict:
+    """The plain attention's ms a ``get_features`` call (its recorded calls,
+    ``vit.attention``: two products and a softmax, replayed back to back
+    between CUDA events, median of 20: the card's time, as the replay
+    launches large kernels faster than the card runs them), and
+    ``F.scaled_dot_product_attention``'s on the same inputs (measured, not
+    used by the port), with the largest difference between the two.  Not
+    from a profile: late in the smoke, traces of these replays alone lost
+    some or all of their device events."""
+    from boxmot_tpu_torch.models.vit import attention
+
+    with torch.no_grad(), recorded_attention() as calls:
+        reid.get_features(boxes, img)
+    with torch.no_grad():
+        plain = measure.event_ms(lambda: [attention(*c) for c in calls], reps=20, warmup=3)
+        sdpa = measure.event_ms(lambda: [F.scaled_dot_product_attention(
+            q, k, v, attn_mask=b, scale=s) for q, k, v, s, b in calls], reps=20, warmup=3)
+        diff = max(float((attention(*c) - F.scaled_dot_product_attention(
+            c[0], c[1], c[2], attn_mask=c[4], scale=c[3])).abs().max()) for c in calls)
+    return {"attention_calls": len(calls), "attention_ms_per_call": plain,
+            "sdpa_ms_per_call": sdpa, "sdpa_max_abs_diff": diff,
+            "attention_shape": list(calls[0][0].shape)}
+
+
+def run_transformer_phase(card):
+    """Phase 10a-b: (a) each of the 17 transformer names (six ViTs, ten
+    CSL-TinyViT names, CLIP) through ``ReID`` on the card (seeded weights,
+    the same as the CPU's), CHECK_CROPS person-like crops of 256 x 128 from
+    a seeded 1080p frame: fp32 (TF32 off) within 1e-4 of the port on the
+    CPU, bf16 at cosine >= 0.99 to fp32; (b) a line for each of
+    TRANSFORMER_LINES at 64 crops (``reid_line``: host ms a call, median of
+    10, a 16-call profile) with the matrix products' share of busy time and
+    the attention's (``attention_profile``)."""
+    img = crop_frame(4)
+    rng = np.random.default_rng(14)
+    boxes = crop_boxes(rng, BACKBONE_CROPS + 8, False)[8:]
+    for name in TRANSFORMERS:
+        gpu = ReID(model_name=name, device="cuda")
+        feats = drive(f"ReID {name}", lambda: gpu.get_features(boxes[:CHECK_CROPS], img),
+                      {"extract_crops": 1}, sync_free=False, n_steps=1)
+        cpu = ReID(model_name=name, device="cpu").get_features(boxes[:CHECK_CROPS], img)
+        half = ReID(model_name=name, device="cuda", half=True)
+        half.model.load_state_dict(gpu.model.state_dict())
+        err = float(np.abs(feats - cpu).max())
+        cos = float(np.min(np.sum(feats * half.get_features(boxes[:CHECK_CROPS], img), axis=1)))
+        spread = float(1.0 - np.min(feats @ feats.T))
+        print(f"ReID {name}: card fp32 against the CPU port's on {CHECK_CROPS} crops, max diff "
+              f"{err:.3g}; bf16 least cosine {cos:.5f}; largest cosine distance between crops "
+              f"{spread:.3g}; feature width {gpu.feature_dim}")
+        if not (err <= 1e-4 and cos >= 0.99):
+            raise AssertionError(f"ReID {name}: the card's features differ (fp32 vs cpu {err}, "
+                                 f"bf16 cosine {cos})")
+        if name in TRANSFORMER_LINES:
+            def line():
+                prof = measure.profile_steps(lambda: [gpu.get_features(boxes, img)
+                                                      for _ in range(4)], 4)
+                att = attention_profile(gpu, boxes, img)
+                att["attention_share"] = att["attention_ms_per_call"] / prof["busy_ms_per_step"]
+                reid_line(f"reid_{name}_fp32_{BACKBONE_CROPS}crops", gpu, boxes, img, card,
+                          feature_dim=gpu.feature_dim, gemm_share=_gemm_share(prof), **att)
+
+            drive(f"ReID {name} line", line, {"extract_crops": 1}, sync_free=False)
+        del gpu, half
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def _resume_gap(straight, cfg, root: Path) -> float:
+    """The largest difference between ``straight`` (TRAIN_STEPS steps) and
+    half of them, a checkpoint, a new trainer resumed from it and the other
+    half: every parameter, batch statistic and EMA value."""
+    first = ReIDTrainer(cfg, device="cuda")
+    first.fit(steps=TRAIN_STEPS // 2, log_every=TRAIN_STEPS)
+    resumed = ReIDTrainer(cfg, device="cuda")
+    resumed.load_checkpoint(first.save_checkpoint(root / f"{cfg.model}_mid.pt"))
+    resumed.fit(log_every=TRAIN_STEPS)
+    gap = max(float((a - b).abs().max()) for a, b in zip(straight.model.state_dict().values(),
+                                                         resumed.model.state_dict().values())
+              if a.is_floating_point())
+    return max(gap, max(float((straight.ema_params[p] - resumed.ema_params[p]).abs().max())
+                        for p in straight.ema_params))
+
+
+def _train_state(path: Path) -> dict:
+    """A trainer checkpoint's state by kind: "params" and "batch_stats"
+    (the model's parameters and running statistics, by the port's keys),
+    Adam's "mu" and "nu" and the "ema" (by Flax path), as float64."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    out = {"params": {}, "batch_stats": {}}
+    for k, t in ckpt["model"].items():
+        if t.is_floating_point():
+            out["batch_stats" if k.endswith(("running_mean", "running_var")) else "params"][k] = \
+                t.double()
+    out.update({kind: {p: t.double() for p, t in ckpt["opt"][kind].items()}
+                for kind in ("mu", "nu")})
+    out["ema"] = {p: t.double() for p, t in ckpt["ema_params"].items()}
+    return out
+
+
+def _step_errors(trainer, before: dict, exact: dict, got: dict) -> tuple[dict, list]:
+    """One float32 step from the state ``before`` (``got``) against the
+    same step in float64 (``exact``): for each kind of state, the norm of
+    ``got - exact`` over the norm of the step's change ``exact - before``,
+    and the tensor whose own such ratio is largest.  Parameters whose
+    gradient is 0 in exact arithmetic (a per-channel affine ahead of a
+    batch norm in train mode) move by Adam's normalization of rounding
+    noise: they are those whose step gradient (``(mu' - b1 mu) / (1 -
+    b1)``, in float64) has an RMS below NOISE_GRAD of the largest
+    element's, left out of the parameters, moments and EMA, and returned."""
+    from boxmot_tpu_torch.reid.training.optim import ADAM_B1
+
+    grads = {p: (exact["mu"][p] - ADAM_B1 * before["mu"][p]) / (1 - ADAM_B1)
+             for p in exact["mu"]}
+    top = max(float(g.abs().max()) for g in grads.values())
+    noise = sorted(p for p, g in grads.items() if float(g.square().mean().sqrt()) < NOISE_GRAD * top)
+    errors = {}
+    for kind in STATE_KINDS:
+        keys = [k for k in exact[kind]
+                if (trainer.paths.get(k, k) if kind == "params" else k) not in noise]
+        err = {k: float((got[kind][k] - exact[kind][k]).square().sum()) for k in keys}
+        change = {k: float((exact[kind][k] - before[kind][k]).square().sum()) for k in keys}
+        total = sum(change.values())
+        errors[kind] = {"rel": (sum(err.values()) / total) ** 0.5 if total else 0.0,
+                        "worst": max(keys, key=lambda k: err[k] / max(change[k], 1e-300))}
+    return errors, noise
+
+
+def _segments(cfg, cpu_losses, ckpts, truth, root: Path) -> dict:
+    """The card's SEGMENT_STEPS steps from the CPU run's state at each of
+    TRAIN_SEGMENTS: each step's loss against the CPU's (the largest
+    relative difference), and the state after the first step, the card's
+    and the CPU's, each against the same step in float64
+    (``_step_errors``): the largest ratio of the card's error to STEP_RATIO
+    x the CPU's + STEP_FLOOR, by kind, with both errors."""
+    trainer = ReIDTrainer(cfg, device="cuda")
+    loss_gap, first_gap, worst, noise = 0.0, 0.0, {}, set()
+    for s0 in TRAIN_SEGMENTS:
+        trainer.load_checkpoint(Path(ckpts[s0]))
+        trainer.fit(steps=s0 + 1, log_every=1)
+        got = _train_state(trainer.save_checkpoint(root / f"{cfg.model}_card_{s0 + 1}.pt"))
+        before, exact = _train_state(Path(ckpts[s0])), _train_state(Path(truth[s0 + 1]))
+        card, n = _step_errors(trainer, before, exact, got)
+        cpu, _ = _step_errors(trainer, before, exact, _train_state(Path(ckpts[s0 + 1])))
+        noise |= set(n)
+        for kind in STATE_KINDS:
+            score = card[kind]["rel"] / (STEP_RATIO * cpu[kind]["rel"] + STEP_FLOOR)
+            if score >= worst.get(kind, {"score": -1.0})["score"]:
+                worst[kind] = {"score": score, "card": card[kind]["rel"], "cpu": cpu[kind]["rel"],
+                               "card_worst": card[kind]["worst"], "step": s0}
+        hist = trainer.fit(steps=s0 + SEGMENT_STEPS, log_every=1)
+        losses = [h["loss"] for h in hist[s0:s0 + SEGMENT_STEPS]]
+        first_gap = max(first_gap, abs(losses[0] - cpu_losses[s0]) / abs(cpu_losses[s0]))
+        loss_gap = max(loss_gap, max(abs(a - b) / abs(b) for a, b in
+                                     zip(losses, cpu_losses[s0:s0 + SEGMENT_STEPS])))
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train {cfg.model}: a loss is not finite ({losses})")
+    del trainer
+    return {"segment_first_loss_rel_diff": first_gap, "segment_loss_rel_diff": loss_gap,
+            "step_errors": worst, "noise_params": sorted(noise)}
+
+
+def run_training_phase(card, root: Path, cpu_jobs):
+    """Phase 10c: ``ReIDTrainer`` on the card for each of TRAIN_MODELS
+    (osnet_x0_25: Adam; vit_nano: AdamW, clip 1.0, layer decay) on
+    ``reid_dataset(root)`` at P x K = 16 x 4, 256 x 128, TRAIN_STEPS steps,
+    with cuDNN's deterministic algorithms (the default ones accumulate
+    weight gradients in another order from run to run: on an H100 a resumed
+    run differed by 6e-3 for osnet_x0_25 and 7e-5 for vit_nano after 20
+    steps), against the same run on the CPU (a worker's): the first step's
+    loss within 1e-4 relative, every step's finite.  The float32 trajectory
+    of osnet_x0_25 is chaotic (float32 rounding, amplified by Adam: on an
+    H100 its 20 steps drifted 7.0-7.5 % from the CPU's; in float64 the port
+    and JAX agree to 1e-13 over 4 steps, tests/test_torch_reid_trainer.py),
+    so the straight run's drift is printed, and the later steps are held
+    where a drift allowance means something: from the CPU run's state at
+    each of TRAIN_SEGMENTS the card trains SEGMENT_STEPS steps, each loss
+    within 5 % of the CPU's (the JAX package's drift allowance over a few
+    steps, tests/test_reid_training.py:267-272), the first within 1e-4; the
+    whole state after the first step (parameters, batch statistics, Adam's
+    moments, EMA), the card's and the CPU's, each against the same step in
+    float64 from the same state (a CPU worker's), the card's error at most
+    STEP_RATIO x the CPU's + STEP_FLOOR (``_segments``); ``evaluate()`` of the card's EMA weights on the card
+    against the same weights on the CPU (mAP within 1e-3); half the steps,
+    a checkpoint and a resumed trainer against the straight run within
+    1e-5; a line (ms a step of that ``fit``, data included; with the
+    default algorithms, ms a step on a fixed batch, steps/s, kernels a
+    step, busy ms and idle share from a 4-step profile).  The crops are
+    made on the host (as in JAX): no hand-written kernel runs."""
+    from boxmot_tpu_torch.reid.training.evaluator import evaluate_reid
+
+    for model in TRAIN_MODELS:
+        cfg = train_config(root, model)
+        with deterministic_cudnn():
+            trainer = ReIDTrainer(cfg, device="cuda")
+            t0 = time.perf_counter()
+            hist = drive(f"train {model}", lambda: trainer.fit(log_every=1), {}, sync_free=False)
+            fit_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+            gap = _resume_gap(trainer, cfg, root)
+            (cpu, ckpts, truth), waited = _cpu_result(cpu_jobs, ("train", model, None))
+            seg = _segments(cfg, cpu, ckpts, truth, root)
+        losses = [h["loss"] for h in hist]
+        first = abs(losses[0] - cpu[0]) / abs(cpu[0])
+        drift = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu))
+        on_card = trainer.evaluate()
+        on_cpu = evaluate_reid(trainer.inference_backbone().cpu(), trainer.dataset, hw=CROP_HW,
+                               device="cpu")
+        map_gap = abs(on_card["mAP"] - on_cpu["mAP"])
+        images, labels = trainer._next_batch()
+        step_ms, step_host = _host_ms(lambda: float(trainer._train_step(images, labels)[0]))
+        prof = measure.profile_steps(lambda: [trainer._train_step(images, labels)
+                                              for _ in range(4)], 4)
+        print(json.dumps({"metric": f"train_{model}_p{TRAIN_PK[0]}k{TRAIN_PK[1]}",
+                          "fit_ms_per_step": fit_ms, "fit_steps_per_s": 1e3 / fit_ms,
+                          "step_ms": step_ms, "step_host_ms": step_host,
+                          "steps_per_s": 1e3 / step_ms,
+                          "kernels_per_step": prof["kernels_per_step"],
+                          "busy_ms_per_step": prof["busy_ms_per_step"],
+                          "idle_share": 1.0 - prof["busy_ms_per_step"] / step_ms,
+                          "gemm_share": _gemm_share(prof),
+                          "conv_share": sum(ms for kn, (_, ms) in prof["by_kernel"].items()
+                                            if _is_conv(kn)) / prof["busy_ms_per_step"],
+                          "losses": losses, "cpu_losses": cpu, "first_loss_rel_diff": first,
+                          "largest_loss_rel_diff": drift, **seg,
+                          "eval_card": on_card,
+                          "eval_cpu": on_cpu, "resume_max_abs_diff": gap, "card": card}))
+        steps = ", ".join(f"{k} {e['card']:.3g} (cpu {e['cpu']:.3g}; step {e['step']}, "
+                          f"{e['card_worst']})" for k, e in seg["step_errors"].items())
+        print(f"train {model}: first loss {losses[0]:.6f} (cpu {cpu[0]:.6f}, rel {first:.3g}), "
+              f"{TRAIN_STEPS}-step drift {drift:.3g} (printed); {SEGMENT_STEPS}-step segments from the "
+              f"cpu's state at {TRAIN_SEGMENTS}: losses {seg['segment_loss_rel_diff']:.3g}, "
+              f"first {seg['segment_first_loss_rel_diff']:.3g}; one step's state against float64, "
+              f"error over the step's change, the worst against the cpu's: {steps}; noise "
+              f"tensors "
+              f"{seg['noise_params']}; mAP card {on_card['mAP']:.4f} cpu {on_cpu['mAP']:.4f}, "
+              f"resume gap {gap:.3g} (cudnn.deterministic); waited {waited:.1f} s for the cpu run")
+        bad_state = {k: (e["card"], e["cpu"]) for k, e in seg["step_errors"].items()
+                     if not e["score"] <= 1.0}
+        if not (first <= 1e-4 and seg["segment_first_loss_rel_diff"] <= 1e-4
+                and seg["segment_loss_rel_diff"] <= 0.05 and not bad_state
+                and np.isfinite(losses).all() and map_gap <= 1e-3 and gap <= 1e-5):
+            raise AssertionError(f"train {model}: the card's run differs (first {first}, segments "
+                                 f"{seg['segment_loss_rel_diff']}, state {bad_state}, mAP gap "
+                                 f"{map_gap}, resume gap {gap})")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def clip_state_dict(seed: int = 0) -> dict:
+    """A seeded full-size OpenAI CLIP ViT-B/16 state dict (numpy float32):
+    the image tower 768 wide, 12 layers, a 14 x 14 grid of 16-pixel patches,
+    projected to 512; the text tower 512 wide, 12 layers, 77 positions, the
+    49,408-token vocabulary; CLIP's initialization scales."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def tower(prefix, width, layers):
+        sd = {}
+        for i in range(layers):
+            b = f"{prefix}transformer.resblocks.{i}"
+            sd.update({f"{b}.ln_1.weight": np.ones(width, np.float32),
+                       f"{b}.ln_1.bias": np.zeros(width, np.float32),
+                       f"{b}.ln_2.weight": np.ones(width, np.float32),
+                       f"{b}.ln_2.bias": np.zeros(width, np.float32),
+                       f"{b}.attn.in_proj_weight": normal((3 * width, width), width ** -0.5),
+                       f"{b}.attn.in_proj_bias": np.zeros(3 * width, np.float32),
+                       f"{b}.attn.out_proj.weight": normal((width, width),
+                                                           (width * 2 * layers) ** -0.5),
+                       f"{b}.attn.out_proj.bias": np.zeros(width, np.float32),
+                       f"{b}.mlp.c_fc.weight": normal((4 * width, width), (2 * width) ** -0.5),
+                       f"{b}.mlp.c_fc.bias": np.zeros(4 * width, np.float32),
+                       f"{b}.mlp.c_proj.weight": normal((width, 4 * width),
+                                                        (width * 2 * layers) ** -0.5),
+                       f"{b}.mlp.c_proj.bias": np.zeros(width, np.float32)})
+        return sd
+
+    v, t = 768, 512
+    return {"visual.conv1.weight": normal((v, 3, 16, 16), (3 * 16 * 16) ** -0.5),
+            "visual.class_embedding": normal((v,), v ** -0.5),
+            "visual.positional_embedding": normal((1 + 14 * 14, v), v ** -0.5),
+            "visual.ln_pre.weight": np.ones(v, np.float32),
+            "visual.ln_pre.bias": np.zeros(v, np.float32),
+            "visual.ln_post.weight": np.ones(v, np.float32),
+            "visual.ln_post.bias": np.zeros(v, np.float32),
+            "visual.proj": normal((v, 512), v ** -0.5), **tower("visual.", v, 12),
+            "token_embedding.weight": normal((49408, t), 0.02),
+            "positional_embedding": normal((77, t), 0.01),
+            "ln_final.weight": np.ones(t, np.float32), "ln_final.bias": np.zeros(t, np.float32),
+            "text_projection": normal((t, 512), t ** -0.5), "logit_scale": np.float32(4.6052),
+            **tower("", t, 12)}
+
+
+def run_prompt_phase(card, root: Path):
+    """Phase 10d: CLIP-ReID at full size from a seeded OpenAI-format
+    checkpoint (``clip_state_dict``) through ``convert_clip``: the facade
+    loading it from a file (``ReID(weights=...)``, CHECK_CROPS crops, card
+    against CPU within 1e-4), then ``learn_identity_prompts`` with the
+    converted text tower and tokenizer-embedded template (16 identities x 4
+    image features, batch PROMPT_BATCH, PROMPT_STEPS steps) on the card
+    against the CPU: losses within rtol 1e-4, the context vectors within
+    1e-5; its ms a step."""
+    sd = clip_state_dict()
+    t0 = time.perf_counter()
+    conv = convert_clip(sd)
+    convert_s = time.perf_counter() - t0
+    path = root / "clip_seeded.pt"
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, path)
+    img = crop_frame(5)
+    boxes = crop_boxes(np.random.default_rng(15), CHECK_CROPS + 8, False)[8:]
+    feats = {d: ReID(weights=path, model_name="clip", device=d) for d in ("cuda", "cpu")}
+    got = drive("ReID clip from a converted checkpoint",
+                lambda: feats["cuda"].get_features(boxes, img), {"extract_crops": 1},
+                sync_free=False, n_steps=1)
+    err = float(np.abs(got - feats["cpu"].get_features(boxes, img)).max())
+    del feats
+    rng = np.random.default_rng(16)
+    labels, dim = np.repeat(np.arange(16), 4), conv["text_config"]["proj_dim"]
+    image_feats = (rng.normal(size=(16, dim))[labels] + rng.normal(0, 0.5, (64, dim))).astype(
+        np.float32)
+    cfg = PromptStageConfig(num_classes=16, batch=PROMPT_BATCH, steps=PROMPT_STEPS, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = drive(f"learn_identity_prompts {dev}", lambda: learn_identity_prompts(
+            image_feats, labels, cfg, pretrained=conv, device=dev), {}, sync_free=False)
+        out[dev + "_s"] = time.perf_counter() - t0
+    (_, gp, gl), (_, cp, cl) = out["cuda"], out["cpu"]
+    loss_gap = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+    ctx_gap = float((gp["prompt"]["cls_ctx"] - cp["prompt"]["cls_ctx"]).abs().max())
+    print(json.dumps({"metric": "clip_prompt_learning", "convert_clip_s": convert_s,
+                      "facade_max_abs_err_vs_cpu": err, "losses": gl.tolist(),
+                      "cpu_losses": cl.tolist(), "loss_rel_diff": loss_gap,
+                      "cls_ctx_max_abs_diff": ctx_gap,
+                      "card_ms_per_step": out["cuda_s"] * 1e3 / PROMPT_STEPS,
+                      "cpu_ms_per_step": out["cpu_s"] * 1e3 / PROMPT_STEPS, "card": card}))
+    if not (err <= 1e-4 and loss_gap <= 1e-4 and ctx_gap <= 1e-5 and np.isfinite(gl).all()):
+        raise AssertionError(f"CLIP prompts: the card differs (facade {err}, losses {loss_gap}, "
+                             f"context {ctx_gap})")
 
 
 def build_kernels():
@@ -3357,8 +3861,8 @@ def build_kernels():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (wall, in parallel)")
 
 
-def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
-    """Phases 3-9; returns phase 3's timing entries and K4's XYSCR rows."""
+def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root):
+    """Phases 3-10; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
     det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
     decoded = decoded_scores(det, seqs["MOT17-04-FRCNN"][0])
@@ -3431,6 +3935,15 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads):
     lap("phase 9b (run_generate)")
     run_backbone_bench(smi)
     lap("phase 9c (ReID backbones)")
+    run_transformer_phase(smi)
+    lap("phase 10a-b (transformer backbones)")
+    run_training_phase(smi, train_root, cpu_jobs)
+    lap("phase 10c (ReID training)")
+    run_prompt_phase(smi, cache_root.parent)
+    lap("phase 10d (CLIP prompt learning)")
+    drive("live botsort ReID vit_nano", lambda: run_live_reid("botsort", "vit_nano", 20),
+          {**RATIOS["botsort"][0], "extract_crops": 1}, sync_free=False)
+    lap("phase 10e (live BoT-SORT with vit_nano)")
     return checks, xyscr_rows
 
 
@@ -3451,10 +3964,11 @@ def main() -> int:
 
     with contextlib.ExitStack() as stack:
         cache_root = reid_caches(Path(stack.enter_context(tempfile.TemporaryDirectory())) / "cache")
+        train_root = reid_dataset(cache_root.parent / "reid-train")
         pool = concurrent.futures.ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
         stack.callback(pool.shutdown, wait=True, cancel_futures=True)
-        cpu_jobs = start_cpu_references(pool, cache_root)
+        cpu_jobs = start_cpu_references(pool, cache_root, train_root)
         kind = torch.cuda.get_device_name(0)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True,
@@ -3468,7 +3982,8 @@ def main() -> int:
                                 DET_IMGSZ, device="cuda")
         cpu_heads = pool.submit(cpu_job, "yolox", None, (str(ckpt), seqs["MOT17-04-FRCNN"][:1]))
         lap("phase 2 (kernels built, yolox_x checkpoint written)")
-        checks, xyscr_rows = run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads)
+        checks, xyscr_rows = run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads,
+                                        train_root)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")

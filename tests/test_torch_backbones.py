@@ -96,8 +96,7 @@ def test_family_converters_name_their_models():
     variables = flax_variables(jmodel, (128, 64), seed=1)
     sd = tconvert.backbone_state_dict_from_flax(variables, "cspreid_n")
     assert {k: v.shape for k, v in sd.items()} == {
-        k: v.shape for k, v in tcore.build_model("cspreid_n").state_dict().items()
-        if "num_batches_tracked" not in k}
+        k: v.shape for k, v in tcore.build_model("cspreid_n").state_dict().items()}
     # the BNNecks' batch norms have no bias in Flax: 0 in the port
     assert not sd["bn_global.bn.bias"].any() and sd["bn_global.bn.running_var"].min() >= 0.5
     extra = {**variables, "params": {**variables["params"], "extra": {"kernel": np.zeros(

@@ -275,6 +275,17 @@ def test_port_import_and_eval_leave_jax_out():
         "                                      detector_model=lite, reid_model=reid,\n"
         "                                      cmc_method='ecc', device='cpu')\n"
         "    assert s.total_dets == s.total_embs > 0 and s['MOT17-02-FRCNN']['warps'] == 4, s\n"
+        "from boxmot_tpu_torch.reid import ReID\n"
+        "f = ReID(model_name='clip', device='cpu', crop_hw=(64, 32)).get_features(\n"
+        "    np.array([[10, 20, 60, 120], [200, 40, 260, 160]], np.float32), img)\n"
+        "assert f.shape == (2, 1280) and np.isfinite(f).all()\n"
+        "from boxmot_tpu_torch.reid.training.trainer import ReIDTrainer, TrainConfig\n"
+        "trainer = ReIDTrainer(TrainConfig(model='osnet_x0_25', data_root='assets/reid-mini',\n"
+        "                                  crop_hw=(64, 32), p=2, k=2, steps=2, warmup_steps=1),\n"
+        "                      device='cpu')\n"
+        "hist = trainer.fit(log_every=1)\n"
+        "assert len(hist) == 2 and all(np.isfinite(h['loss']) for h in hist), hist\n"
+        "assert 0 <= trainer.evaluate()['mAP'] <= 1\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"

@@ -270,3 +270,76 @@ def test_sam2mot_is_a_copy_of_the_original():
     assert extra == ["        device=None,",
                      '            device="cpu",  # a host tracker: ``device`` is taken and ignored']
     assert [line for line in got if line not in extra] == want
+
+
+def test_reid_datasets_is_a_copy_of_the_original():
+    """The port's reid/datasets.py is the JAX module below its docstring."""
+    import inspect
+
+    from boxmot_tpu.reid import datasets as jds
+    from boxmot_tpu_torch.reid import datasets as tds
+
+    def body(module):
+        src = inspect.getsource(module)
+        return src[src.index("from __future__"):]
+
+    assert body(tds) == body(jds)
+
+
+def _reid_img(path, seed):
+    import cv2
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    cv2.imwrite(str(path), rng.integers(0, 256, (40, 20, 3), dtype=np.uint8))
+
+
+def test_reid_datasets_equal_jax(tmp_path):
+    """The Market-1501 fixture and synthetic DukeMTMC, CUHK03, VeRi-776 and
+    MSMT17 trees index the same items in both packages; P x K batches (the
+    sampler, the images, every augmentation) are the same arrays."""
+    from boxmot_tpu.reid import datasets as jds
+    from boxmot_tpu_torch.reid import datasets as tds
+
+    for pid in (1, 2, 3):
+        for cam in (1, 2):
+            _reid_img(tmp_path / "DukeMTMC-reID" / "bounding_box_train" / f"{pid:04d}_c{cam}_f1.jpg",
+                      pid * cam)
+    _reid_img(tmp_path / "DukeMTMC-reID" / "query" / "0001_c1_f2.jpg", 10)
+    _reid_img(tmp_path / "DukeMTMC-reID" / "bounding_box_test" / "-1_c2_f3.jpg", 11)
+    _reid_img(tmp_path / "cuhk03" / "bounding_box_train" / "0007_c1_1.png", 12)
+    _reid_img(tmp_path / "VeRi" / "image_train" / "0005_c002_00030600_0.jpg", 13)
+    ms = tmp_path / "MSMT17"
+    _reid_img(ms / "train" / "0000" / "0000_000_01_0303morning_0015_0.jpg", 14)
+    _reid_img(ms / "test" / "0001" / "0001_000_02_0303morning_0015_0.jpg", 15)
+    (ms / "list_train.txt").write_text("0000/0000_000_01_0303morning_0015_0.jpg 0\nbad line x\n")
+    (ms / "list_query.txt").write_text("0001/0001_000_02_0303morning_0015_0.jpg 1\n")
+    (ms / "list_gallery.txt").write_text("0001/0001_000_02_0303morning_0015_0.jpg 1\n")
+    for name, root in (("market1501", ASSETS / "reid-mini"), ("duke", tmp_path),
+                       ("cuhk03", tmp_path), ("veri", tmp_path), ("msmt17", ms)):
+        got, want = tds.load_dataset(name, root), jds.load_dataset(name, root)
+        for split in ("train", "query", "gallery"):
+            assert getattr(got, split) == getattr(want, split), (name, split)
+        assert got.num_train_pids == want.num_train_pids
+    got, want = tds.MSMT17(ms, merged=True), jds.MSMT17(ms, merged=True)
+    assert got.train == want.train
+    for module in (tds, jds):
+        with pytest.raises(ValueError, match="unknown reid dataset"):
+            module.load_dataset("imagenet", tmp_path)
+        with pytest.raises(FileNotFoundError):
+            module.load_dataset("market1501", tmp_path / "none")
+
+    items = tds.load_dataset("duke", tmp_path).train
+    aug = {"erase_p": 0.9, "color_jitter": True, "gaussian_blur": True, "grayscale_p": 0.5}
+    for step in range(4):
+        batches = []
+        for module in (tds, jds):
+            rng = np.random.default_rng((3, step))
+            sampler = module.PKSampler(items, 2, 3, seed=0)
+            sampler.rng = rng
+            idxs = sampler.sample_batch()
+            batches.append((idxs, *module.make_batch(items, idxs, (32, 16), rng=rng,
+                                                     aug_kwargs=aug)))
+        assert batches[0][0] == batches[1][0]
+        assert_identical(batches[0][1], batches[1][1])
+        assert_identical(batches[0][2], batches[1][2])

@@ -228,6 +228,11 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     ([401, 403, 403], 2),
     ([403, 401, 403], 2),
     ([399, 401, 400], 1),  # no two agree after three: the most kernels
+    ([0, 0], None),  # empty traces agree with none
+    ([0, 0, 0], None),
+    ([0, 0, 403], 2),
+    ([403, 0, 0], 0),
+    ([0] * 6, 5),  # six empty traces: the function launches nothing
 ])
 def test_profile_keeps_a_trace_that_another_confirms(counts, keep):
     from boxmot_tpu_torch.utils.measure import settled_trace

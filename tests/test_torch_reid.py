@@ -158,10 +158,12 @@ def test_checkpoint_key_rules(checkpoint):
     with pytest.raises(ValueError, match="lacks"):
         tconvert.convert_checkpoint({k: v for k, v in plain.items() if k != "fc.0.bias"},
                                     "osnet_x0_25")
-    # only OSNet checkpoints convert, as in the JAX package; CLIP's converter is item 16
-    with pytest.raises(ValueError, match="no checkpoint converter for 'resnet50'"):
-        tconvert.convert_checkpoint(plain, "resnet50")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # only OSNet and CLIP checkpoints convert, as in the JAX package (an OSNet
+    # checkpoint read as CLIP lacks the image projection: the JAX error)
+    for name in ("resnet50", "vit_tiny", "csl_tinyvit_7m"):
+        with pytest.raises(ValueError, match=f"no checkpoint converter for '{name}'"):
+            tconvert.convert_checkpoint(plain, name)
+    with pytest.raises(ValueError, match="only ViT CLIP checkpoints"):
         tconvert.convert_checkpoint(plain, "clip")
 
 
@@ -260,16 +262,19 @@ def test_infer_model_name_equals_jax():
 
 
 def test_unported_backbones_and_runtimes_raise(tmp_path):
-    # the backbones of item 16's first five steps build (tests/test_torch_backbones.py
-    # holds them to JAX); ViT, CSL-TinyViT and CLIP still raise naming item 16
+    # every backbone of the JAX MODEL_FACTORY builds (tests/test_torch_{backbones,vit,
+    # csl_tinyvit,clip}.py hold them to JAX), ViT, CSL-TinyViT and CLIP among them;
+    # only the runtimes of item 22 raise
     for name in ("resnet50", "lmbn_n", "hacnn", "mobilenetv2"):
         assert ReID(model_name=name, device="cpu").model_name == name
     assert create_reid("mlfn_market1501.pt", device="cpu").model_name == "mlfn"
-    for name in ("clip", "vit_tiny", "csl_tinyvit_7m", "csl_tinyvit_lmbn"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ReID(model_name=name, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        create_reid("vit_nano_market1501.pt", device="cpu")
+    img, b = frame(21), boxes(22, n=3)
+    for name, dim in (("clip", 1280), ("vit_tiny", 512), ("csl_tinyvit_7m", 1536),
+                      ("csl_tinyvit_lmbn", 3584)):
+        f = ReID(model_name=name, device="cpu", crop_hw=HW).get_features(b, img)
+        assert f.shape == (3, dim) and np.isfinite(f).all(), name
+    reid = create_reid("vit_nano_market1501.pt", device="cpu", crop_hw=HW)
+    assert reid.model_name == "vit_nano" and reid.get_features(b, img).shape == (3, 192)
     saved = tmp_path / "savedmodel"
     saved.mkdir()
     (saved / "saved_model.pb").write_bytes(b"")
