@@ -37,6 +37,12 @@ Entry points, on the card unless ``device="cpu"`` is given::
     boxmot_tpu_torch.run_generate(root, cache_root, detector="yololite-seg",
                                   detector_model=create_detector("yololite-seg.pt"),
                                   reid_model=ReID("osnet_x0_25"), cmc_method="ecc")
+    from boxmot_tpu_torch.api import Boxmot
+    Boxmot(tracker="ocsort").track(source=seq_dir)  # the facade of the JAX package
+
+and from the shell, ``python -m boxmot_tpu_torch.engine.cli eval --data
+root`` (also ``generate``, ``track``, ``tune-kf``, ``train``, ``eval-reid``;
+``--device cpu`` for the CPU).
 """
 
 from boxmot_tpu_torch.engine.eval import run_eval

@@ -7,12 +7,16 @@ port's own copies of the JAX package's host modules (``data``,
 ``engine.metrics``, ``engine.mot_io``, ``engine.results``); the replay runs
 on ``device``, the card unless the caller asks for the CPU.  sam2mot, a
 host tracker in both packages, runs its per-frame ``update`` loop instead,
-with segmentation masks from the mask cache when there is one.
+with segmentation masks from the mask cache when there is one.  The MOT
+rows of each sequence then go through the ``postprocessing`` chain (GSI,
+GBRC, GTA: host copies of ``boxmot_tpu/postprocessing``) before they are
+scored, as in the JAX ``_finish``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -42,7 +46,7 @@ from boxmot_tpu_torch.trackers.occluboost import OccluBoostConfig
 from boxmot_tpu_torch.trackers.ocsort import OcSortConfig
 from boxmot_tpu_torch.trackers.sfsort import SFSortConfig
 from boxmot_tpu_torch.trackers.strongsort import StrongSortConfig
-from boxmot_tpu_torch.trackers.zoo import check_ported, create_tracker
+from boxmot_tpu_torch.trackers.zoo import check_ported, create_tracker, parse_tracker_spec
 from boxmot_tpu_torch.utils.device import resolve_device
 
 
@@ -73,6 +77,18 @@ def build_replay_config(tracker_type: str, **params):
     return cfg_cls(**{k: v for k, v in merged.items() if k in fields})
 
 
+def load_kf_noise_params(kf_noise) -> dict:
+    """Extract the tracker-config overrides from a tune-kf result
+    (motion/calibration.py estimate_kf_noise JSON or dict)."""
+    if not isinstance(kf_noise, dict):
+        kf_noise = json.loads(Path(kf_noise).read_text())
+    out = {}
+    for key in ("std_weight_position", "std_weight_velocity"):
+        if key in kf_noise:
+            out[key] = float(kf_noise[key])
+    return out
+
+
 def run_eval(
     data_root: Path,
     tracker_type: str = "bytetrack",
@@ -85,9 +101,13 @@ def run_eval(
     detector: str = "public",
     reid: str | None = None,
     preprocess: str = "resize",
+    postprocessing: str | None = None,
+    verbose: bool = False,
+    kf_noise=None,
+    n_workers: int = 1,
+    progress=None,
     cmc_method: str | None = None,
     seq_names=None,
-    verbose: bool = False,
 ) -> ValidationResult:
     """Evaluate a tracker over every sequence under ``data_root`` on ``device``.
 
@@ -100,15 +120,31 @@ def run_eval(
     (sequences without a warp file replay identities).  A host tracker
     (sam2mot) runs ``create_tracker(...).update`` frame by frame on the host,
     with each frame's masks from the mask cache under ``cache_root`` where
-    there is one, as the JAX ``run_eval`` does.  Returns the metric
-    dicts ({"per_seq": ..., "combined": ...}) with HOTA, MOTA, IDF1.
+    there is one, as the JAX ``run_eval`` does.  ``postprocessing`` is a
+    comma chain of ``create_postprocessor`` names ("gsi", "gbrc,gta") run
+    over each sequence's rows; GTA reads the sequence's embeddings by the
+    rows' ``det_ind`` (the cached rows left by ``min_det_conf``), so it
+    changes nothing without ``reid``.  ``kf_noise`` is a tune-kf JSON path or
+    dict whose std weights go under ``tracker_params``; ``progress`` is called
+    as ``(name, done, total)`` once a sequence is scored.  ``n_workers`` is
+    accepted and, as on the JAX device path, unused: the sequences replay as
+    one batch; its thread pool serves the JAX package's native (":cpp")
+    backend, which is not ported and raises.  Returns the metric dicts
+    ({"per_seq": ..., "combined": ...}) with HOTA, MOTA, IDF1.
     """
     device = resolve_device(device)
     dataset = MOTDataset(data_root, names=seq_names)
     if len(dataset) == 0:
         raise ValueError(f"no MOT sequences found under {data_root}")
     tracker_params = dict(tracker_params or {})
+    if kf_noise is not None:
+        tracker_params = {**load_kf_noise_params(kf_noise), **tracker_params}
+    tracker_type, backend = parse_tracker_spec(tracker_type)
     check_ported(tracker_type)
+    if backend == "cpp":
+        raise NotImplementedError(
+            "the native (cpp) tracker cores are not ported: ROADMAP Queue A item 24; use the "
+            "device tracker (backend 'tpu')")
     host_tracker = tracker_type not in _TRACKER_CONFIGS
     if reid is None and not host_tracker:
         # no embedding cache: the appearance terms off
@@ -149,7 +185,9 @@ def run_eval(
     else:
         all_rows = replay_sequences_batched(cfg, inputs, device=device)
     seq_data = {}
-    for seq, mot_rows in zip(seqs, all_rows):
+    for seq, inp, mot_rows in zip(seqs, inputs, all_rows):
+        if postprocessing:
+            mot_rows = _postprocess(mot_rows, postprocessing, inp["embs"])
         if output_dir is not None:
             write_mot_results(Path(output_dir) / f"{seq.name}.txt", mot_rows)
         seq_data[seq.name] = preprocess_sequence(
@@ -157,11 +195,25 @@ def run_eval(
         )
         if verbose:
             print(f"replayed {seq.name}: {len(mot_rows)} track rows")
+        if progress is not None:
+            progress(seq.name, len(seq_data), len(seqs))
     results = evaluate_sequences(seq_data)
     if verbose:
         c = results["combined"]
         print(f"HOTA {100 * c['HOTA']:.2f}  MOTA {100 * c['MOTA']:.2f}  IDF1 {100 * c['IDF1']:.2f}")
     return ValidationResult(results)
+
+
+def _postprocess(mot_rows, chain: str, embs):
+    """A sequence's MOT rows through the comma chain ``chain``, in float64;
+    GTA looks up ``embs`` (per-frame host arrays, or None) by ``det_ind``."""
+    from boxmot_tpu_torch.postprocessing import create_postprocessor
+
+    rows = mot_rows.astype(np.float64)
+    for name in filter(None, (n.strip() for n in chain.split(","))):
+        pp = create_postprocessor(name)
+        rows = pp(rows, embs_per_frame=embs) if name == "gta" else pp(rows)
+    return rows
 
 
 def _host_rows(tracker_type, tracker_params, seq, dets, cache_root, detector, device):

@@ -298,7 +298,12 @@ def replay_sequences_batched(cfg, seqs, *, device="cuda"):
             for outs, masks in replay_sequences_outputs(cfg, seqs, device=device)]
 
 
-def replay_sequence(cfg, dets_per_frame, embs_per_frame=None, warps=None, *, device="cuda"):
-    """Replay one sequence and return MOT rows (N, 9) on the host."""
+def replay_sequence(cfg, dets_per_frame, embs_per_frame=None, warps=None, frame_offset: int = 0,
+                    *, device="cuda"):
+    """Replay one sequence and return MOT rows (N, 9) on the host.
+
+    frame_offset shifts emitted frame numbers (frames are 1-based).
+    """
     seq = {"dets": dets_per_frame, "embs": embs_per_frame, "warps": warps}
-    return replay_sequences_batched(cfg, [seq], device=device)[0]
+    outs, masks = replay_sequences_outputs(cfg, [seq], device=device)[0]
+    return _unpack_mot_rows(outs, masks, len(outs), frame_offset)

@@ -1,7 +1,8 @@
-"""Typed eval and cache-generation results.
+"""Typed eval, cache-generation and training results.
 
-The port's own copy of ``ValidationResult``, ``GenerateResult`` and their
-base from ``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
+The port's own copy of ``ValidationResult``, ``GenerateResult``,
+``TrainResult`` and their base from ``boxmot_tpu/engine/results.py``,
+unchanged: a dict subclass, so callers
 that index the raw mapping keep working, with attribute accessors and a
 summary (role mirror of the reference's
 boxmot/engine/workflows/results.py:136).
@@ -64,4 +65,22 @@ class GenerateResult(WorkflowResult):
         return (
             f"{self.total_dets} detections / {self.total_embs} embeddings "
             f"across {len(self)} sequences"
+        )
+
+
+class TrainResult(WorkflowResult):
+    """ReID training run: final metrics + checkpoint path + history
+    (reference reid/training/trainer.py:77)."""
+
+    _fields = ("steps", "final_loss", "weights_path")
+
+    @property
+    def history(self) -> list:
+        return self["history"]
+
+    def summary(self) -> str:
+        return (
+            f"{self.get('steps', 0)} steps  "
+            f"final loss {self.get('final_loss', float('nan')):.4f}  "
+            f"weights {self.get('weights_path')}"
         )

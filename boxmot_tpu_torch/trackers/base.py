@@ -1,5 +1,5 @@
 """Host-side shell of the live tracker API (counterpart of
-boxmot_tpu/trackers/base.py, without its visualization mixin).
+boxmot_tpu/trackers/base.py, with its visualization mixin).
 
 It keeps what cannot run in the batched step: input unwrapping,
 detection-layout inference, first-frame setup (the detection layout, and
@@ -18,6 +18,12 @@ its n detections, as the JAX appearance trackers do (their ``update`` keeps
 the frame's embeddings, which their ``_step`` reads in every class bank).
 ``masks`` are accepted and ignored, as by every JAX tracker but sam2mot,
 which overrides ``update`` and takes only ``_preprocess`` from here.
+
+``plot_results`` (``trackers/visualization.py``, a copy of the JAX mixin)
+draws the tracks of the latest ``update`` from a host history of its output
+rows, and with ``show_kf_preds`` the predicted boxes of the lost slots
+(``_lost_mask``): their rows of the step's (K, cols) output come back in
+the same device-to-host copy as the emitted rows, so drawing adds no sync.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from boxmot_tpu_torch.trackers.per_class_ids import GlobalIdAllocator
 from boxmot_tpu_torch.trackers.track_results import TrackResults
+from boxmot_tpu_torch.trackers.visualization import VisualizationMixin
 from boxmot_tpu_torch.utils.device import resolve_device
 
 # the JAX shell's buckets; the auction kernel holds up to 512 detection
@@ -71,7 +78,7 @@ def infer_detection_layout(dets):
     return None
 
 
-class BaseTracker:
+class BaseTracker(VisualizationMixin):
     """Shared host shell; subclasses provide ``_init_state`` and ``_step``,
     and set ``supports_obb`` when their step has an OBB branch and
     ``_id_emit_offset`` when they emit ids that differ from their internal
@@ -80,14 +87,15 @@ class BaseTracker:
     supports_obb = False
     _id_emit_offset = 0
 
-    def __init__(self, device, det_thresh: float = 0.3, max_age: int = 30, min_hits: int = 3,
-                 iou_threshold: float = 0.3, per_class: bool = False, nr_classes: int = 80,
-                 asso_func: str = "iou", is_obb: bool = False, **kwargs):
+    def __init__(self, device, det_thresh: float = 0.3, max_age: int = 30, max_obs: int = 50,
+                 min_hits: int = 3, iou_threshold: float = 0.3, per_class: bool = False,
+                 nr_classes: int = 80, asso_func: str = "iou", is_obb: bool = False, **kwargs):
         # the JAX shell's association and age options, with its defaults; a
         # tracker that does not use them ignores them, as there
         self.device = resolve_device(device)
         self.det_thresh = det_thresh
         self.max_age = max_age
+        self.max_obs = max_obs if max_obs > max_age else max_age + 5  # the display history
         self.min_hits = min_hits
         self.iou_threshold = iou_threshold
         self.asso_func_name = asso_func
@@ -104,6 +112,8 @@ class BaseTracker:
         self._frame_inputs = (None, None, None)  # (img, embs, dets) of the step being run
         self._per_class_states = {} if per_class else None
         self._pc_ids = GlobalIdAllocator() if per_class else None
+        # lost-track KF predictions from the latest update (show_kf_preds)
+        self._lost_display_rows: list = []
 
     def _init_state(self):
         raise NotImplementedError
@@ -117,7 +127,19 @@ class BaseTracker:
         ignored by motion-only trackers and ``masks`` by all."""
         dets, img = self._preprocess(dets, img)
         self._img = img
-        return TrackResults(self._do_update(dets, embs))
+        self._lost_display_rows = []  # refilled by _run_class each frame
+        results = TrackResults(self._do_update(dets, embs))
+        self._record_display(results, max_obs=self.max_obs)
+        return results
+
+    def _lost_mask(self, state):
+        """(K,) device mask of alive-but-unmatched slots, whose output rows
+        carry the KF-predicted box of the frame (the JAX shell's rule:
+        ``active & (tsu > 0)``); trackers with a status column override it,
+        and None means no such slots are drawn."""
+        if hasattr(state, "active") and hasattr(state, "tsu"):
+            return state.active[0] & (state.tsu[0] > 0)
+        return None
 
     def _preprocess(self, dets, img):
         """Unwrap the detections to float32 numpy and, on the first frame,
@@ -220,11 +242,23 @@ class BaseTracker:
             self._per_class_states[cls_id] = state
         self.frame_count += 1
 
-        out_np = out.cpu().numpy()[out_mask.cpu().numpy()]
+        # one device-to-host copy: the (K, cols) rows, the emitted mask and
+        # the lost mask (show_kf_preds) as two more columns
+        lost = self._lost_mask(state)
+        flags = [out_mask] if lost is None else [out_mask, lost & ~out_mask]
+        host = torch.cat([out, torch.stack(flags, 1).to(out.dtype)], 1).cpu().numpy()
+        cols = out.shape[1]
+        all_np = host[:, :cols]
+        out_np = all_np[host[:, cols] > 0]
+        id_col = self.layout.box_cols
         if cls_id is not None:
             self._pc_ids.observe_created(prev_next, int(state.next_id[0]) + self._id_emit_offset)
             if out_np.size:
-                out_np = out_np.copy()
-                id_col = self.layout.box_cols
                 out_np[:, id_col] = self._pc_ids.remap(out_np[:, id_col])
+        if lost is not None:
+            lost_np = all_np[host[:, cols + 1] > 0]
+            if len(lost_np):
+                if cls_id is not None:
+                    lost_np[:, id_col] = self._pc_ids.remap(lost_np[:, id_col])
+                self._lost_display_rows.append(lost_np)
         return out_np

@@ -595,6 +595,10 @@ class BotSort(BaseTracker):
         hy = (w * sa + h * ca) / 2.0
         return np.stack([cx - hx, cy - hy, cx + hx, cy + hy], axis=-1)
 
+    def _lost_mask(self, state):
+        # KF-predicted boxes of LOST slots feed show_kf_preds overlays
+        return state.status[0] == LOST
+
     def _step(self, state, dets_padded, det_valid):
         img, embs, dets = self._frame_inputs
         B = self.layout.box_cols

@@ -328,6 +328,10 @@ class ByteTrack(BaseTracker):
     def _init_state(self):
         return init_state(self.cfg, 1, self.device)
 
+    def _lost_mask(self, state):
+        # KF-predicted boxes of LOST slots feed show_kf_preds overlays
+        return state.status[0] == LOST
+
     def _step(self, state, dets_padded, det_valid):
         state, out, out_mask = bytetrack_step(self.cfg, state, dets_padded[None], det_valid[None])
         return state, out[0], out_mask[0]

@@ -411,6 +411,10 @@ class SFSORT(BaseTracker):
     def _init_state(self):
         return init_state(self.cfg, 1, self.device, margins=self._margins())
 
+    def _lost_mask(self, state):
+        # central + marginal lost slots (show_kf_preds overlays)
+        return (state.status[0] == LOST_CENTRAL) | (state.status[0] == LOST_MARGINAL)
+
     def _step(self, state, dets_padded, det_valid):
         state, out, out_mask = sfsort_step(self.cfg, state, dets_padded[None], det_valid[None])
         return state, out[0], out_mask[0]

@@ -351,6 +351,10 @@ class StrongSort(BaseTracker):
         """(K,) alive slots missed this frame (the JAX shell's show_kf_preds rows)."""
         return ((state.status[0] != EMPTY) & (state.tsu[0] > 0)).cpu().numpy()
 
+    def _lost_mask(self, state):
+        # alive slots missed this frame (show_kf_preds overlays)
+        return (state.status[0] != EMPTY) & (state.tsu[0] > 0)
+
     def _step(self, state, dets_padded, det_valid):
         img, embs, dets = self._frame_inputs
         D = dets_padded.shape[0]

@@ -170,8 +170,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      from the file, card against CPU, and ``learn_identity_prompts`` with
      the converted text tower, 3 steps, card against CPU; (e) live BoT-SORT
      with ``reid_weights="vit_nano"`` on 20 textured frames of MOT17-04's
-     detections, rows equal to the CPU's.
-Every path of phases 4-10 runs with the launch counters set to 0 just before
+     detections, rows equal to the CPU's;
+ 11. the front door (``run_front_door_phase``), the CLI driven in-process
+     through ``cli.main([...], standalone_mode=False)``: (a) ``eval`` of
+     ByteTrack on MOT17-mini gives the pins; (b) ``tune-kf`` writes the CPU
+     worker's JSON, and ``eval --kf-noise <it> --postprocessing gsi`` (GSI
+     where sklearn is installed) and ``eval --tracker occluboost --tuned
+     occluboost_mot17_ablation`` give the metrics of the same commands on
+     the CPU (a worker's, 1e-4); (c) ``eval
+     --benchmark mmot-mini`` runs on K3 and gives the CPU's class-averaged
+     metrics; (d) ``Boxmot(tracker="bytetrack", device="cuda").track`` over
+     MOT17-04 gives the CPU's rows (ids and det_ind exact, boxes 1e-4 px);
+     (e) ``track --detector <phase 2's yolox_x> --reid-weights osnet_x0_25
+     --tracker botsort --save-video`` over MOT17-04's 8 frames launches one
+     K6 and one K5 a frame (besides the pipeline's warm-up call) and writes
+     8 frames; (f) a line per step with its host wall time and the card.
+     Sub-steps whose modules (click, yaml, sklearn: ``FRONT_DOOR_STEPS``) the
+     machine lacks are named and not run.
+Every path of phases 4-11 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
@@ -1825,13 +1841,15 @@ def check_k6(rng, decoded):
     return {**timing(0.0, rows), "library_ms": None}
 
 
-def drive(label, fn, ratio, sync_free=True, n_steps=None):
+def drive(label, fn, ratio, sync_free=True, n_steps=None, once=None):
     """Drive one path with every launch counter at 0; ``ratio`` gives the
     fixed launches per step of the kernels the path must run (others must
     not run at all; an empty ratio, a host tracker's, lets none run), and
     ``n_steps``, where given, the number of steps, so that each of them
-    launches exactly its ratio times ``n_steps``.  A ``sync_free`` path runs under
-    set_sync_debug_mode("error"), so any host sync in it raises."""
+    launches exactly its ratio times ``n_steps``; ``once`` the launches the
+    path makes once besides its steps (a warm-up call).  A ``sync_free``
+    path runs under set_sync_debug_mode("error"), so any host sync in it
+    raises."""
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
     torch.cuda.set_sync_debug_mode("error" if sync_free else 0)
@@ -1841,6 +1859,9 @@ def drive(label, fn, ratio, sync_free=True, n_steps=None):
         torch.cuda.set_sync_debug_mode(0)
     counts = {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
     print(f"launches in {label}: {counts}")
+    for k, v in (once or {}).items():
+        LAUNCHES[k] += v
+        counts[k] -= v
     steps = {counts[k] / w for k, w in ratio.items()}
     if ratio and (min(counts[k] for k in ratio) <= 0 or len(steps) != 1):
         raise AssertionError(f"{label}: launches {counts} are not {ratio} per step")
@@ -1913,6 +1934,9 @@ def cpu_job(kind, tracker, arg):
     if kind == "yolox":  # the detector's raw heads: a yolox_x forward is some 800 GFLOP
         torch.set_num_threads(4)
         return yolox_raw_heads(*arg)
+    if kind == "cli":  # phase 11's CPU references: the CLI's own eval commands
+        with tempfile.TemporaryDirectory() as tmp:
+            return front_door_eval(tracker, "cpu", Path(tmp))
     if kind == "eval":
         with tempfile.TemporaryDirectory() as tmp:
             boxmot_tpu_torch.run_eval(ROOTS[arg], tracker, device="cpu", output_dir=Path(tmp))
@@ -1963,6 +1987,10 @@ def start_cpu_references(pool, cache_root: Path, train_root: Path) -> dict:
     submit("generate", None, None)
     for model in TRAIN_MODELS:
         submit("train", model, str(train_root))
+    present = front_door_modules()
+    for label, step in FRONT_DOOR_EVALS.items():
+        if all(present[m] for m in FRONT_DOOR_STEPS[step]):
+            submit("cli", label, None)
     return jobs
 
 
@@ -3849,6 +3877,185 @@ def run_prompt_phase(card, root: Path):
                              f"context {ctx_gap})")
 
 
+# phase 11's sub-steps and the modules beyond numpy, torch and cv2 that each
+# needs (the machine with the card may lack them): (b) is tune-kf and an eval
+# with its JSON, (b-gsi) that eval's GSI chain, (b-tuned) the tuned eval
+FRONT_DOOR_STEPS = {"a": ("click",), "b": ("click",), "b-gsi": ("click", "sklearn"),
+                    "b-tuned": ("click", "yaml"), "c": ("click", "yaml"), "d": ("yaml",),
+                    "e": ("click",)}
+FRONT_DOOR_RECORDED = ("click", "yaml", "rich", "sklearn", "matplotlib", "pyarrow")
+# the CLI evals of (b) and (c) that a CPU worker repeats: label -> its sub-step
+FRONT_DOOR_EVALS = {"kf_noise": "b", "tuned": "b-tuned", "mmot": "c"}
+TUNED = "occluboost_mot17_ablation"
+
+
+def front_door_modules() -> dict:
+    """{module: present} for phase 11's optional modules (not imported)."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None for m in FRONT_DOOR_RECORDED}
+
+
+def front_door_cli(*args):
+    """The port's CLI in-process, as ``python -m boxmot_tpu_torch.engine.cli``
+    would run ``args``; returns the command's value (an eval's metrics)."""
+    from boxmot_tpu_torch.engine.cli import cli
+
+    return cli.main([str(a) for a in args], prog_name="boxmot-tpu-torch", standalone_mode=False)
+
+
+def _kf_eval_args(kf: Path, device) -> list:
+    """(b)'s eval: ByteTrack on MOT17-mini with tune-kf's JSON, and GSI where
+    sklearn is installed."""
+    gsi = all(front_door_modules()[m] for m in FRONT_DOOR_STEPS["b-gsi"])
+    return ["eval", "--data", ROOTS["mot17_mini"], "--kf-noise", kf, "--device", device,
+            *(("--postprocessing", "gsi") if gsi else ())]
+
+
+def front_door_eval(label, device, tmp: Path):
+    """One of phase 11's CLI evals on ``device``: "kf_noise" (tune-kf's JSON of
+    MOT17-mini into ByteTrack's eval, ``_kf_eval_args``; returns its metrics
+    and the JSON's text), "tuned" (OccluBoost with ``TUNED``) or "mmot"
+    (ByteTrack on the mmot-mini benchmark, class-averaged)."""
+    mot17 = ROOTS["mot17_mini"]
+    if label == "kf_noise":
+        kf = tmp / "kf.json"
+        front_door_cli("tune-kf", "--data", mot17, "--tracker", "bytetrack", "--out", kf)
+        return _metrics(front_door_cli(*_kf_eval_args(kf, device))), kf.read_text()
+    if label == "tuned":
+        res = front_door_cli("eval", "--data", mot17, "--tracker", "occluboost", "--tuned", TUNED,
+                             "--device", device)
+    else:
+        res = front_door_cli("eval", "--benchmark", "mmot-mini", "--tracker", "bytetrack",
+                             "--device", device)
+    return _metrics(res), None
+
+
+def _metrics(res) -> dict:
+    return {k: float(res["combined"][k]) for k in ("HOTA", "MOTA", "IDF1")}
+
+
+def _front_door_line(metric, value, card, **extra):
+    print(json.dumps({"metric": metric, "value": value, "clock": "host wall", **extra,
+                      "card": card}))
+
+
+def _held_to_cpu(label, got, cpu_jobs):
+    (want, _), waited = _cpu_result(cpu_jobs, ("cli", label, None))
+    print(f"{label}: cuda {got}, cpu {want} (waited {waited:.1f} s for the cpu)")
+    if any(not abs(got[k] - want[k]) <= ATOL for k in want):
+        raise AssertionError(f"phase 11 {label}: the card's metrics differ from the CPU's")
+
+
+def run_front_door_phase(card, ckpt: Path, cpu_jobs):
+    """Phase 11: the CLI and the Boxmot API on the card (see the module
+    docstring); each sub-step runs where its modules are present, and each
+    one that is not run is named."""
+    from boxmot_tpu_torch.configs import load_tuned_config
+
+    present = front_door_modules()
+    print(f"phase 11 modules present: {present}")
+    run = {}
+    for step, needs in FRONT_DOOR_STEPS.items():
+        missing = [m for m in needs if not present[m]]
+        run[step] = not missing
+        for m in missing:
+            print(f"phase 11 ({step}) not run: module {m} is not installed")
+    mot17 = ROOTS["mot17_mini"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if run["a"]:
+            t0 = time.perf_counter()
+            res = drive("cli eval bytetrack", lambda: front_door_cli(
+                "eval", "--data", mot17, "--tracker", "bytetrack", "--device", "cuda"),
+                RATIOS["bytetrack"][0])
+            seconds = time.perf_counter() - t0
+            got = _metrics(res)
+            for k, v in PINNED[("mot17_mini", "bytetrack")].items():
+                if not abs(got[k] - v) <= ATOL:
+                    raise AssertionError(f"cli eval bytetrack {k} = {got[k]} misses the pin {v}")
+            _front_door_line("cli_eval_bytetrack_mot17_mini_seconds", seconds, card, **got)
+        if run["b"]:
+            kf = tmp / "kf.json"
+            drive("cli tune-kf", lambda: front_door_cli(
+                "tune-kf", "--data", mot17, "--tracker", "bytetrack", "--out", kf), {})
+            (_, cpu_json), _ = _cpu_result(cpu_jobs, ("cli", "kf_noise", None))
+            if kf.read_text() != cpu_json:
+                raise AssertionError("cli tune-kf: the JSON differs from the CPU worker's")
+            args = _kf_eval_args(kf, "cuda")
+            t0 = time.perf_counter()
+            res = drive(f"cli {' '.join(map(str, args[3:]))}",
+                        lambda: front_door_cli(*args), RATIOS["bytetrack"][0])
+            seconds = time.perf_counter() - t0
+            _held_to_cpu("kf_noise", _metrics(res), cpu_jobs)
+            _front_door_line("cli_eval_kf_noise_seconds", seconds, card,
+                             gsi="--postprocessing" in args, **_metrics(res))
+        if run["b-tuned"]:
+            params = load_tuned_config(TUNED)
+            params.setdefault("with_reid", False)  # as run_eval resolves it without --reid
+            t0 = time.perf_counter()
+            res = drive(f"cli eval --tuned {TUNED}", lambda: front_door_cli(
+                "eval", "--data", mot17, "--tracker", "occluboost", "--tuned", TUNED,
+                "--device", "cuda"), boost_ratio(build_replay_config("occluboost", **params)))
+            seconds = time.perf_counter() - t0
+            _held_to_cpu("tuned", _metrics(res), cpu_jobs)
+            _front_door_line("cli_eval_tuned_seconds", seconds, card, tuned=TUNED,
+                             **_metrics(res))
+        if run["c"]:
+            t0 = time.perf_counter()
+            res = drive("cli eval --benchmark mmot-mini", lambda: front_door_cli(
+                "eval", "--benchmark", "mmot-mini", "--tracker", "bytetrack", "--device", "cuda"),
+                RATIOS["bytetrack"][1])
+            seconds = time.perf_counter() - t0
+            _held_to_cpu("mmot", _metrics(res), cpu_jobs)
+            _front_door_line("cli_eval_mmot_mini_seconds", seconds, card, **_metrics(res))
+        if run["d"]:
+            from boxmot_tpu_torch.api import Boxmot
+
+            t0 = time.perf_counter()
+            got = drive("Boxmot.track bytetrack", lambda: Boxmot(
+                tracker="bytetrack", device="cuda").track(source=LIVE_SEQ),
+                RATIOS["bytetrack"][0], sync_free=False)
+            ms = (time.perf_counter() - t0) * 1e3 / len(got)
+            want = Boxmot(tracker="bytetrack", device="cpu").track(source=LIVE_SEQ)
+            rows = worst = 0
+            for f, (g, c) in enumerate(zip(got, want), start=1):
+                g, c = np.asarray(g), np.asarray(c)
+                if g.shape != c.shape or not np.array_equal(g[:, [4, 6, 7]], c[:, [4, 6, 7]]):
+                    raise AssertionError(f"Boxmot.track frame {f}: ids or det_ind differ from cpu")
+                worst = max(worst, float(np.abs(g[:, :4] - c[:, :4]).max(initial=0.0)))
+                rows += len(g)
+            if len(got) != len(want) or not rows or not worst <= 1e-4:
+                raise AssertionError(f"Boxmot.track: {rows} rows, boxes differ by {worst} px")
+            print(f"Boxmot.track bytetrack over {LIVE_SEQ.name}: {len(got)} frames, {rows} rows "
+                  f"equal to the cpu's (ids, det_ind exact; max box diff {worst:.3g} px)")
+            _front_door_line("api_track_bytetrack_ms_per_frame", ms, card, frames=len(got))
+        if run["e"]:
+            import cv2
+
+            video = tmp / "track.mp4"
+            n_frames = len(list((LIVE_SEQ / "img1").iterdir()))
+            t0 = time.perf_counter()
+            rows = drive("cli track yolox_x + osnet_x0_25 + botsort", lambda: front_door_cli(
+                "track", "--source", LIVE_SEQ, "--detector", ckpt, "--reid-weights",
+                "osnet_x0_25", "--tracker", "botsort", "--save-video", video, "--show-timing",
+                "--device", "cuda"),
+                {**RATIOS["botsort"][0], "nms": 1, "extract_crops": 1}, sync_free=False,
+                n_steps=n_frames, once={"nms": 1, "extract_crops": 1})
+            ms = (time.perf_counter() - t0) * 1e3 / n_frames
+            cap, written = cv2.VideoCapture(str(video)), 0
+            while cap.read()[0]:
+                written += 1
+            cap.release()
+            if written != n_frames or not np.isfinite(rows).all():
+                raise AssertionError(f"cli track: {written} video frames of {n_frames}, "
+                                     f"{len(rows)} rows")
+            print(f"cli track over {LIVE_SEQ.name}: {n_frames} frames, {len(rows)} rows, a video "
+                  f"of {written} frames")
+            _front_door_line("cli_track_yolox_x_osnet_botsort_ms_per_frame", ms, card,
+                             frames=n_frames, note="model build and warm-up included")
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, all started together."""
     names = [src for _, src, _ in KERNELS.values()]
@@ -3862,7 +4069,7 @@ def build_kernels():
 
 
 def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root):
-    """Phases 3-10; returns phase 3's timing entries and K4's XYSCR rows."""
+    """Phases 3-11; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
     det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
     decoded = decoded_scores(det, seqs["MOT17-04-FRCNN"][0])
@@ -3944,6 +4151,8 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root
     drive("live botsort ReID vit_nano", lambda: run_live_reid("botsort", "vit_nano", 20),
           {**RATIOS["botsort"][0], "extract_crops": 1}, sync_free=False)
     lap("phase 10e (live BoT-SORT with vit_nano)")
+    run_front_door_phase(smi, ckpt, cpu_jobs)
+    lap("phase 11 (the CLI and the API)")
     return checks, xyscr_rows
 
 

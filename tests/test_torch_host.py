@@ -36,7 +36,8 @@ from boxmot_tpu_torch.engine.replay import replay_sequences_batched, replay_sequ
 from boxmot_tpu_torch.trackers import per_class_ids as tids
 from boxmot_tpu_torch.trackers import track_results as ttr
 
-ASSETS = Path(__file__).resolve().parent.parent / "assets"
+REPO = Path(__file__).resolve().parent.parent
+ASSETS = REPO / "assets"
 MOT17 = ASSETS / "MOT17-mini" / "train"
 MMOT = ASSETS / "mmot-mini" / "train"
 
@@ -343,3 +344,268 @@ def test_reid_datasets_equal_jax(tmp_path):
         assert batches[0][0] == batches[1][0]
         assert_identical(batches[0][1], batches[1][1])
         assert_identical(batches[0][2], batches[1][2])
+
+
+# -- the front door's host copies: config data, postprocessing, calibration,
+# -- data makers, reporters, plots, the visualization mixin
+
+JAX_PKG, PORT_PKG = REPO / "boxmot_tpu", REPO / "boxmot_tpu_torch"
+CONFIG_YAMLS = sorted(p.relative_to(JAX_PKG / "configs")
+                      for p in (JAX_PKG / "configs").rglob("*.yaml"))
+COPIED_MODULES = ("motion/calibration.py", "postprocessing/__init__.py", "postprocessing/base.py",
+                  "postprocessing/gsi.py", "postprocessing/gbrc.py", "postprocessing/gta.py",
+                  "postprocessing/registry.py", "data/synth.py", "data/mot17_parquet.py",
+                  "utils/fmt.py", "utils/reporters.py", "utils/rich_ui.py", "engine/plots.py",
+                  "trackers/visualization.py", "configs/benchmark.py")
+
+
+def _below_docstring(path: Path) -> str:
+    import ast
+
+    src = path.read_text()
+    doc = ast.parse(src).body[0]
+    return "".join(src.splitlines(keepends=True)[doc.end_lineno:])
+
+
+def test_every_config_yaml_is_copied():
+    port = sorted(p.relative_to(PORT_PKG / "configs") for p in (PORT_PKG / "configs").rglob("*.yaml"))
+    assert port == CONFIG_YAMLS and len(port) == 31
+
+
+@pytest.mark.parametrize("rel", CONFIG_YAMLS, ids=[str(p) for p in CONFIG_YAMLS])
+def test_config_yaml_loads_equal_to_jax(rel):
+    """Each tracker spec, tuned overlay, benchmark, training recipe and the
+    modes load equal to the JAX file, and read through the port's readers
+    as through the JAX ones."""
+    import yaml
+
+    from boxmot_tpu import configs as jcfg
+    from boxmot_tpu.configs import benchmark as jbench
+    from boxmot_tpu_torch import configs as tcfg
+    from boxmot_tpu_torch.configs import benchmark as tbench
+
+    with open(PORT_PKG / "configs" / rel) as f, open(JAX_PKG / "configs" / rel) as g:
+        assert yaml.safe_load(f) == yaml.safe_load(g)
+    name, kind = rel.stem, rel.parts[0]
+    if kind == "trackers" and len(rel.parts) == 2:
+        assert tcfg.load_tracker_config(name) == jcfg.load_tracker_config(name)
+        assert tcfg.flatten_specs(tcfg.load_tracker_config(name)) == jcfg.flatten_specs(
+            jcfg.load_tracker_config(name))
+        assert tcfg.get_tracker_defaults(name) == jcfg.get_tracker_defaults(name)
+        assert tcfg.get_tracker_config_path(name) == PORT_PKG / "configs" / rel
+    elif kind == "trackers":
+        assert tcfg.load_tuned_config(name) == jcfg.load_tuned_config(name)
+    elif kind == "benchmarks":
+        assert tbench.load_benchmark(name) == jbench.load_benchmark(name)
+        cfg = tbench.load_benchmark(name)
+        assert tbench.resolve_split_dir(cfg) == jbench.resolve_split_dir(cfg)
+    elif kind == "training":
+        values = tcfg.load_training_recipe(name)
+        assert values == jcfg.load_training_recipe(name)
+        assert tcfg.train_config_kwargs_from_recipe(values) == \
+            jcfg.train_config_kwargs_from_recipe(values)
+    else:
+        for mode in ("track", "generate", "eval", "tune", "research", "train", "shared"):
+            assert tcfg.get_mode_defaults(mode) == jcfg.get_mode_defaults(mode)
+        payload = {"tracker": "ocsort", "new_key": 1}
+        assert vars(tcfg.build_mode_namespace("eval", payload, ["tracker"])) == vars(
+            jcfg.build_mode_namespace("eval", payload, ["tracker"]))
+
+
+def test_config_readers_agree_with_jax_on_names_and_errors():
+    from boxmot_tpu import configs as jcfg
+    from boxmot_tpu.configs import benchmark as jbench
+    from boxmot_tpu_torch import configs as tcfg
+    from boxmot_tpu_torch.configs import benchmark as tbench
+
+    assert tcfg.available_tuned_configs() == jcfg.available_tuned_configs()
+    assert tcfg.list_training_recipes() == jcfg.list_training_recipes()
+    assert tbench.available_benchmarks() == jbench.available_benchmarks()
+    assert tbench.resolve_split_dir(tbench.load_benchmark("mot17-mini")) == MOT17
+    for fn, arg, err in ((tcfg.load_tuned_config, "bytetrack_x_y", ValueError),
+                         (tcfg.load_training_recipe, "nosuch", ValueError),
+                         (tcfg.get_mode_defaults, "nosuch", ValueError),
+                         (tcfg.get_tracker_config_path, "nosuch", FileNotFoundError),
+                         (tbench.load_benchmark, "nosuch", ValueError)):
+        with pytest.raises(err):
+            fn(arg)
+    with pytest.raises(ValueError, match="unknown training-recipe key"):
+        tcfg.train_config_kwargs_from_recipe({"nosuch": 1})
+    for values in ({"batch_size": 64, "k_instances": 8}, {"batch_size": 64}):
+        assert tcfg.train_config_kwargs_from_recipe(values) == \
+            jcfg.train_config_kwargs_from_recipe(values)
+
+
+@pytest.mark.parametrize("rel", COPIED_MODULES)
+def test_host_module_is_a_copy_of_the_original(rel):
+    """Below its docstring each copy is the JAX module's text, with the
+    package's name in its imports (and the registry's module paths)."""
+    import re
+
+    want = re.sub(r"\bboxmot_tpu\.", "boxmot_tpu_torch.", _below_docstring(JAX_PKG / rel))
+    assert _below_docstring(PORT_PKG / rel) == want
+    assert (PORT_PKG / rel).read_text().startswith(f'"""A copy of ``boxmot_tpu/{rel}``.')
+
+
+def test_synth_write_sequence_writes_the_same_bytes(tmp_path):
+    from boxmot_tpu.data import synth as jsynth
+    from boxmot_tpu_torch.data import synth as tsynth
+
+    for kw in ({}, {"name": "SYNTH-02"}):
+        sc_t, sc_j = tsynth.mot17_scale_scenario(seed=3, n_frames=30), \
+            jsynth.mot17_scale_scenario(seed=3, n_frames=30)
+        a = tsynth.write_sequence(tmp_path / "port", scenario=sc_t, **kw)
+        b = jsynth.write_sequence(tmp_path / "jax", scenario=sc_j, **kw)
+        for rel in ("seqinfo.ini", "gt/gt.txt", "det/det.txt"):
+            assert (a / rel).read_bytes() == (b / rel).read_bytes()
+    a = tsynth.write_sequence(tmp_path / "port", name="LIFE")
+    b = jsynth.write_sequence(tmp_path / "jax", name="LIFE")
+    assert (a / "gt" / "gt.txt").read_bytes() == (b / "gt" / "gt.txt").read_bytes()
+
+
+def test_mot17_parquet_equals_jax(tmp_path):
+    pytest.importorskip("pyarrow")
+    from boxmot_tpu.data import mot17_parquet as jpq
+    from boxmot_tpu_torch.data import mot17_parquet as tpq
+    from tests.test_mot17_parquet import _make_snapshot
+
+    snap = _make_snapshot(tmp_path / "snap")
+    assert [tpq.ablation_start(n) for n in (10, 600)] == [jpq.ablation_start(n) for n in (10, 600)]
+    for split in ("train", "ablation"):
+        a = tpq.setup_mot17_from_parquet(tmp_path / "port", split=split, parquet_root=snap,
+                                         cache_root=tmp_path / "port_cache")
+        b = jpq.setup_mot17_from_parquet(tmp_path / "jax", split=split, parquet_root=snap,
+                                         cache_root=tmp_path / "jax_cache")
+        files = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+        assert files == sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file()) and files
+        for rel in files:
+            assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
+    caches = sorted(p.relative_to(tmp_path / "jax_cache")
+                    for p in (tmp_path / "jax_cache").rglob("*.npy"))
+    assert caches
+    for rel in caches:
+        np.testing.assert_array_equal(np.load(tmp_path / "port_cache" / rel),
+                                      np.load(tmp_path / "jax_cache" / rel))
+
+
+def test_reporters_rich_ui_fmt_and_misc_equal_jax(tmp_path):
+    import io
+
+    from rich.console import Console
+
+    from boxmot_tpu.utils import fmt as jfmt
+    from boxmot_tpu.utils import misc as jmisc
+    from boxmot_tpu.utils import reporters as jrep
+    from boxmot_tpu.utils import rich_ui as jui
+    from boxmot_tpu_torch.utils import fmt as tfmt
+    from boxmot_tpu_torch.utils import misc as tmisc
+    from boxmot_tpu_torch.utils import reporters as trep
+    from boxmot_tpu_torch.utils import rich_ui as tui
+
+    assert [tfmt.as_percent(v) for v in (0.5, -1.2, 64.9)] == \
+        [jfmt.as_percent(v) for v in (0.5, -1.2, 64.9)]
+    args = dict(benchmark="mot17-mini", data=str(MOT17), tracker="ocsort", tuned=None,
+                postprocessing="gsi", detector="public", reid="osnet_x0_25", n_workers=1)
+
+    def drive(rep, ui):
+        out = io.StringIO()
+        console = Console(file=out, width=100, force_terminal=False, color_system=None)
+        with rep.EvalReporter(**args).start(True, console=console) as wp:
+            for step in (rep.SETUP, rep.TRACK):
+                wp.start_step(step)
+                wp.advance("sequences", 1, 2)
+                wp.finish_step(step)
+        ui.metrics_table({"A": {"HOTA": 0.5, "MOTA": -0.2, "IDF1": 0.7}}, title="t",
+                         console=console)
+        feed = rep.TrialFeed()
+        feed.record({"index": 0, "score": 0.5, "metrics": {"HOTA": 0.5}, "params": {"a": 1}})
+        return (out.getvalue(), rep.EvalReporter(**args).fields(), rep.eval_steps(postprocess=True),
+                feed.log_line(feed.rows[0]), rep.compact_model_name("x/osnet_x0_25.pt"))
+
+    got, want = drive(trep, tui), drive(jrep, jui)
+    assert got[1:] == want[1:]
+    # the live progress redraws by wall time; its final frame and the table match
+    assert got[0].splitlines()[-8:] == want[0].splitlines()[-8:]
+    for mod in (tmisc, jmisc):
+        for _ in range(2):
+            mod.increment_path(tmp_path / mod.__name__ / "exp", mkdir=True)
+        (tmp_path / mod.__name__ / "f.txt").write_text("x")
+    assert tmisc.increment_path(tmp_path / tmisc.__name__ / "exp").name == \
+        jmisc.increment_path(tmp_path / jmisc.__name__ / "exp").name == "exp3"
+    assert tmisc.increment_path(tmp_path / tmisc.__name__ / "f.txt").name == "f2.txt"
+    assert [tmisc.parse_imgsz(v) for v in (640, "640", "384,640", (1, 2), None)] == \
+        [jmisc.parse_imgsz(v) for v in (640, "640", "384,640", (1, 2), None)]
+    assert tmisc.select_device("cpu") == torch.device("cpu")
+    info = tmisc.get_system_info()
+    assert info["torch"] == torch.__version__ and info["n_devices"] == torch.cuda.device_count()
+    if not torch.cuda.is_available():
+        for spec in ("", "cuda", "0", "cuda:1"):
+            with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+                tmisc.select_device(spec)
+
+
+def test_plots_equal_jax(tmp_path):
+    pytest.importorskip("matplotlib")
+    from boxmot_tpu.engine import plots as jplots
+    from boxmot_tpu_torch.engine import plots as tplots
+
+    results = {"bytetrack": {"HOTA": 0.64, "MOTA": 0.49, "IDF1": 0.66, "AssA": 0.7, "DetA": 0.6},
+               "ocsort": {"HOTA": 0.65, "MOTA": 0.48, "IDF1": 0.65, "AssA": 0.71, "DetA": 0.59}}
+    a = tplots.plot_eval_summary(results, tmp_path / "port")
+    b = jplots.plot_eval_summary(results, tmp_path / "jax")
+    assert [p.name for p in a] == [p.name for p in b]
+    for p, q in zip(a, b):
+        assert p.read_bytes() == q.read_bytes()
+    fps = {name: {**m, "fps": 900.0 - 200 * k} for k, (name, m) in enumerate(results.items())}
+    assert tplots.plot_fps_metric(fps, tmp_path / "p.png").read_bytes() == \
+        jplots.plot_fps_metric(fps, tmp_path / "j.png").read_bytes()
+
+
+def test_replay_sequence_frame_offset_equals_jax():
+    from boxmot_tpu.engine import replay as jreplay
+    from boxmot_tpu.engine.eval import build_replay_config as jax_config
+    from boxmot_tpu_torch.engine import replay as treplay
+
+    dets = list(tmot.MOTSequence(MOT17 / "MOT17-02-FRCNN").dets_per_frame())
+    for offset in (0, 7):
+        got = treplay.replay_sequence(build_replay_config("bytetrack"), dets, frame_offset=offset,
+                                      device="cpu")
+        want = jreplay.replay_sequence(jax_config("bytetrack"), dets, frame_offset=offset)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got[:, [0, 1, 7, 8]], want[:, [0, 1, 7, 8]])
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+        assert got[:, 0].min() == offset + 1
+
+
+@pytest.mark.parametrize("tracker,per_class", [
+    ("bytetrack", False), ("bytetrack", True), ("sfsort", False), ("ocsort", False),
+    ("botsort", False), ("strongsort", False), ("occluboost", False)])
+def test_live_display_rows_and_plots_equal_jax(tracker, per_class):
+    """The visualization mixin on the live shells: the lost slots' predicted
+    rows (``show_kf_preds``; per-class banks renumber their ids), the display
+    history and the drawn frames equal the JAX shell's."""
+    import boxmot_tpu
+    import boxmot_tpu_torch
+
+    seq = tmot.MOTSequence(MOT17 / "MOT17-04-FRCNN")
+    img = np.zeros((1080, 1920, 3), np.uint8)
+    kw = {"per_class": per_class, **({"min_conf": 0.1} if tracker == "strongsort" else {})}
+    j = boxmot_tpu.create_tracker(tracker, **kw)
+    t = boxmot_tpu_torch.create_tracker(tracker, device="cpu", **kw)
+    lost = 0
+    for f, d in enumerate(seq.dets_per_frame()):
+        d = d[: max(2, len(d) // (1 + f % 3))]  # tracks go lost and come back
+        np.testing.assert_array_equal(np.asarray(t.update(d, img))[:, 4],
+                                      np.asarray(j.update(d, img))[:, 4])
+        a, b = t._lost_display_rows, j._lost_display_rows
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x[:, 4:], y[:, 4:])
+            np.testing.assert_allclose(x, y, atol=1e-3, rtol=0)
+        lost += sum(len(x) for x in a)
+    assert t.max_obs == j.max_obs and list(t._display_history) == list(j._display_history)
+    for trajectories in (False, True):
+        np.testing.assert_array_equal(
+            t.plot_results(img.copy(), trajectories, show_kf_preds=True),
+            j.plot_results(img.copy(), trajectories, show_kf_preds=True))
+    assert lost > 0 or tracker == "strongsort"  # StrongSORT's tentative tracks just die

@@ -41,17 +41,21 @@ def test_every_tracker_yaml_is_read():
 @pytest.mark.parametrize("path", YAMLS, ids=[p.stem for p in YAMLS])
 def test_yaml_path_gives_the_jax_params(path):
     """``create_tracker(name, tracker_config=<yaml path>)`` reads and flattens
-    the file as the JAX zoo does; the tracker gets the same params."""
+    the file as the JAX zoo does; the tracker gets the same params, from the
+    JAX file and from the port's own copy of it."""
     name = path.stem
     with open(path) as f:
         specs = yaml.safe_load(f)
     want = jax_flatten(specs)
     assert flatten_config(specs) == want == load_tracker_yaml(path)
     assert load_tracker_yaml(str(path)) == get_tracker_defaults(name)  # the written-out tier
-    got = create_tracker(name, device="cpu", tracker_config=path)
+    copy = REPO / "boxmot_tpu_torch" / "configs" / "trackers" / path.name
+    assert load_tracker_yaml(copy) == want
     ref = boxmot_tpu.create_tracker(name, tracker_config=str(path))
-    assert type(got).__name__ == type(ref).__name__
-    assert _settings(got, want) == _settings(ref, want) != {}
+    for yaml_path in (path, copy):
+        got = create_tracker(name, device="cpu", tracker_config=yaml_path)
+        assert type(got).__name__ == type(ref).__name__
+        assert _settings(got, want) == _settings(ref, want) != {}
     tweaked = create_tracker(name, device="cpu", tracker_config=str(path),
                              evolve_param_dict={"max_age": 7} if "max_age" in want else None)
     assert type(tweaked) is type(got)
