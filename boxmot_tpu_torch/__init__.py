@@ -40,9 +40,14 @@ Entry points, on the card unless ``device="cpu"`` is given::
     from boxmot_tpu_torch.api import Boxmot
     Boxmot(tracker="ocsort").track(source=seq_dir)  # the facade of the JAX package
 
+    from boxmot_tpu_torch.engine.tuning import run_tune
+    run_tune(root, "bytetrack", n_trials=20, n_workers=4)  # trials in threads
+
 and from the shell, ``python -m boxmot_tpu_torch.engine.cli eval --data
-root`` (also ``generate``, ``track``, ``tune-kf``, ``train``, ``eval-reid``;
-``--device cpu`` for the CPU).
+root`` (also ``generate``, ``track``, ``tune-kf``, ``tune``, ``research``,
+``train``, ``eval-reid``, ``build``; ``--device cpu`` for the CPU).  A
+``name:cpp`` tracker runs the repo's native C++ core on the host
+(``native``).
 """
 
 from boxmot_tpu_torch.engine.eval import run_eval

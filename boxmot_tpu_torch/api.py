@@ -4,8 +4,8 @@
 A ``Boxmot`` object carries detector / reid / tracker specs and the device
 its work runs on (the card unless the caller asks for the CPU), and exposes
 the workflow verbs of the JAX facade: ``track``, ``generate``, ``val``,
-``train`` and ``eval_reid`` run on the port; ``tune``, ``research`` and
-``export`` are not ported and raise ``NotImplementedError`` naming their
+``tune``, ``research``, ``train`` and ``eval_reid`` run on the port;
+``export`` is not ported and raises ``NotImplementedError`` naming its
 ROADMAP item.  ``track`` and ``evaluate`` are one-call functional wrappers.
 
     from boxmot_tpu_torch.api import Boxmot
@@ -51,13 +51,9 @@ def _build_reid(spec, device):
     return ReID(model_name=str(spec), device=device)
 
 
-def _not_ported(verb: str, item: int):
-    raise NotImplementedError(f"Boxmot.{verb} is not ported: ROADMAP Queue A item {item}")
-
-
 class Boxmot:
-    """Workflow facade: construct once, call track / generate / val / train /
-    eval_reid on ``device`` ("cuda", "cuda:N" or "cpu")."""
+    """Workflow facade: construct once, call track / generate / val / tune /
+    research / train / eval_reid on ``device`` ("cuda", "cuda:N" or "cpu")."""
 
     def __init__(self, detector=None, reid=None, tracker=None, classes=None, device="cuda"):
         shared = get_mode_defaults("track")
@@ -160,17 +156,39 @@ class Boxmot:
             min_det_conf=min_det_conf,
         )
 
-    def tune(self, **_kwargs):
-        """Hyperparameter tuning: not ported (``engine/tuning``)."""
-        _not_ported("tune", 24)
+    def tune(self, *, data, n_trials: int = 20, work_dir=None, seed: int = 0,
+             backend: str = "random"):
+        """Hyperparameter tuning on ``device``; ``backend`` is one of random /
+        grid / tpe (``engine/tuning/backends.py``)."""
+        from boxmot_tpu_torch.engine.tuning.tuner import Tuner
 
-    def research(self, **_kwargs):
-        """The propose/evaluate research loop: not ported (``engine/research``)."""
-        _not_ported("research", 24)
+        tuner = Tuner(
+            Path(data),
+            _tracker_name(self.tracker),
+            base_params=_tracker_config(self.tracker),
+            work_dir=work_dir,
+            seed=seed,
+            backend=backend,
+            device=self.device,
+        )
+        return tuner.fit(n_trials=n_trials)
+
+    def research(self, *, data, n_candidates: int = 10, work_dir=None, seed: int = 0):
+        """The propose/evaluate research loop over parameters, on ``device``."""
+        from boxmot_tpu_torch.engine.research.runner import run_research
+
+        return run_research(
+            Path(data),
+            tracker_type=_tracker_name(self.tracker),
+            n_candidates=n_candidates,
+            work_dir=work_dir,
+            seed=seed,
+            device=self.device,
+        )
 
     def export(self, **_kwargs):
         """ReID export: not ported (``reid/exporters.py``, ``onnxlite``)."""
-        _not_ported("export", 22)
+        raise NotImplementedError("Boxmot.export is not ported: ROADMAP Queue A item 22")
 
     def train(self, *, data, dataset: str = "market1501", steps: int = 1000,
               ckpt_dir="reid_ckpts", resume=None, **cfg_kwargs):

@@ -2,11 +2,14 @@
 
 The click group of the JAX package's CLI, on the port: ``eval``,
 ``generate``, ``track``, ``tune-kf``, ``train`` and ``eval-reid`` run, on the
-card unless ``--device cpu`` is given; ``tune``, ``research``, ``export``
-and ``build`` are not ported and exit non-zero naming their ROADMAP item,
-and a ``name:cpp`` tracker spec raises the zoo's ``NotImplementedError``.
-Called in-process (``cli.main(args, standalone_mode=False)``), ``eval``
-returns its metrics, ``track`` its MOT rows and ``tune-kf`` its estimate.
+card unless ``--device cpu`` is given; so do ``tune``, ``research`` (over
+parameters, or with ``--edit-source`` over tracker source, each candidate in
+a child process on the same device) and ``build`` (the native C++ cores).  A
+``name:cpp`` tracker runs on the native cores, on the host.  ``export`` is
+not ported and exits non-zero naming its ROADMAP item.  Called in-process (``cli.main(args, standalone_mode=False)``),
+``eval`` returns its metrics, ``track`` its MOT rows, ``tune-kf`` its
+estimate, ``tune`` its best trial and ``research`` its best candidate (with
+``--edit-source``, its summary).
 
 Usage:
     python -m boxmot_tpu_torch.engine.cli eval --data assets/MOT17-mini/train
@@ -456,6 +459,60 @@ def tune_kf(data, tracker, kf_type, dets, iou_threshold, per_class, out):
 
 
 @cli.command()
+@click.option("--data", required=True, type=click.Path(exists=True))
+@click.option("--tracker", default="bytetrack", show_default=True)
+@click.option("--n-trials", type=int, default=20, show_default=True)
+@click.option("--work-dir", type=click.Path(), default="tune_results")
+@click.option("--seed", type=int, default=0)
+@click.option("--backend", default="random", show_default=True,
+              type=click.Choice(["random", "grid", "tpe"]),
+              help="search strategy (tpe = optuna-style adaptive sampler)")
+@click.option("--n-workers", type=int, default=1, show_default=True,
+              help="concurrent trials per batch (threads)")
+@_device_option
+def tune(data, tracker, n_trials, work_dir, seed, backend, n_workers, device):
+    """Tune tracker hyperparameters over cached replays."""
+    from boxmot_tpu_torch.engine.tuning import run_tune
+    from boxmot_tpu_torch.utils import reporters as rep
+
+    reporter = rep.TuneReporter(
+        data=data, tracker=tracker, backend=backend, n_trials=n_trials,
+        seed=seed, work_dir=work_dir,
+    )
+    feed = rep.TrialFeed()
+    with reporter.start() as wp:
+        def _on_trial(trial):
+            feed.record(trial)
+            if wp._use_rich:
+                wp.extra = feed.renderable()
+            else:
+                click.echo(feed.log_line(trial))
+            wp.advance("trials", len(feed.rows), n_trials)
+
+        wp.start_step(rep.SETUP)
+        wp.finish_step(rep.SETUP)
+        wp.start_step(rep.OPTIMIZE, detail=f"{backend} x{n_trials}")
+        best = run_tune(data, tracker, n_trials=n_trials, work_dir=work_dir,
+                        seed=seed, backend=backend, trial_callback=_on_trial,
+                        n_workers=n_workers, device=device)
+        wp.finish_step(rep.OPTIMIZE)
+    if rep.want_rich():
+        from rich.console import Console
+
+        rep.artifacts_table(
+            {
+                "Trials log": str(Path(work_dir) / "trials.json"),
+                "Best config": str(Path(work_dir) / "best.yaml"),
+            },
+            console=Console(),
+        )
+    click.echo(f"best score {best['score']:.4f} with params:")
+    for k, v in best["params"].items():
+        click.echo(f"  {k}: {v}")
+    return best
+
+
+@cli.command()
 @click.option("--data", required=True, type=click.Path(exists=True), help="reid dataset root")
 @click.option("--recipe", default=None,
               help="training recipe name from configs/training/ (reference "
@@ -523,6 +580,115 @@ def train(ctx, data, recipe, model, dataset, steps, lr, p, k, loss,
     click.echo(f"checkpoints in {ckpt_dir}")
 
 
+@cli.command()
+@click.option("--data", required=True, type=click.Path(exists=True))
+@click.option("--tracker", default="bytetrack", show_default=True)
+@click.option("--n-candidates", type=int, default=10, show_default=True)
+@click.option("--work-dir", type=click.Path(), default="research_results")
+@click.option("--seed", type=int, default=0)
+@click.option(
+    "--edit-source", is_flag=True,
+    help="Research over tracker SOURCE candidates (sandboxed workspace) "
+    "instead of config parameters.",
+)
+@click.option(
+    "--editable-file", "editable_files", multiple=True,
+    help="Repo-relative file(s) the source proposer may edit "
+    "(default: the port's step module of the tracker).",
+)
+@click.option(
+    "--proposer", default="ast", show_default=True,
+    type=click.Choice(["ast", "llm"]),
+    help="Source-candidate proposer: offline AST literal mutation, or an "
+    "LLM endpoint (BOXMOT_LLM_ENDPOINT / _MODEL / _API_KEY env).",
+)
+@_device_option
+def research(data, tracker, n_candidates, work_dir, seed, edit_source,
+             editable_files, proposer, device):
+    """Iterative candidate-proposal research loop over a benchmark."""
+    from boxmot_tpu_torch.utils import reporters as rep
+
+    reporter = rep.ResearchReporter(
+        data=data, tracker=tracker, n_candidates=n_candidates,
+        edit_source=edit_source,
+    )
+
+    def _wire_phases(wp, runner):
+        def on_phase(stage, done, total):
+            if stage == "baseline":
+                if wp.pipeline[rep.PREPARE].state == "running":
+                    wp.finish_step(rep.PREPARE)
+                wp.start_step(rep.BASELINE)
+            elif stage == "candidates":
+                if wp.pipeline[rep.PREPARE].state == "running":
+                    wp.finish_step(rep.PREPARE)
+                if wp.pipeline[rep.BASELINE].state == "running":
+                    wp.finish_step(rep.BASELINE)
+                elif wp.pipeline[rep.BASELINE].state == "pending":
+                    wp.finish_step(rep.BASELINE, "skipped", "resumed")
+                if wp.pipeline[rep.PROPOSE].state == "pending":
+                    wp.start_step(rep.PROPOSE)
+                wp.advance("candidates", done, total)
+
+        runner.phase_callback = on_phase
+
+    if edit_source:
+        from boxmot_tpu_torch.engine.research import SourceResearchRunner
+        from boxmot_tpu_torch.engine.research.candidates import create_proposer
+
+        with reporter.start() as wp:
+            wp.start_step(rep.PREPARE)
+            runner = SourceResearchRunner(
+                data, tracker, editable_files=list(editable_files) or None,
+                work_dir=work_dir, seed=seed,
+                proposal_fn=create_proposer(proposer), device=device,
+            )
+            _wire_phases(wp, runner)
+            try:
+                summary = runner.run(n_candidates=n_candidates)
+            finally:
+                runner.workspace.cleanup()
+            if wp.pipeline[rep.PROPOSE].state == "running":
+                wp.finish_step(rep.PROPOSE)
+            wp.start_step(rep.BEST)
+            wp.finish_step(
+                rep.BEST,
+                detail="none beat baseline" if summary["best"] is None
+                else summary["best"]["tag"],
+            )
+        best = summary["best"]
+        click.echo(
+            f"evaluated {summary['n_evaluated']} source candidates "
+            f"({summary['n_failed']} failed)"
+        )
+        if best is None:
+            click.echo("no candidate beat the baseline")
+        else:
+            click.echo(
+                f"best {best['tag']}  score {best['score']:+.4f}  "
+                f"HOTA {100 * best['metrics']['HOTA']:.2f}"
+            )
+            for ch in best["changes"]:
+                click.echo(f"  {ch['path']}: +{ch['added']} -{ch['removed']}")
+        return summary
+
+    from boxmot_tpu_torch.engine.research import ResearchRunner
+
+    with reporter.start() as wp:
+        wp.start_step(rep.PREPARE)
+        runner = ResearchRunner(data, tracker, work_dir=work_dir, seed=seed, device=device)
+        _wire_phases(wp, runner)
+        best = runner.run(n_candidates=n_candidates)
+        if wp.pipeline[rep.PROPOSE].state == "running":
+            wp.finish_step(rep.PROPOSE)
+        wp.start_step(rep.BEST)
+        wp.finish_step(rep.BEST, detail=f"score {best['score']:+.4f}")
+    click.echo(f"best score {best['score']:+.4f}  HOTA {100 * best['metrics']['HOTA']:.2f}")
+    for k, v in best["params"].items():
+        click.echo(f"  {k}: {v}")
+    return best
+
+
 @cli.command("eval-reid")
 @click.option("--data", required=True, type=click.Path(exists=True))
 @click.option("--model", default="osnet_x0_25", show_default=True)
@@ -550,26 +716,44 @@ def eval_reid(data, model, dataset, weights, rerank, flip_tta, device):
     return res
 
 
-_NOT_PORTED = {
-    "tune": ("Tune tracker hyperparameters over cached replays (engine/tuning).", 24),
-    "research": ("Iterative candidate-proposal research loop (engine/research).", 24),
-    "export": ("Export a ReID backbone (reid/exporters.py, onnxlite).", 22),
-    "build": ("Build the native C++ host runtime (native/*, the :cpp backend).", 24),
-}
+@cli.command()
+@click.option("--force", is_flag=True, help="rebuild even if the library exists")
+@_device_option
+def build(force, device):
+    """Build the native C++ tracker cores and report the environment."""
+    from boxmot_tpu_torch import native as native_mod
+    from boxmot_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if force:
+        for name in ("libboxmot_native.so", "CMakeCache.txt"):
+            (native_mod._BUILD_DIR / name).unlink(missing_ok=True)
+        native_mod._LIB = None  # so that get_library() rebuilds
+    try:
+        native_mod.get_library()
+    except (RuntimeError, OSError) as exc:
+        raise click.ClickException(f"native library unavailable: {exc}") from None
+    click.echo("native library ready")
+
+    import torch
+
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    click.echo(f"torch device: {dev.type} x{count}")
+    for extra in ("rich", "matplotlib"):
+        try:
+            __import__(extra)
+            click.echo(f"{extra}: available")
+        except ImportError:
+            click.echo(f"{extra}: missing (degraded output only)")
 
 
-def _not_ported_command(name: str, doc: str, item: int):
-    @click.argument("args", nargs=-1, type=click.UNPROCESSED)
-    def command(args):
-        raise click.ClickException(f"`{name}` is not ported: ROADMAP Queue A item {item}")
-
-    command.__doc__ = f"{doc} Not ported: ROADMAP Queue A item {item}."
-    return cli.command(name, context_settings={"ignore_unknown_options": True,
-                                               "allow_extra_args": True})(command)
-
-
-for _name, (_doc, _item) in _NOT_PORTED.items():
-    _not_ported_command(_name, _doc, _item)
+@cli.command("export", context_settings={"ignore_unknown_options": True,
+                                         "allow_extra_args": True})
+@click.argument("args", nargs=-1, type=click.UNPROCESSED)
+def export(args):
+    """Export a ReID backbone (reid/exporters.py, onnxlite). Not ported:
+    ROADMAP Queue A item 22."""
+    raise click.ClickException("`export` is not ported: ROADMAP Queue A item 22")
 
 
 if __name__ == "__main__":

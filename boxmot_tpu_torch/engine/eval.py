@@ -7,7 +7,10 @@ port's own copies of the JAX package's host modules (``data``,
 ``engine.metrics``, ``engine.mot_io``, ``engine.results``); the replay runs
 on ``device``, the card unless the caller asks for the CPU.  sam2mot, a
 host tracker in both packages, runs its per-frame ``update`` loop instead,
-with segmentation masks from the mask cache when there is one.  The MOT
+with segmentation masks from the mask cache when there is one, and a
+``name:cpp`` tracker replays each sequence on the repo's native C++ core, on
+the host (``native.replay.replay_sequence_native``), in a thread pool of
+``n_workers`` over the sequences.  The MOT
 rows of each sequence then go through the ``postprocessing`` chain (GSI,
 GBRC, GTA: host copies of ``boxmot_tpu/postprocessing``) before they are
 scored, as in the JAX ``_finish``.
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -126,10 +130,12 @@ def run_eval(
     rows' ``det_ind`` (the cached rows left by ``min_det_conf``), so it
     changes nothing without ``reid``.  ``kf_noise`` is a tune-kf JSON path or
     dict whose std weights go under ``tracker_params``; ``progress`` is called
-    as ``(name, done, total)`` once a sequence is scored.  ``n_workers`` is
-    accepted and, as on the JAX device path, unused: the sequences replay as
-    one batch; its thread pool serves the JAX package's native (":cpp")
-    backend, which is not ported and raises.  Returns the metric dicts
+    as ``(name, done, total)`` once a sequence is scored.  A ``name:cpp``
+    tracker replays on the native cores, on the host, reading cached
+    embeddings where ``reid`` names them (warps are not read), with
+    ``n_workers`` threads over the sequences (the cores release the GIL in
+    their update); on the device path ``n_workers`` is unused, as in JAX:
+    the sequences replay as one batch.  Returns the metric dicts
     ({"per_seq": ..., "combined": ...}) with HOTA, MOTA, IDF1.
     """
     device = resolve_device(device)
@@ -141,17 +147,16 @@ def run_eval(
         tracker_params = {**load_kf_noise_params(kf_noise), **tracker_params}
     tracker_type, backend = parse_tracker_spec(tracker_type)
     check_ported(tracker_type)
-    if backend == "cpp":
-        raise NotImplementedError(
-            "the native (cpp) tracker cores are not ported: ROADMAP Queue A item 24; use the "
-            "device tracker (backend 'tpu')")
-    host_tracker = tracker_type not in _TRACKER_CONFIGS
+    native = backend == "cpp"
+    host_tracker = tracker_type not in _TRACKER_CONFIGS and not native
     if reid is None and not host_tracker:
         # no embedding cache: the appearance terms off
         tracker_params.setdefault("with_reid", False)
-    cfg = None if host_tracker else build_replay_config(tracker_type, **tracker_params)
-    # motion-only configs carry no feat_dim; their cached embeddings are not read
-    load_embs = reid is not None and cache_root is not None and hasattr(cfg, "feat_dim")
+    cfg = None if host_tracker or native else build_replay_config(tracker_type, **tracker_params)
+    # motion-only configs carry no feat_dim; their cached embeddings are not
+    # read (the native cores take them all)
+    load_embs = reid is not None and cache_root is not None and (
+        native or hasattr(cfg, "feat_dim"))
 
     seqs = list(dataset)
     inputs = []
@@ -179,7 +184,9 @@ def run_eval(
                 warps = load_cached_warps_per_frame(wpath, seq.seq_length)
         inputs.append({"dets": dets, "embs": embs, "warps": warps})
 
-    if host_tracker:
+    if native:
+        all_rows = _native_rows(tracker_type, tracker_params, inputs, n_workers)
+    elif host_tracker:
         all_rows = [_host_rows(tracker_type, tracker_params, seq, inp["dets"], cache_root,
                                detector, device) for seq, inp in zip(seqs, inputs)]
     else:
@@ -214,6 +221,22 @@ def _postprocess(mot_rows, chain: str, embs):
         pp = create_postprocessor(name)
         rows = pp(rows, embs_per_frame=embs) if name == "gta" else pp(rows)
     return rows
+
+
+def _native_rows(tracker_type, tracker_params, inputs, n_workers):
+    """MOT rows of each sequence replayed on the native core of
+    ``tracker_type``, in a pool of ``n_workers`` threads where there is more
+    than one sequence."""
+    from boxmot_tpu_torch.native.replay import replay_sequence_native
+
+    def replay(inp):
+        return replay_sequence_native(tracker_type, inp["dets"], tracker_params,
+                                      embs_per_frame=inp["embs"])
+
+    if n_workers > 1 and len(inputs) > 1:
+        with ThreadPoolExecutor(max_workers=n_workers) as pool:
+            return list(pool.map(replay, inputs))
+    return [replay(inp) for inp in inputs]
 
 
 def _host_rows(tracker_type, tracker_params, seq, dets, cache_root, detector, device):

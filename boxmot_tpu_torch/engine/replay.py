@@ -16,7 +16,9 @@ host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -208,21 +210,45 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+_SYNC_LOCK = threading.Lock()
+_SYNC_LIFTS = {"depth": 0, "mode": 0}
+
+
+@contextlib.contextmanager
+def sync_allowed():
+    """Lift ``torch.cuda.set_sync_debug_mode`` for the block.
+
+    The mode is global to the process, and replays may run in threads (the
+    tuner's trials): the first thread in saves the mode and lifts it, the
+    last one out puts it back, so no thread restores it while another is
+    mid-copy and none leaves it lifted.
+    """
+    with _SYNC_LOCK:
+        if _SYNC_LIFTS["depth"] == 0:
+            _SYNC_LIFTS["mode"] = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+        _SYNC_LIFTS["depth"] += 1
+    try:
+        yield
+    finally:
+        with _SYNC_LOCK:
+            _SYNC_LIFTS["depth"] -= 1
+            if _SYNC_LIFTS["depth"] == 0:
+                torch.cuda.set_sync_debug_mode(_SYNC_LIFTS["mode"])
+
+
 def _to_host(*tensors: torch.Tensor):
     """The one device-to-host copy of a replay batch.
 
     A caller may run the replay under ``torch.cuda.set_sync_debug_mode("error")``
     to prove that the frame loop never waits for the device; this copy is
-    the one place that must, so the mode is lifted for it alone.
+    the one place that must, so the mode is lifted for it alone
+    (``sync_allowed``).
     """
     if not tensors[0].is_cuda:
         return [t.numpy() for t in tensors]
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
+    with sync_allowed():
         return [t.cpu().numpy() for t in tensors]
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
 
 
 def _state_row(states, k: int):

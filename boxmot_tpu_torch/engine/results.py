@@ -1,8 +1,8 @@
-"""Typed eval, cache-generation and training results.
+"""Typed eval, cache-generation, tuning, training and research results.
 
 The port's own copy of ``ValidationResult``, ``GenerateResult``,
-``TrainResult`` and their base from ``boxmot_tpu/engine/results.py``,
-unchanged: a dict subclass, so callers
+``TuneResult``, ``TuneTrialResult``, ``TrainResult``, ``ResearchResult`` and
+their base from ``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
 that index the raw mapping keep working, with attribute accessors and a
 summary (role mirror of the reference's
 boxmot/engine/workflows/results.py:136).
@@ -68,6 +68,44 @@ class GenerateResult(WorkflowResult):
         )
 
 
+class TuneResult(WorkflowResult):
+    """Best tuning trial: params + metrics + score (results.py:3xx)."""
+
+    _fields = ("score", "params")
+
+    def summary(self) -> str:
+        m = self.get("metrics", {})
+        parts = [f"score {self.get('score', float('nan')):.4f}"]
+        if "HOTA" in m:
+            parts.append(f"HOTA {100 * m['HOTA']:.2f}")
+        return "  ".join(parts)
+
+
+class TuneTrialResult(WorkflowResult):
+    """One tuning trial: params + metrics + score (reference
+    engine/workflows/results.py:232)."""
+
+    _fields = ("index", "score")
+
+    @property
+    def config(self) -> dict:
+        return self["params"]
+
+    @property
+    def ok(self) -> bool:
+        return self.get("error") is None
+
+    def summary(self) -> str:
+        m = self.get("metrics", {})
+        parts = [f"trial {self.get('index', '?')}",
+                 f"score {self.get('score', float('nan')):.4f}"]
+        if "HOTA" in m:
+            parts.append(f"HOTA {100 * m['HOTA']:.2f}")
+        if self.get("error"):
+            parts.append(f"error: {self['error']}")
+        return "  ".join(parts)
+
+
 class TrainResult(WorkflowResult):
     """ReID training run: final metrics + checkpoint path + history
     (reference reid/training/trainer.py:77)."""
@@ -84,3 +122,41 @@ class TrainResult(WorkflowResult):
             f"final loss {self.get('final_loss', float('nan')):.4f}  "
             f"weights {self.get('weights_path')}"
         )
+
+
+class ResearchResult(WorkflowResult):
+    """Research-loop run: baseline + best candidate + counts (reference
+    engine/research/models.py:118)."""
+
+    _fields = ("n_evaluated", "n_failed")
+
+    @property
+    def best(self):
+        return self.get("best")
+
+    @property
+    def baseline_summary(self) -> dict:
+        return (self.get("baseline") or {}).get("metrics", {})
+
+    @property
+    def best_summary(self) -> dict:
+        return (self.best or {}).get("metrics", {})
+
+    @property
+    def delta_summary(self) -> dict:
+        base, best = self.baseline_summary, self.best_summary
+        return {
+            k: float(best[k]) - float(base[k])
+            for k in best
+            if k in base and isinstance(best[k], (int, float))
+        }
+
+    def summary(self) -> str:
+        parts = [
+            f"{self.get('n_evaluated', 0)} candidates "
+            f"({self.get('n_failed', 0)} failed)"
+        ]
+        d = self.delta_summary
+        if "HOTA" in d:
+            parts.append(f"dHOTA {100 * d['HOTA']:+.2f}")
+        return "  ".join(parts)

@@ -205,7 +205,7 @@ def launch_crops(frame: torch.Tensor, box: torch.Tensor, trig: torch.Tensor | No
                 out.data_ptr(), H, W, N, oh, ow, int(trig is not None), OUT_DTYPES[out.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("crops", "bmt_crops", rc)
-    extract_crops.launches += 1
+    build.count_launch(extract_crops)
 
 
 extract_crops.launches = 0

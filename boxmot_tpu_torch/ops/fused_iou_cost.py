@@ -128,7 +128,7 @@ def fused_iou_cost(trk: torch.Tensor, det: torch.Tensor, conf: torch.Tensor | No
                 iou.data_ptr(), None if cost is None else cost.data_ptr(), S, K, D, *g[:4], vec,
                 eps, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("iou_cost", "bmt_iou_cost", rc)
-    fused_iou_cost.launches += 1
+    build.count_launch(fused_iou_cost)
     return iou, cost
 
 

@@ -140,7 +140,7 @@ def masked_assignment(cost, row_mask, col_mask, thresh, capped,
                 None if work is None else work.data_ptr(), S, R, C, max_iters,
                 int(uses_shared_weights(R, C)), stream)
     build.check_launch("auction", "bmt_auction", rc)
-    masked_assignment.launches += 1
+    build.count_launch(masked_assignment)
     return r2c
 
 

@@ -104,7 +104,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float, max_out: i
                 None if counts is None else counts.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("nms", "bmt_nms", rc)
-    nms.launches += 1
+    build.count_launch(nms)
     return keep_idx, keep_mask
 
 

@@ -212,7 +212,7 @@ def oru_replay(layout, mean, cov, frozen_mean, frozen_cov, last_meas, z2, rejoin
                 S, K, LAYOUT_TAGS[layout.name][0], MAX_ORU, *launch_geometry(S, K, layout.name),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("oru", "bmt_oru", rc)
-    oru_replay.launches += 1
+    build.count_launch(oru_replay)
     return out_mean, out_cov
 
 

@@ -159,7 +159,7 @@ def rotated_iou(obbs1, obbs2, c1=None, c2=None):
         return rotated_iou_plain(obbs1, obbs2, c1, c2)
     _check_card(obbs1, c1, c2)
     out = _launch(obbs1, obbs2, c1, c2)
-    rotated_iou.launches += 1
+    build.count_launch(rotated_iou)
     return out
 
 

@@ -348,11 +348,9 @@ class StrongSort(BaseTracker):
         return init_state(self.cfg, 1, self.device)
 
     def _lost_mask(self, state):
-        """(K,) alive slots missed this frame (the JAX shell's show_kf_preds rows)."""
-        return ((state.status[0] != EMPTY) & (state.tsu[0] > 0)).cpu().numpy()
-
-    def _lost_mask(self, state):
-        # alive slots missed this frame (show_kf_preds overlays)
+        """(K,) alive slots missed this frame (the JAX shell's show_kf_preds
+        rows), on the device: ``trackers/base.py`` folds it into the frame's
+        one read-back."""
         return (state.status[0] != EMPTY) & (state.tsu[0] > 0)
 
     def _step(self, state, dets_padded, det_valid):

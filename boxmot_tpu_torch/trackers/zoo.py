@@ -3,7 +3,9 @@
 Every tracker of the JAX zoo is ported: ByteTrack, SFSORT, OC-SORT, BoT-SORT
 and OccluBoost for axis-aligned and oriented boxes; DeepOCSORT, BoostTrack,
 StrongSORT and HybridSORT for axis-aligned boxes; and sam2mot, a host
-tracker in both packages.  Any other name raises.  Config resolution order,
+tracker in both packages.  Any other name raises.  ``name:cpp`` (or
+``backend="cpp"``) gives the repo's native C++ core of the tracker, on the
+host, as in the JAX zoo.  Config resolution order,
 as in the JAX zoo: built-in defaults (or a YAML file's) < per-tracker config
 dict < kwargs.
 """
@@ -49,10 +51,12 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config=None,
 
     ``tracker_type`` may carry a backend ("bytetrack:tpu"), or ``backend``
     names it (it wins over the spec's, as in the JAX zoo): "tpu", the
-    default, is the port's device tracker; "cpp", the JAX package's native
-    cores, is not ported (ROADMAP Queue A item 24) and raises; any other
-    backend raises ``ValueError``.  ``tracker_config`` is a dict of params
-    or the path of a tracker YAML file (read with ``yaml``)."""
+    default, is the port's device tracker; "cpp" is the repo's native C++
+    core of the tracker (``native.trackers.NativeTracker``), host code that
+    takes ``device`` and ignores it, and raises where the native library
+    cannot be built; any other backend raises ``ValueError``.
+    ``tracker_config`` is a dict of params or the path of a tracker YAML file
+    (read with ``yaml``)."""
     if ":" in tracker_type:
         tracker_type, spec_backend = parse_tracker_spec(tracker_type)
         backend = backend or spec_backend
@@ -60,10 +64,6 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config=None,
     if backend not in BACKENDS:
         raise ValueError(f"unknown tracker backend {backend!r}; available: {list(BACKENDS)}")
     check_ported(tracker_type)
-    if backend == "cpp":
-        raise NotImplementedError(
-            "the native (cpp) tracker cores are not ported: ROADMAP Queue A item 24; use the "
-            "device tracker (backend 'tpu')")
     from boxmot_tpu_torch.trackers.boosttrack import BoostTrack
     from boxmot_tpu_torch.trackers.botsort import BotSort
     from boxmot_tpu_torch.trackers.bytetrack import ByteTrack
@@ -84,6 +84,13 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config=None,
     if evolve_param_dict:
         params.update(evolve_param_dict)
     params.update(kwargs)
+    if backend == "cpp":
+        from boxmot_tpu_torch.native.trackers import NATIVE_LIVE_TRACKERS, NativeTracker
+
+        if tracker_type not in NATIVE_LIVE_TRACKERS:
+            raise ValueError(f"no native (cpp) core for {tracker_type!r}; "
+                             f"available: {sorted(NATIVE_LIVE_TRACKERS)}")
+        return NativeTracker(tracker_type, per_class=per_class, device=device, **params)
     params["per_class"] = per_class
     if reid_weights is not None and tracker_type in REID_TRACKERS:
         from boxmot_tpu_torch.reid import create_reid

@@ -186,10 +186,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      K6 and one K5 a frame (besides the pipeline's warm-up call) and writes
      8 frames; (f) a line per step with its host wall time and the card.
      Sub-steps whose modules (click, yaml, sklearn: ``FRONT_DOOR_STEPS``) the
-     machine lacks are named and not run.
-Every path of phases 4-11 runs with the launch counters set to 0 just before
+     machine lacks are named and not run;
+ 12. tuning, research and the native cores (``run_tuning_phase``), through the
+     CLI in-process: (a) ``tune`` of ByteTrack on MOT17-mini, 8 random trials,
+     with 1 and then 4 worker threads: the trials' params equal a CPU
+     worker's ``tune --device cpu``, their metrics within 1e-4, the default
+     trial gives the pins, the 4 workers' trials are bit-equal to the 1
+     worker's, and a rerun in the same work dir runs no trial; (b) ``research``
+     over parameters, 4 candidates: params equal the CPU worker's, metrics
+     within 1e-4; (c) ``research --edit-source``, 2 candidates: every child
+     (a process of its own, one after another) says in its JSON line that it
+     ran on cuda and built no kernel (the workspace is seeded with the
+     kernels built in phase 2), and the baseline gives the pins; (d) ``build``,
+     then ``eval --tracker bytetrack:cpp --n-workers 4`` and ``eval --tracker
+     occluboost:cpp`` give the ``:cpp`` pins (the native cores are host
+     code; where cmake or a C++ compiler is missing these are named and not
+     run); (e) ``Boxmot(tracker="bytetrack", device="cuda").tune`` with 4
+     trials gives (a)'s first 4 trials; (f) a line per sub-step with its host
+     wall time, seconds a trial, a candidate or a child, and the card.
+Every path of phases 4-12 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
-torch.cuda.set_sync_debug_mode("error"), and where a step's launches are
+torch.cuda.set_sync_debug_mode("error") (phase 12's threaded trials too: the
+replay's one read-back lifts the mode for every thread at once), and where a
+step's launches are
 fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; the detector:
 one K6 a frame, one K5 with ReID, and the fused step the tracker's own on
@@ -1905,7 +1924,8 @@ def cpu_job(kind, tracker, arg):
     rows, ...}); for "train", the losses of phase 10c's ``ReIDTrainer`` run
     of model ``tracker`` on the dataset under ``arg``, its checkpoints at
     each step of TRAIN_SEGMENTS and one step later, and the checkpoints of
-    one step in float64 from each of TRAIN_SEGMENTS."""
+    one step in float64 from each of TRAIN_SEGMENTS; for "tune", phase 12's
+    ``tune_reference``."""
     torch.set_num_threads(1)
     if kind == "train":  # phase 10c's run on the CPU: every step's loss, some checkpoints
         torch.set_num_threads(1)  # it runs beside phases 4-9's host-bound loops
@@ -1934,6 +1954,9 @@ def cpu_job(kind, tracker, arg):
     if kind == "yolox":  # the detector's raw heads: a yolox_x forward is some 800 GFLOP
         torch.set_num_threads(4)
         return yolox_raw_heads(*arg)
+    if kind == "tune":  # phase 12's CPU references: cli tune and cli research
+        with tempfile.TemporaryDirectory() as tmp:
+            return tune_reference(Path(tmp))
     if kind == "cli":  # phase 11's CPU references: the CLI's own eval commands
         with tempfile.TemporaryDirectory() as tmp:
             return front_door_eval(tracker, "cpu", Path(tmp))
@@ -1965,10 +1988,11 @@ CPU_WORKERS = 6
 
 
 def start_cpu_references(pool, cache_root: Path, train_root: Path) -> dict:
-    """Submit every CPU reference of phases 4-10: the three longest first
+    """Submit every CPU reference of phases 4-12: the three longest first
     (HybridSORT's and StrongSORT's cache-fed replays, StrongSORT's synth-long
     eval, needed late), then the rest in the order the phases read them;
-    phase 10c's training runs on ``train_root`` last."""
+    phase 10c's training runs on ``train_root``, then phase 12's ``tune`` and
+    ``research`` and phase 11's evals."""
     jobs = {}
 
     def submit(kind, tracker, arg, key=None):
@@ -1988,6 +2012,8 @@ def start_cpu_references(pool, cache_root: Path, train_root: Path) -> dict:
     for model in TRAIN_MODELS:
         submit("train", model, str(train_root))
     present = front_door_modules()
+    if present["click"] and present["yaml"]:
+        submit("tune", None, None)
     for label, step in FRONT_DOOR_EVALS.items():
         if all(present[m] for m in FRONT_DOOR_STEPS[step]):
             submit("cli", label, None)
@@ -4056,6 +4082,184 @@ def run_front_door_phase(card, ckpt: Path, cpu_jobs):
                              frames=n_frames, note="model build and warm-up included")
 
 
+# phase 12: tuning, research and the native cores through the CLI
+TUNE_TRIALS = 8
+TUNE_WORKERS = 4
+RESEARCH_CANDIDATES = 4
+SOURCE_CANDIDATES = 2
+API_TRIALS = 4
+NATIVE_TOOLS = ("cmake", "c++")  # what ``cli build`` needs to build native/cpp
+# the ``:cpp`` pins of tests/test_pinned_metrics.py on MOT17-mini (a CPU test
+# holds them equal)
+CPP_PINNED = {
+    "bytetrack:cpp": {"HOTA": 0.649859, "MOTA": 0.495283, "IDF1": 0.662461},
+    "occluboost:cpp": {"HOTA": 0.649804, "MOTA": 0.492925, "IDF1": 0.660348},
+}
+
+
+def tune_args(work: Path, device, n_workers=1) -> list:
+    """Phase 12's ``cli tune``: ByteTrack on MOT17-mini, random search, seed 0."""
+    return ["tune", "--data", ROOTS["mot17_mini"], "--tracker", "bytetrack", "--n-trials",
+            TUNE_TRIALS, "--backend", "random", "--n-workers", n_workers, "--work-dir", work,
+            "--device", device]
+
+
+def research_args(work: Path, device, *extra) -> list:
+    return ["research", "--data", ROOTS["mot17_mini"], "--tracker", "bytetrack", "--work-dir",
+            work, "--device", device, *extra]
+
+
+def _trials(work: Path) -> list:
+    """The trials.json of a tune work dir, without the seconds each took."""
+    return [{k: v for k, v in t.items() if k != "seconds"}
+            for t in json.loads((work / "trials.json").read_text())]
+
+
+def _research_log(work: Path) -> dict:
+    return json.loads((work / "research.json").read_text())
+
+
+def tune_reference(tmp: Path) -> tuple[list, dict]:
+    """Phase 12's CPU references: the trials of ``cli tune`` and the research
+    log of ``cli research`` (parameters), on the CPU."""
+    front_door_cli(*tune_args(tmp / "tune", "cpu"))
+    front_door_cli(*research_args(tmp / "research", "cpu", "--n-candidates",
+                                  RESEARCH_CANDIDATES))
+    return _trials(tmp / "tune"), _research_log(tmp / "research")
+
+
+def _close(label, got: dict, want: dict):
+    if any(not abs(got[k] - want[k]) <= ATOL for k in ("HOTA", "MOTA", "IDF1")):
+        raise AssertionError(f"{label}: metrics {got} differ from the cpu's {want}")
+
+
+def _pinned(label, got: dict, pins=PINNED[("mot17_mini", "bytetrack")]):
+    for k, v in pins.items():
+        if not abs(got[k] - v) <= ATOL:
+            raise AssertionError(f"{label}: {k} = {got[k]} misses the pin {v}")
+
+
+def _check_trials(label, got: list, want: list):
+    """The card's trials against the CPU worker's: the same params and errors
+    (none), metrics within ATOL."""
+    if [t["params"] for t in got] != [t["params"] for t in want]:
+        raise AssertionError(f"{label}: the trials' params differ from the cpu's")
+    if any(t["error"] is not None for t in got + want):
+        raise AssertionError(f"{label}: a trial failed: {[t['error'] for t in got + want]}")
+    for g, w in zip(got, want):
+        _close(f"{label} trial {g['index']}", g["metrics"], w["metrics"])
+
+
+def run_tuning_phase(card, cpu_jobs):
+    """Phase 12: ``cli tune`` with 1 and 4 workers, a rerun, ``cli research``
+    over parameters and over source, ``cli build`` and the ``:cpp`` evals, and
+    ``Boxmot.tune``, on the card (see the module docstring)."""
+    present = front_door_modules()
+    missing = [m for m in ("click", "yaml") if not present[m]]
+    if missing:
+        print(f"phase 12 not run: module(s) {missing} not installed")
+        return
+    tools = {t: shutil.which(t) for t in NATIVE_TOOLS}
+    print(f"phase 12 native build tools: {tools}")
+    ratio = RATIOS["bytetrack"][0]
+    (cpu_trials, cpu_research), waited = _cpu_result(cpu_jobs, ("tune", None, None))
+    print(f"phase 12 cpu references ready (waited {waited:.1f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs = {}
+        for workers in (1, TUNE_WORKERS):
+            work = tmp / f"tune{workers}"
+            t0 = time.perf_counter()
+            drive(f"cli tune x{TUNE_TRIALS} --n-workers {workers}",
+                  lambda: front_door_cli(*tune_args(work, "cuda", workers)), ratio)
+            seconds = time.perf_counter() - t0
+            runs[workers] = _trials(work)
+            _check_trials(f"cli tune --n-workers {workers}", runs[workers], cpu_trials)
+            _front_door_line(f"cli_tune_seconds_per_trial_{workers}_worker", seconds / TUNE_TRIALS,
+                             card, trials=TUNE_TRIALS, workers=workers, seconds=seconds)
+        _pinned("cli tune's default trial", runs[1][0]["metrics"])
+        if runs[TUNE_WORKERS] != runs[1]:
+            raise AssertionError(f"cli tune: {TUNE_WORKERS} workers' trials differ from 1 worker's")
+        print(f"cli tune: {TUNE_TRIALS} trials, params equal to the cpu's, metrics within {ATOL}, "
+              f"{TUNE_WORKERS} workers bit-equal to 1")
+        drive("cli tune rerun (resume)", lambda: front_door_cli(*tune_args(tmp / "tune1", "cuda")),
+              {})
+        if _trials(tmp / "tune1") != runs[1]:
+            raise AssertionError("cli tune: a rerun in the same work dir changed its trials")
+
+        t0 = time.perf_counter()
+        drive(f"cli research x{RESEARCH_CANDIDATES}", lambda: front_door_cli(*research_args(
+            tmp / "research", "cuda", "--n-candidates", RESEARCH_CANDIDATES)), ratio,
+            sync_free=False)  # the preflight's live update reads its rows back
+        seconds = time.perf_counter() - t0
+        got = _research_log(tmp / "research")
+        if [h["params"] for h in got["history"]] != [h["params"] for h in cpu_research["history"]]:
+            raise AssertionError("cli research: the candidates' params differ from the cpu's")
+        for g, w in zip([got["baseline"], *got["history"]],
+                        [cpu_research["baseline"], *cpu_research["history"]]):
+            if g.get("error") or w.get("error"):
+                raise AssertionError(f"cli research: a candidate failed: {g}, {w}")
+            _close("cli research", g["metrics"], w["metrics"])
+        _pinned("cli research's baseline", got["baseline"]["metrics"])
+        _front_door_line("cli_research_seconds_per_candidate", seconds / RESEARCH_CANDIDATES,
+                         card, candidates=RESEARCH_CANDIDATES, seconds=seconds)
+
+        work = tmp / "source"
+        t0 = time.perf_counter()
+        summary = drive(f"cli research --edit-source x{SOURCE_CANDIDATES}", lambda: front_door_cli(
+            *research_args(work, "cuda", "--edit-source", "--n-candidates", SOURCE_CANDIDATES)),
+            {}, sync_free=False)  # the card's work runs in the children
+        seconds = time.perf_counter() - t0
+        children = [json.loads(line) for line in (work / "children.jsonl").read_text().splitlines()]
+        if len(children) != 2 * (SOURCE_CANDIDATES + 1) or summary["n_evaluated"] != SOURCE_CANDIDATES:
+            raise AssertionError(f"cli research --edit-source: {len(children)} children, {summary}")
+        if {c["device"] for c in children} != {"cuda"} or any(c["built"] for c in children):
+            raise AssertionError(f"cli research --edit-source: a child ran off the card or ran "
+                                 f"nvcc: {children}")
+        _pinned("cli research --edit-source's baseline", children[1]["metrics"])
+        print(f"cli research --edit-source: {len(children)} children on cuda, none ran nvcc; "
+              f"{summary['n_failed']} of {SOURCE_CANDIDATES} candidates failed")
+        _front_door_line("cli_research_edit_source_seconds_per_child", seconds / len(children),
+                         card, children=len(children), seconds=seconds)
+
+        if all(tools.values()):
+            from boxmot_tpu_torch import native
+
+            prebuilt = (native._BUILD_DIR / "libboxmot_native.so").exists()
+            t0 = time.perf_counter()
+            drive("cli build", lambda: front_door_cli("build", "--device", "cuda"), {})
+            _front_door_line("cli_build_seconds", time.perf_counter() - t0, card,
+                             library_found_built=prebuilt)
+            for tracker, workers in (("bytetrack:cpp", TUNE_WORKERS), ("occluboost:cpp", 1)):
+                t0 = time.perf_counter()
+                res = drive(f"cli eval {tracker}", lambda: front_door_cli(
+                    "eval", "--data", ROOTS["mot17_mini"], "--tracker", tracker, "--n-workers",
+                    workers, "--device", "cuda"), {})
+                seconds = time.perf_counter() - t0
+                _pinned(f"cli eval {tracker}", _metrics(res), CPP_PINNED[tracker])
+                _front_door_line(f"cli_eval_{tracker.replace(':', '_')}_seconds", seconds, card,
+                                 workers=workers, **_metrics(res))
+        else:
+            for step in ("cli build", "cli eval bytetrack:cpp", "cli eval occluboost:cpp"):
+                print(f"phase 12 ({step}) not run: {[t for t, p in tools.items() if not p]} "
+                      f"not installed")
+
+        from boxmot_tpu_torch.api import Boxmot
+
+        t0 = time.perf_counter()
+        best = drive(f"Boxmot.tune x{API_TRIALS}", lambda: Boxmot(
+            tracker="bytetrack", device="cuda").tune(data=ROOTS["mot17_mini"], n_trials=API_TRIALS,
+                                                     work_dir=tmp / "api"), ratio)
+        seconds = time.perf_counter() - t0
+        if _trials(tmp / "api") != runs[1][:API_TRIALS]:
+            raise AssertionError("Boxmot.tune: its trials differ from cli tune's first ones")
+        want = max((t for t in runs[1][:API_TRIALS]), key=lambda t: t["score"])
+        if best["params"] != want["params"]:
+            raise AssertionError("Boxmot.tune: its best differs from cli tune's")
+        _front_door_line("api_tune_seconds_per_trial", seconds / API_TRIALS, card,
+                         trials=API_TRIALS)
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, all started together."""
     names = [src for _, src, _ in KERNELS.values()]
@@ -4069,7 +4273,7 @@ def build_kernels():
 
 
 def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root):
-    """Phases 3-11; returns phase 3's timing entries and K4's XYSCR rows."""
+    """Phases 3-12; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
     det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
     decoded = decoded_scores(det, seqs["MOT17-04-FRCNN"][0])
@@ -4153,6 +4357,8 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root
     lap("phase 10e (live BoT-SORT with vit_nano)")
     run_front_door_phase(smi, ckpt, cpu_jobs)
     lap("phase 11 (the CLI and the API)")
+    run_tuning_phase(smi, cpu_jobs)
+    lap("phase 12 (tuning, research and the native cores)")
     return checks, xyscr_rows
 
 

@@ -5,9 +5,10 @@ against the JAX package's, on the CPU.
 ``track`` and ``evaluate`` give the JAX facade's rows (ids and ``det_ind``
 exact, boxes within 1e-4) and metrics (within 1e-4); ``train`` for 2 steps
 is the port's ``ReIDTrainer`` run directly; ``eval_reid`` is the port's
-evaluator, on a model name and on a torchreid checkpoint; ``tune``,
-``research`` and ``export`` raise naming their ROADMAP item; the default
-device is the card, with no fallback to the CPU.
+evaluator, on a model name and on a torchreid checkpoint; ``export`` raises
+naming its ROADMAP item (``tune`` and ``research`` are held to the JAX
+facade in tests/test_torch_{tuning,research}.py); the default device is
+the card, with no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ def test_eval_reid_is_the_port_evaluator(tmp_path):
 
 def test_unported_verbs_and_the_default_device():
     bm = Boxmot(device="cpu")
-    for verb, item in (("tune", 24), ("research", 24), ("export", 22)):
+    for verb, item in (("export", 22),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(bm, verb)(data=ROOTS["mot17_mini"])
     assert set(n for n in dir(boxmot_tpu.api.Boxmot) if not n.startswith("_")) <= set(dir(Boxmot))

@@ -62,10 +62,12 @@ def test_yaml_path_gives_the_jax_params(path):
 
 
 def test_specs_and_backends():
-    """"name:tpu" and backend="tpu" give the device tracker; "cpp" (the JAX
-    package's native cores) raises NotImplementedError naming Queue A item
-    24; an unknown backend raises ValueError, in the spec or as ``backend``;
-    ``backend`` wins over the spec's, as in the JAX zoo."""
+    """"name:tpu" and backend="tpu" give the device tracker; "cpp" gives the
+    native core (``NativeTracker``, host code, its config string the JAX
+    zoo's); an unknown backend raises ValueError, in the spec or as
+    ``backend``; ``backend`` wins over the spec's, as in the JAX zoo."""
+    from boxmot_tpu_torch.native.trackers import NativeTracker
+
     assert parse_tracker_spec("ocsort") == ("ocsort", "tpu")
     assert parse_tracker_spec("ocsort:cpp") == ("ocsort", "cpp")
     for kw in ({"tracker_type": "bytetrack:tpu"}, {"tracker_type": "bytetrack", "backend": "tpu"},
@@ -73,8 +75,10 @@ def test_specs_and_backends():
         assert type(create_tracker(device="cpu", **kw)).__name__ == "ByteTrack"
     for kw in ({"tracker_type": "bytetrack:cpp"}, {"tracker_type": "ocsort", "backend": "cpp"},
                {"tracker_type": "ocsort:tpu", "backend": "cpp"}):
-        with pytest.raises(NotImplementedError, match="item 24"):
-            create_tracker(device="cpu", **kw)
+        got = create_tracker(device="cpu", **kw)
+        want = boxmot_tpu.create_tracker(**kw)
+        assert type(got) is NativeTracker and got._cfg == want._cfg
+        assert got.tracker_type == want.tracker_type == kw["tracker_type"].split(":")[0]
     with pytest.raises(ValueError, match="unknown tracker backend"):
         create_tracker("bytetrack:gpu", device="cpu")
     with pytest.raises(ValueError, match="unknown tracker backend"):
