@@ -4,9 +4,9 @@
 A ``Boxmot`` object carries detector / reid / tracker specs and the device
 its work runs on (the card unless the caller asks for the CPU), and exposes
 the workflow verbs of the JAX facade: ``track``, ``generate``, ``val``,
-``tune``, ``research``, ``train`` and ``eval_reid`` run on the port;
-``export`` is not ported and raises ``NotImplementedError`` naming its
-ROADMAP item.  ``track`` and ``evaluate`` are one-call functional wrappers.
+``tune``, ``research``, ``train``, ``eval_reid`` and ``export`` (every
+target of the JAX package's, ``reid/exporters.py``) run on the port.
+``track`` and ``evaluate`` are one-call functional wrappers.
 
     from boxmot_tpu_torch.api import Boxmot
 
@@ -186,9 +186,27 @@ class Boxmot:
             device=self.device,
         )
 
-    def export(self, **_kwargs):
-        """ReID export: not ported (``reid/exporters.py``, ``onnxlite``)."""
-        raise NotImplementedError("Boxmot.export is not ported: ROADMAP Queue A item 22")
+    def export(self, *, include=("tflite",), out_dir="exports", hw=(256, 128), quantize=None,
+               verify: bool = True):
+        """Export the configured ReID model, its forward on ``device``.
+
+        The reid spec supplies either a weights path (converted) or a model
+        name; returns {target: {"path", "max_dev"?}}.
+        """
+        from boxmot_tpu_torch.reid.exporters import run_export
+
+        spec = str(self.reid) if self.reid not in (None, "", "none") else None
+        weights = spec if spec and Path(spec).exists() else None
+        return run_export(
+            weights=weights,
+            model_name=spec or "osnet_x0_25",
+            include=include,
+            out_dir=out_dir,
+            hw=hw,
+            quantize=quantize,
+            verify=verify,
+            device=self.device,
+        )
 
     def train(self, *, data, dataset: str = "market1501", steps: int = 1000,
               ckpt_dir="reid_ckpts", resume=None, **cfg_kwargs):

@@ -24,7 +24,10 @@ Weights: a ``yololite*`` stem seeds an explicit ``torch.Generator`` from the
 stem's first four bytes (the integer the JAX package seeds Flax with), so a
 stem gives the same weights on the CPU and on the card, though not the JAX
 package's (``models/convert.py::yololite_state_dict_from_flax`` carries
-those across).  A ``.msgpack`` file needs flax's serialization.
+those across).  A ``.msgpack`` file that exists holds the JAX ``LiteYOLO``'s
+Flax variables and loads through that mapping (``models/flax_msgpack.py``
+reads it); one that does not exist gives the stem's seeded weights, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from boxmot_tpu_torch.models.convert import yololite_state_dict_from_flax
+from boxmot_tpu_torch.models.flax_msgpack import read_variables
 from boxmot_tpu_torch.models.layers import LN_EPS
 from boxmot_tpu_torch.ops.geometry import exact
 from boxmot_tpu_torch.ops.nms import nms
@@ -202,11 +207,12 @@ class LiteYOLO:
         self.device = resolve_device(device)
         self.task = task_of(weights)
         self.nc = nc
-        if Path(str(weights)).suffix == ".msgpack":
-            raise NotImplementedError(
-                "flax .msgpack checkpoints need flax's serialization: ROADMAP Queue A item 22")
         model = LiteNet(self.task, nc)
-        seeded_init(model, seed_of(weights))
+        p = Path(str(weights))
+        if p.suffix == ".msgpack" and p.exists():  # the JAX LiteYOLO's Flax variables
+            model.load_state_dict(yololite_state_dict_from_flax(read_variables(p), self.task, nc))
+        else:
+            seeded_init(model, seed_of(weights))
         self.model = model.eval().to(self.device)
         g = IMGSZ // STRIDE
         gy, gx = torch.meshgrid(torch.arange(g), torch.arange(g), indexing="ij")

@@ -4,9 +4,10 @@ The click group of the JAX package's CLI, on the port: ``eval``,
 ``generate``, ``track``, ``tune-kf``, ``train`` and ``eval-reid`` run, on the
 card unless ``--device cpu`` is given; so do ``tune``, ``research`` (over
 parameters, or with ``--edit-source`` over tracker source, each candidate in
-a child process on the same device) and ``build`` (the native C++ cores).  A
-``name:cpp`` tracker runs on the native cores, on the host.  ``export`` is
-not ported and exits non-zero naming its ROADMAP item.  Called in-process (``cli.main(args, standalone_mode=False)``),
+a child process on the same device), ``build`` (the native C++ cores) and
+``export`` (the JAX package's targets, verified against the forward on the
+device).  A ``name:cpp`` tracker runs on the native cores, on the host.
+Called in-process (``cli.main(args, standalone_mode=False)``),
 ``eval`` returns its metrics, ``track`` its MOT rows, ``tune-kf`` its
 estimate, ``tune`` its best trial and ``research`` its best candidate (with
 ``--edit-source``, its summary).
@@ -747,13 +748,70 @@ def build(force, device):
             click.echo(f"{extra}: missing (degraded output only)")
 
 
-@cli.command("export", context_settings={"ignore_unknown_options": True,
-                                         "allow_extra_args": True})
-@click.argument("args", nargs=-1, type=click.UNPROCESSED)
-def export(args):
-    """Export a ReID backbone (reid/exporters.py, onnxlite). Not ported:
-    ROADMAP Queue A item 22."""
-    raise click.ClickException("`export` is not ported: ROADMAP Queue A item 22")
+@cli.command("export")
+@click.option("--weights", default=None, help="torchreid checkpoint to convert (optional)")
+@click.option("--model", default="osnet_x0_25", show_default=True)
+@click.option("--include", default="tflite", show_default=True,
+              help="comma list: checkpoint,torch,saved_model,tflite,onnx")
+@click.option("--out-dir", type=click.Path(), default="exports", show_default=True)
+@click.option("--imgsz", default="256,128", show_default=True, help="crop H,W")
+@click.option("--int8", is_flag=True, help="TFLite dynamic-range quantization")
+@click.option("--verify/--no-verify", "do_verify", default=True,
+              help="compare exported outputs against the forward on the device")
+@_device_option
+def export(weights, model, include, out_dir, imgsz, int8, do_verify, device):
+    """Export a ReID backbone (reference `boxmot export`, engine/cli.py:430+).
+    Called in-process, returns the ``ExportResult`` {target: {"path",
+    "max_dev"?, "seconds"}}."""
+    import time
+
+    from boxmot_tpu_torch.engine.results import ExportResult
+    from boxmot_tpu_torch.reid import ReID
+    from boxmot_tpu_torch.reid import exporters as ex
+    from boxmot_tpu_torch.utils import reporters as rep
+
+    reporter = rep.ExportReporter(
+        model=model, weights=weights, imgsz=imgsz, include=include,
+        int8=int8, do_verify=do_verify, out_dir=out_dir,
+    )
+    artifacts: dict[str, str] = {}
+    verify_notes: list[str] = []
+    with reporter.start() as wp:
+        wp.start_step(rep.SETUP)
+        hw = tuple(int(v) for v in imgsz.split(","))
+        reid = ReID(weights=weights, model_name=None if weights else model, crop_hw=hw,
+                    device=device)
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        targets = [t.strip() for t in include.split(",") if t.strip()]
+        for target in targets:
+            if target not in ex.TARGETS:
+                raise click.ClickException(f"unknown export target {target!r}; "
+                                           "choose from checkpoint,torch,saved_model,tflite,onnx")
+        wp.finish_step(rep.SETUP)
+        wp.start_step(rep.EXPORT)
+        graphs, results = {}, ExportResult()
+        for i, target in enumerate(targets):
+            t0 = time.perf_counter()
+            info = ex.export_target(reid, target, out, quantize="dynamic" if int8 else None,
+                                    verify=do_verify, graphs=graphs)
+            results[target] = {**info, "seconds": time.perf_counter() - t0}
+            if "max_dev" in info:
+                verify_notes.append(f"{target} max |diff| vs {reid.device.type}: "
+                                    f"{info['max_dev']:.2e}")
+            artifacts[target] = str(info["path"])
+            wp.advance("targets", i + 1, len(targets))
+        wp.finish_step(rep.EXPORT, detail=f"{len(targets)} formats")
+    for note in verify_notes:
+        click.echo(note)
+    if rep.want_rich():
+        from rich.console import Console
+
+        rep.artifacts_table(artifacts, console=Console())
+    else:
+        for target, path in artifacts.items():
+            click.echo(f"exported {target} -> {path}")
+    return results
 
 
 if __name__ == "__main__":

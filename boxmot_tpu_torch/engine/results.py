@@ -1,8 +1,8 @@
 """Typed eval, cache-generation, tuning, training and research results.
 
 The port's own copy of ``ValidationResult``, ``GenerateResult``,
-``TuneResult``, ``TuneTrialResult``, ``TrainResult``, ``ResearchResult`` and
-their base from ``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
+``TuneResult``, ``TuneTrialResult``, ``TrainResult``, ``ResearchResult``,
+``ExportResult`` and their base from ``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
 that index the raw mapping keep working, with attribute accessors and a
 summary (role mirror of the reference's
 boxmot/engine/workflows/results.py:136).
@@ -104,6 +104,15 @@ class TuneTrialResult(WorkflowResult):
         if self.get("error"):
             parts.append(f"error: {self['error']}")
         return "  ".join(parts)
+
+
+class ExportResult(WorkflowResult):
+    """{target: {path, max_dev?}} from run_export (results.py:4xx)."""
+
+    def summary(self) -> str:
+        return ", ".join(
+            f"{t}->{info['path']}" for t, info in self.items()
+        )
 
 
 class TrainResult(WorkflowResult):

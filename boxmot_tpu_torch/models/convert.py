@@ -30,10 +30,11 @@ fills a model's state dict through it (``state_dict_from_flax_paths``):
 HWIO kernels become OIHW, dense kernels are transposed, LayerNorm and
 BatchNorm scales and biases become ``weight`` and ``bias``, batch
 statistics ``running_mean`` and ``running_var``.  The trainer keys its
-optimizer masks by the same paths.  The yololite predictor's ``LiteNet``
-has auto-named Flax modules: ``yololite_state_dict_from_flax`` walks the
-Flax tree leaf by leaf (``_flax_leaves``) and renames them.  Checkpoints
-of those backbones but CLIP have no converter, in either package
+optimizer masks by the same paths, and ``reid/exporters.py`` writes Flax
+checkpoints through them.  The yololite predictor's ``LiteNet`` has
+auto-named Flax modules: ``yololite_state_dict_from_flax`` goes through the
+same two functions with a ``rename`` of its module paths.  Checkpoints of
+those backbones but CLIP have no converter, in either package
 (``convert_checkpoint`` raises the JAX package's ``ValueError``).
 """
 
@@ -280,51 +281,6 @@ def yolox_state_dict_from_flax(variables, name: str) -> dict:
     return load_yolox(sd, name)
 
 
-# Flax leaf name -> PyTorch parameter or buffer name
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
-_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-
-
-def _flax_leaves(variables, rename) -> dict:
-    """Every leaf of Flax ``{"params", "batch_stats"}`` (numpy arrays) under
-    the PyTorch key ``rename(module path) + "." + leaf``: HWIO kernels
-    become OIHW, a dense (in, out) kernel (out, in), LayerNorm and BatchNorm
-    scales ``weight``, batch statistics ``running_mean`` / ``running_var``;
-    a raw parameter (``self.param`` of a module: ``cls_token``, ``gate``,
-    ``attention_biases``, LayerNorm2d's ``weight``) keeps its name and
-    layout."""
-    sd = {}
-
-    def walk(tree, path, leaves):
-        for k, v in tree.items():
-            if isinstance(v, dict) or hasattr(v, "items"):
-                walk(v, (*path, k), leaves)
-                continue
-            a = np.asarray(v)
-            if k == "kernel":
-                a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
-            key = leaves.get(k, k)  # a raw parameter (cls_token, gate, ...) keeps its name
-            sd[f"{rename(path)}.{key}" if path else key] = a
-
-    walk(variables["params"], (), _PARAM_LEAVES)
-    walk(variables.get("batch_stats", {}), (), _STAT_LEAVES)
-    return sd
-
-
-def _state_dict_for(model: torch.nn.Module, sd: dict) -> dict:
-    """``sd`` checked key by key against ``model``'s state dict, as float32
-    tensors."""
-    expected = set(model.state_dict())
-    unused = sorted(set(sd) - expected)
-    if unused:
-        raise ValueError(f"unmapped Flax variables: {unused[:8]}...")
-    missing = sorted(expected - set(sd))
-    if missing:
-        raise ValueError(f"the Flax variables lack keys of {type(model).__name__}: "
-                         f"{missing[:8]}...")
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
-
-
 # ---------------------------------------------------------------------------
 # The inverse: each port parameter's Flax path
 # ---------------------------------------------------------------------------
@@ -383,7 +339,7 @@ def _torchreid_segments(model: torch.nn.Module, segs: list[str]) -> tuple[list[s
     return out, mod
 
 
-def flax_paths(model: torch.nn.Module, name: str) -> dict:
+def flax_paths(model: torch.nn.Module, name: str, rename=None) -> dict:
     """Every entry of ``model``'s state dict that has a Flax counterpart ->
     (collection, *Flax path): ``("params", "block0", "attn", "qkv",
     "kernel")``, ``("batch_stats", ..., "mean")``.  Convolution and linear
@@ -392,7 +348,9 @@ def flax_paths(model: torch.nn.Module, name: str) -> dict:
     batch norm's zero bias (a buffer) and ``num_batches_tracked`` have none.
     ``name`` is the backbone's model name; OSNet's and LMBN's torchreid
     names map back through ``_torchreid_segments`` wherever they sit in
-    ``model`` (a backbone alone or under a trainer's ``backbone.``)."""
+    ``model`` (a backbone alone or under a trainer's ``backbone.``).
+    ``rename``, where given, maps a module's path (a list of its names'
+    segments) to its Flax module path instead."""
     torchreid = name.startswith(("osnet", "lmbn"))
     out = {}
     for mname, module in model.named_modules():
@@ -402,7 +360,9 @@ def flax_paths(model: torch.nn.Module, name: str) -> dict:
         if not own and not stats:
             continue
         segs = mname.split(".") if mname else []
-        if torchreid and segs and segs[0] == "backbone":
+        if rename is not None:
+            fpath = rename(segs)
+        elif torchreid and segs and segs[0] == "backbone":
             inner, _ = _torchreid_segments(model.get_submodule("backbone"), segs[1:])
             fpath = ["backbone", *inner]
         elif torchreid and segs and not hasattr(model, "backbone"):
@@ -421,13 +381,15 @@ def flax_paths(model: torch.nn.Module, name: str) -> dict:
     return out
 
 
-def state_dict_from_flax_paths(model: torch.nn.Module, name: str, variables) -> dict:
+def state_dict_from_flax_paths(model: torch.nn.Module, name: str, variables,
+                               rename=None) -> dict:
     """Flax ``{"params", "batch_stats"}`` (numpy) as ``model``'s state dict
-    through ``flax_paths``: HWIO kernels to OIHW, dense kernels transposed;
-    a bias-free batch norm's bias stays 0.  Every Flax leaf must be used."""
+    through ``flax_paths`` (``rename`` as there): HWIO kernels to OIHW,
+    dense kernels transposed; a bias-free batch norm's bias stays 0.  Every
+    Flax leaf must be used."""
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     used = set()
-    for key, (coll, *path) in flax_paths(model, name).items():
+    for key, (coll, *path) in flax_paths(model, name, rename).items():
         node = variables.get(coll, {})
         for p in path:
             if p not in node:
@@ -491,13 +453,14 @@ def yololite_state_dict_from_flax(variables, task: str, nc: int = 3) -> dict:
     port's ``LiteNet`` (for ``LiteYOLO(...).model.load_state_dict``)."""
     from boxmot_tpu_torch.detectors.yolo_lite import LiteNet  # noqa: PLC0415
 
-    names = {**_LITE_COMMON, **_LITE_HEADS[task]}
-    inner = {"Conv_0": "conv", "LayerNorm_0": "norm"}
+    flax_of = {port: flax for flax, port in {**_LITE_COMMON, **_LITE_HEADS[task]}.items()}
+    inner = {"conv": "Conv_0", "norm": "LayerNorm_0"}
 
-    def rename(path):
-        return ".".join([names[path[0]], *(inner[p] for p in path[1:])])
+    def rename(segs):
+        head = 2 if segs[0] == "stem" else 1  # stem.<i>, or a head's own name
+        return [flax_of[".".join(segs[:head])], *(inner[s] for s in segs[head:])]
 
-    return _state_dict_for(LiteNet(task, nc), _flax_leaves(variables, rename))
+    return state_dict_from_flax_paths(LiteNet(task, nc), "yololite", variables, rename)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ ctypes (counterpart of ``boxmot_tpu/native/__init__.py``).
 
 Both packages share one build: the library is built with cmake into
 ``native/cpp/build/`` under the same cross-process ``fcntl`` lock as the
-JAX package's, and rebuilt when a source is newer than it.  The cores are
+JAX package's, and rebuilt when a source is newer than it.  The port links
+it with ``--exclude-libs,ALL``, so that a static libstdc++ (which a
+compiler named by ``CXX`` may link in) stays private to the library.  The cores are
 host code in both packages.  Where the JAX helper returns ``None`` on a
 failed build and leaves its callers to fall back, the port raises with
 cmake's output: a ``:cpp`` tracker never falls back to the device tracker.
@@ -53,7 +55,12 @@ def _build_library() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)  # cross-process build lock
         if _fresh(lib):
             return lib
-        for cmd in (["cmake", "-S", str(_CPP_DIR), "-B", str(_BUILD_DIR)],
+        # --exclude-libs: a compiler that links libstdc++ statically (the card
+        # machine's CXX does) would otherwise export its copy's symbols, which
+        # the process's own libstdc++ (torch's) interposes: the ReID
+        # runtime's iostreams then crash in its constructor
+        for cmd in (["cmake", "-S", str(_CPP_DIR), "-B", str(_BUILD_DIR),
+                     "-DCMAKE_SHARED_LINKER_FLAGS=-Wl,--exclude-libs,ALL"],
                     ["cmake", "--build", str(_BUILD_DIR), "--config", "Release", "-j"]):
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -23,7 +23,10 @@ takes ``crop_hw``.  ``MODEL_NAMES`` keeps the JAX ``MODEL_FACTORY``'s names
 in its order, so ``infer_model_name`` resolves a weights file exactly as
 the JAX package does.  Checkpoints convert for OSNet and CLIP
 (``models/convert.py``); any other backbone's raises the JAX package's
-``ValueError``.
+``ValueError``.  A Flax ``.msgpack`` checkpoint (``reid/exporters.py``'s, or
+the JAX package's) of any backbone loads through ``flax_paths``
+(``models/flax_msgpack.py`` reads it); as in JAX, a weights path that does
+not exist gives the seeded model of the name it carries.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from boxmot_tpu_torch.models import convert as convert_mod
+from boxmot_tpu_torch.models import flax_msgpack
 from boxmot_tpu_torch.models.backbones import build_mobilenetv2, build_resnet50, build_resnet101
 from boxmot_tpu_torch.models.clip_reid import build_clip_reid
 from boxmot_tpu_torch.models.csl_tinyvit import build_csl_tinyvit
@@ -113,17 +117,18 @@ class ReID:
         self.model_name = model_name or infer_model_name(weights)
         if self.model_name not in MODEL_NAMES:
             raise KeyError(f"unknown ReID model {self.model_name!r}")
-        if weights is not None and str(weights).endswith(".msgpack"):
-            raise NotImplementedError(
-                "flax .msgpack checkpoints need flax's serialization: ROADMAP Queue A item 22")
         # a seeded initialization that leaves the global generator alone, so
         # that a model built without weights is the same on every device
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             model = build_model(self.model_name, crop_hw)
         if weights is not None and Path(str(weights)).exists():
-            convert_mod.load_weights(model, convert_mod.convert_checkpoint(str(weights),
-                                                                           self.model_name))
+            if str(weights).endswith(".msgpack"):  # Flax variables, of either package
+                model.load_state_dict(convert_mod.state_dict_from_flax_paths(
+                    model, self.model_name, flax_msgpack.read_variables(weights)))
+            else:
+                convert_mod.load_weights(model, convert_mod.convert_checkpoint(
+                    str(weights), self.model_name))
         self.crop_hw = tuple(crop_hw)
         self.half = half
         self.preprocess_name = preprocess_name

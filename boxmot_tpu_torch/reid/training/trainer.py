@@ -174,7 +174,8 @@ class ReIDTrainer:
             if present < cfg.n_devices:
                 raise ValueError(f"n_devices={cfg.n_devices} but only {present} present")
             raise NotImplementedError("data-parallel training over several cards is not ported: "
-                                      "ROADMAP Queue A item 23")
+                                      "it is what remains of ROADMAP Queue A item 23 "
+                                      "(parallel/replay.py is ported over one card)")
         self.cfg = cfg
         from boxmot_tpu_torch.reid.core import MODEL_NAMES, build_model  # noqa: PLC0415
 

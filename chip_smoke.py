@@ -194,7 +194,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      trial gives the pins, the 4 workers' trials are bit-equal to the 1
      worker's, and a rerun in the same work dir runs no trial; (b) ``research``
      over parameters, 4 candidates: params equal the CPU worker's, metrics
-     within 1e-4; (c) ``research --edit-source``, 2 candidates: every child
+     within 1e-4; (c) ``research --edit-source``, 1 candidate: every child
      (a process of its own, one after another) says in its JSON line that it
      ran on cuda and built no kernel (the workspace is seeded with the
      kernels built in phase 2), and the baseline gives the pins; (d) ``build``,
@@ -203,8 +203,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      code; where cmake or a C++ compiler is missing these are named and not
      run); (e) ``Boxmot(tracker="bytetrack", device="cuda").tune`` with 4
      trials gives (a)'s first 4 trials; (f) a line per sub-step with its host
-     wall time, seconds a trial, a candidate or a child, and the card.
-Every path of phases 4-12 runs with the launch counters set to 0 just before
+     wall time, seconds a trial, a candidate or a child, and the card;
+ 13. ReID export, its runtimes and the sequence-parallel replay
+     (``run_export_phase``), at the JAX CLI's export defaults (osnet_x0_25,
+     256 x 128): (a) ``export --include checkpoint,torch,onnx,saved_model,
+     tflite --device cuda`` in-process, the ONNX and TFLite artifacts
+     verified against the card's float32 forward (TF32 off) within 5e-3,
+     with its seconds a target; (b) each artifact but the ONNX file reloaded
+     through ``create_reid`` on the card, and the native ``manifest.txt``
+     (``export_native_reid``) through it on the host, on 32 person-like
+     boxes of a seeded textured 1080p frame: the ``.msgpack`` and ``.pt``
+     ``ReID`` give the source model's features to the bit, the TFLite and
+     SavedModel runtimes (their crops cut by K5 on the card) and ``CppReID``
+     within 5e-3, each with its ms a call; (c) ``sharded_batch_replay`` of
+     ByteTrack at the bench shape (8 sequences x 256 frames x 100
+     detections) over ``sequence_mesh()`` (the one card: one
+     ``batch_replay``), twice, its rows bit-equal to ``batch_replay``'s, with
+     frames/s and its K1 and K2 launches; (d) ``sharded_reid_features`` of 64
+     NHWC crops within 1e-5 of ``ReID._embed``; (e) ``Boxmot.export`` of the
+     ONNX target.  Where tensorflow (the SavedModel and TFLite targets),
+     click (the CLI) or cmake and a C++ compiler (the native runtime) are
+     missing, those sub-steps are named and not run; the modules present
+     (tensorflow, msgpack) are printed.
+Every path of phases 4-13 runs with the launch counters set to 0 just before
 it and read just after; each eval's frame loop runs under
 torch.cuda.set_sync_debug_mode("error") (phase 12's threaded trials too: the
 replay's one read-back lifts the mode for every thread at once), and where a
@@ -213,7 +234,8 @@ fixed (ByteTrack and BoT-SORT: 2 IoU launches (K1, or K3 in OBB mode) to 3
 auctions; SFSORT: 1 rotated IoU to 2 auctions in OBB mode; the detector:
 one K6 a frame, one K5 with ReID, and the fused step the tracker's own on
 top; the yololite predictor: one K6 a frame; run_generate: one K6 and one
-K5 a frame; a ReID call: one K5; ReID training and prompt learning: none;
+K5 a frame; a ReID call: one K5 (and a call of phase 13's reloaded TF
+runtimes; its C++ runtime none); ReID training and prompt learning: none;
 OC-SORT and
 DeepOCSORT: 2 IoU launches to 2 auctions to 1 ORU; StrongSORT: 1 IoU launch
 to 2 auctions; BoostTrack, OccluBoost and HybridSORT: as ``boost_ratio`` and
@@ -232,6 +254,7 @@ from __future__ import annotations
 import concurrent.futures
 import configparser
 import contextlib
+import faulthandler
 import json
 import math
 import shutil
@@ -4086,7 +4109,7 @@ def run_front_door_phase(card, ckpt: Path, cpu_jobs):
 TUNE_TRIALS = 8
 TUNE_WORKERS = 4
 RESEARCH_CANDIDATES = 4
-SOURCE_CANDIDATES = 2
+SOURCE_CANDIDATES = 1  # two children a candidate, each ~13 s on the card
 API_TRIALS = 4
 NATIVE_TOOLS = ("cmake", "c++")  # what ``cli build`` needs to build native/cpp
 # the ``:cpp`` pins of tests/test_pinned_metrics.py on MOT17-mini (a CPU test
@@ -4260,6 +4283,168 @@ def run_tuning_phase(card, cpu_jobs):
                          trials=API_TRIALS)
 
 
+# phase 13: ReID export, its runtimes and the sequence-parallel replay
+EXPORT_MODEL, EXPORT_HW = "osnet_x0_25", (256, 128)  # the JAX CLI's export defaults
+EXPORT_TARGETS = ("checkpoint", "torch", "onnx", "saved_model", "tflite")
+TF_TARGETS = ("saved_model", "tflite")
+EXPORT_TOL = 5e-3  # the CLI's verification, and the TF and native runtimes' features
+EXPORT_BOXES, SHARDED_CROPS = 32, 64
+EXPORT_MODULES = ("click", "tensorflow", "msgpack")
+RUNTIME_REPS = 3  # timed calls of each reloaded runtime after its first (the C++ one: none)
+
+
+def export_modules() -> dict:
+    """{module: present} for phase 13's optional modules (not imported)."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None for m in EXPORT_MODULES}
+
+
+def _runtime_line(label, backend, boxes, img, want, tol, ratio, card, reps=RUNTIME_REPS):
+    """Drive ``backend.get_features`` once against the source features
+    (``want``: to the bit where ``tol`` is 0) and ``reps`` times more, timing
+    each call after the first (the first too where ``reps`` is 0: ms a call,
+    host clock), launching ``ratio`` a call."""
+    calls = 1 + reps
+    ms = []
+
+    def run():
+        t0 = time.perf_counter()
+        got = backend.get_features(boxes, img)
+        first = (time.perf_counter() - t0) * 1e3
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            backend.get_features(boxes, img)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ms.extend([] if reps else [first])
+        return got
+
+    got = drive(f"create_reid {label}", run, ratio, sync_free=False,
+                n_steps=calls if ratio else None)
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not err <= tol:
+        raise AssertionError(f"phase 13 {label}: features {got.shape} {err} from the source "
+                             f"model's (tolerance {tol})")
+    print(json.dumps({"metric": f"reid_runtime_{label}_ms_per_call",
+                      "value": statistics.median(ms), "ms": ms, "boxes": len(boxes),
+                      "max_abs_err": err, "backend": type(backend).__name__, "card": card}))
+
+
+def run_export_phase(card):
+    """Phase 13: ``cli export`` of every target, each artifact reloaded through
+    ``create_reid`` on the card, ``sharded_batch_replay`` and
+    ``sharded_reid_features`` over ``sequence_mesh()`` and ``Boxmot.export``
+    (see the module docstring)."""
+    from boxmot_tpu_torch.api import Boxmot
+    from boxmot_tpu_torch.native.reid import export_native_reid
+    from boxmot_tpu_torch.parallel.replay import (
+        sequence_mesh,
+        sharded_batch_replay,
+        sharded_reid_features,
+    )
+    from boxmot_tpu_torch.reid.backends import create_reid
+
+    present = export_modules()
+    tools = {t: shutil.which(t) for t in NATIVE_TOOLS}
+    print(f"phase 13 modules present: {present}; native build tools: {tools}")
+    if not present["click"]:
+        print("phase 13 (a, b, e) not run: module click is not installed")
+    targets = [t for t in EXPORT_TARGETS if present["tensorflow"] or t not in TF_TARGETS]
+    for t in EXPORT_TARGETS:
+        if t not in targets:
+            print(f"phase 13 (a, b: {t}) not run: module tensorflow is not installed")
+    src = ReID(model_name=EXPORT_MODEL, device="cuda", crop_hw=EXPORT_HW)
+    img = crop_frame(seed=13)
+    boxes = crop_boxes(np.random.default_rng(13), EXPORT_BOXES + 6, obb=False)[6:]
+    want = src.get_features(boxes, img)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if present["click"]:
+            t0 = time.perf_counter()
+            arts = drive("cli export", lambda: front_door_cli(
+                "export", "--model", EXPORT_MODEL, "--include", ",".join(targets), "--imgsz",
+                ",".join(map(str, EXPORT_HW)), "--out-dir", tmp / "exports", "--device", "cuda"),
+                {}, sync_free=False)
+            print(json.dumps({"metric": "cli_export_seconds", "value": time.perf_counter() - t0,
+                              "targets": {t: {"seconds": i["seconds"],
+                                              "max_dev": i.get("max_dev")}
+                                          for t, i in arts.items()},
+                              "clock": "host wall", "card": card}))
+            for t in ("onnx", "tflite"):
+                if t in arts and not arts[t]["max_dev"] <= EXPORT_TOL:
+                    raise AssertionError(f"phase 13 (a): {t} {arts[t]['max_dev']} from the card")
+            for t in targets:
+                if t == "onnx":
+                    continue  # create_reid takes no ONNX file, in either package
+                exact = t in ("checkpoint", "torch")
+                _runtime_line(t, create_reid(arts[t]["path"], device="cuda", crop_hw=EXPORT_HW),
+                              boxes, img, want, 0.0 if exact else EXPORT_TOL,
+                              {"extract_crops": 1}, card)
+        if all(tools.values()):
+            manifest = export_native_reid(EXPORT_MODEL, src.model, tmp / "native", EXPORT_HW)
+            _runtime_line("native", create_reid(manifest), boxes, img, want, EXPORT_TOL, {}, card,
+                          reps=0)  # ~3.5 s a call on the card's host
+        else:
+            print(f"phase 13 (b: native) not run: {[t for t, p in tools.items() if not p]} "
+                  "not installed")
+
+        # (c) ByteTrack's replay at the bench shape over the mesh (one card here)
+        cfg = ByteTrackConfig()
+        batch = np.stack([pack_frames(synthetic_frames(N_FRAMES, N_DETS, seed=s), D=D_BENCH,
+                                      F=N_FRAMES, det_cols=6)[0] for s in range(N_SEQS)])
+        mesh = sequence_mesh()
+        ms = []
+
+        def sharded():
+            for _ in range(2):  # a warm-up, then the timed run
+                t0 = time.perf_counter()
+                out = sharded_batch_replay(cfg, batch, mesh)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        counts_before = {k: LAUNCHES[k] for k in ("fused_iou_cost", "masked_assignment")}
+        _, outs, masks = drive(f"sharded_batch_replay bytetrack over {len(mesh)} card(s)",
+                               sharded, RATIOS["bytetrack"][0], sync_free=False,
+                               n_steps=2 * N_FRAMES)
+        _, want_outs, want_masks = batch_replay(cfg, init_states(cfg, N_SEQS, "cuda"),
+                                                torch.from_numpy(batch).cuda())
+        if not (torch.equal(outs, want_outs) and torch.equal(masks, want_masks)):
+            raise AssertionError("phase 13 (c): sharded_batch_replay's rows differ from "
+                                 "batch_replay's")
+        print(json.dumps({"metric": f"sharded_bytetrack_replay_fps_{N_DETS}dets",
+                          "value": N_SEQS * N_FRAMES / (ms[-1] / 1e3), "unit": "frames/s",
+                          "clock": "host wall, upload and synchronize included",
+                          "shape": [N_SEQS, N_FRAMES, N_DETS, D_BENCH, CAPACITY],
+                          "mesh": [str(d) for d in mesh], "ms": ms,
+                          "launches": {k: LAUNCHES[k] - v for k, v in counts_before.items()},
+                          "card": card}))
+
+        # (d) the data-parallel ReID forward of NHWC crops
+        crop_boxes_ = crop_boxes(np.random.default_rng(14), SHARDED_CROPS + 6, obb=False)[6:]
+        crops = extract_crops(as_frame(img, "cuda"), torch.from_numpy(crop_boxes_).cuda(),
+                              EXPORT_HW).permute(0, 2, 3, 1).contiguous().cpu().numpy()
+        t0 = time.perf_counter()
+        feats = drive("sharded_reid_features", lambda: sharded_reid_features(src, crops, mesh),
+                      {}, sync_free=False)
+        seconds = time.perf_counter() - t0
+        ref = src._embed(torch.from_numpy(crops).permute(0, 3, 1, 2).cuda()).cpu().numpy()
+        err = float(np.abs(feats - ref).max())
+        if feats.shape != ref.shape or not err <= 1e-5:
+            raise AssertionError(f"phase 13 (d): sharded_reid_features {err} from ReID._embed")
+        print(json.dumps({"metric": "sharded_reid_features_ms", "value": seconds * 1e3,
+                          "crops": SHARDED_CROPS, "max_abs_err": err, "card": card}))
+
+        # (e) the facade's export of one target
+        t0 = time.perf_counter()
+        res = drive("Boxmot.export onnx", lambda: Boxmot(reid=EXPORT_MODEL, device="cuda").export(
+            include=("onnx",), out_dir=tmp / "api", hw=EXPORT_HW), {}, sync_free=False)
+        if not (res["onnx"]["path"].exists() and res["onnx"]["max_dev"] <= EXPORT_TOL):
+            raise AssertionError(f"phase 13 (e): Boxmot.export gave {res}")
+        print(json.dumps({"metric": "api_export_onnx_seconds", "value": time.perf_counter() - t0,
+                          "max_dev": res["onnx"]["max_dev"], "card": card}))
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, all started together."""
     names = [src for _, src, _ in KERNELS.values()]
@@ -4273,7 +4458,7 @@ def build_kernels():
 
 
 def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root):
-    """Phases 3-12; returns phase 3's timing entries and K4's XYSCR rows."""
+    """Phases 3-13; returns phase 3's timing entries and K4's XYSCR rows."""
     rng = np.random.default_rng(0)
     det = YoloXDetector(str(ckpt), device=CARD, imgsz=DET_IMGSZ)
     decoded = decoded_scores(det, seqs["MOT17-04-FRCNN"][0])
@@ -4359,6 +4544,8 @@ def run_phases(lap, smi, cpu_jobs, cache_root, ckpt, seqs, cpu_heads, train_root
     lap("phase 11 (the CLI and the API)")
     run_tuning_phase(smi, cpu_jobs)
     lap("phase 12 (tuning, research and the native cores)")
+    run_export_phase(smi)
+    lap("phase 13 (export, runtimes and the sequence-parallel replay)")
     return checks, xyscr_rows
 
 
@@ -4367,6 +4554,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 1
+    # a crash in native code prints every thread's Python stack, and the lines
+    # before it reach a redirected log
+    faulthandler.enable()
+    sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
 
     def lap(label):

@@ -5,10 +5,10 @@ against the JAX package's, on the CPU.
 ``track`` and ``evaluate`` give the JAX facade's rows (ids and ``det_ind``
 exact, boxes within 1e-4) and metrics (within 1e-4); ``train`` for 2 steps
 is the port's ``ReIDTrainer`` run directly; ``eval_reid`` is the port's
-evaluator, on a model name and on a torchreid checkpoint; ``export`` raises
-naming its ROADMAP item (``tune`` and ``research`` are held to the JAX
-facade in tests/test_torch_{tuning,research}.py); the default device is
-the card, with no fallback to the CPU.
+evaluator, on a model name and on a torchreid checkpoint; ``export`` takes
+the JAX facade's arguments (``tune``, ``research`` and ``export`` are held
+to the JAX package in tests/test_torch_{tuning,research,export}.py); the
+default device is the card, with no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -121,11 +121,15 @@ def test_eval_reid_is_the_port_evaluator(tmp_path):
     assert got == want and 0.0 <= got["mAP"] <= 1.0
 
 
-def test_unported_verbs_and_the_default_device():
+def test_unported_verbs_and_the_default_device(tmp_path):
+    # export, refused until ROADMAP item 22, takes the JAX facade's arguments and
+    # raises its ValueError on an unknown target
+    from boxmot_tpu import api as jax_api
+
     bm = Boxmot(device="cpu")
-    for verb, item in (("export", 22),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            getattr(bm, verb)(data=ROOTS["mot17_mini"])
+    assert inspect.signature(Boxmot.export) == inspect.signature(jax_api.Boxmot.export)
+    with pytest.raises(ValueError, match="unknown export target 'nosuch'"):
+        bm.export(include=("nosuch",), out_dir=tmp_path, hw=(64, 32))
     assert set(n for n in dir(boxmot_tpu.api.Boxmot) if not n.startswith("_")) <= set(dir(Boxmot))
     for fn in (Boxmot.__init__, api.track, api.evaluate):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

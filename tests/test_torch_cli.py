@@ -8,9 +8,9 @@ JAX CLI's same command (read from the JAX ``run_eval`` it calls); with
 ``chip_smoke.OBB_EVAL``). ``track --save-txt`` writes the JAX CLI's file
 (ids and ``det_ind`` exact, boxes within 1e-4), ``tune-kf --out`` JAX's JSON
 and ``generate`` JAX's caches; ``train`` and ``eval-reid`` run the port's
-trainer and evaluator; ``export`` exits non-zero naming its ROADMAP item
-(``tune``, ``research`` and ``build`` are held to the JAX CLI in
-tests/test_torch_{tuning,research,native}.py).  A subprocess shows that the
+trainer and evaluator; ``export`` takes the JAX CLI's options and
+``--device`` (``tune``, ``research``, ``build`` and ``export`` are held to
+the JAX package in tests/test_torch_{tuning,research,native,export}.py).  A subprocess shows that the
 CLI and the API load no module of JAX or of the JAX package.
 """
 
@@ -218,9 +218,15 @@ def test_train_and_eval_reid_run_the_port(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [("export", 22)])
-def test_unported_commands_exit_naming_their_item(name, item):
-    res = CliRunner().invoke(cli, [name, "--data", "x", "--n-trials", "3"])
-    assert res.exit_code != 0 and f"ROADMAP Queue A item {item}" in res.output
+def test_unported_commands_exit_naming_their_item(name, item, tmp_path):
+    """``export``, refused until ROADMAP item 22, takes the JAX CLI's options
+    and ``--device``; an unknown target exits non-zero naming the targets."""
+    assert {p.name for p in cli.commands[name].params} == \
+        {p.name for p in jcli_mod.cli.commands[name].params} | {"device"}
+    res = CliRunner().invoke(cli, [name, "--include", "nosuch", "--imgsz", "64,32", "--out-dir",
+                                   str(tmp_path), "--device", "cpu"])
+    assert res.exit_code != 0 and "checkpoint,torch,saved_model,tflite,onnx" in res.output
+    assert f"item {item}" not in res.output
 
 
 def test_cli_and_api_leave_jax_out():

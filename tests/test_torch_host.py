@@ -1,9 +1,10 @@
 """The port's own copies of the JAX package's host modules against the originals.
 
 The port keeps copies of the dataset readers, the caches' loaders (the
-segmentation mask cache among them), the MOT row writer, the result type,
-the per-class id allocator, the HOTA/CLEAR/Identity metric stack and the
-host tracker sam2mot, so that it imports nothing of ``boxmot_tpu``.  Here the same inputs
+segmentation mask cache among them), the MOT row writer, the result types,
+the per-class id allocator, the HOTA/CLEAR/Identity metric stack, the
+host tracker sam2mot and the ONNX wire format, builder and evaluator, so
+that it imports nothing of ``boxmot_tpu``.  Here the same inputs
 go through each copy and its original, and the outputs must be identical:
 every metric, to the bit, on MOT17-mini and on mmot-mini.
 """
@@ -175,6 +176,70 @@ def test_id_allocator_and_track_results_equal_jax():
         for attr in ("xyxy", "xywh", "xywha", "id", "conf", "cls", "det_ind"):
             assert_identical(getattr(g, attr), getattr(w, attr), attr)
         assert (g.is_obb, g.to_json(), g.to_csv()) == (w.is_obb, w.to_json(), w.to_csv())
+
+
+def test_export_result_is_a_copy_of_the_original():
+    import inspect
+
+    assert inspect.getsource(tresults.ExportResult) == inspect.getsource(jresults.ExportResult)
+    info = {"onnx": {"path": Path("m.onnx"), "max_dev": 1e-6}, "checkpoint": {"path": "m.msgpack"}}
+    got, want = tresults.ExportResult(info), jresults.ExportResult(info)
+    assert got == want and got.summary() == want.summary() and got.onnx == want.onnx
+
+
+def seeded_graph(builder_cls, rng):
+    """A graph over most of the evaluator's ops, with seeded initializers and
+    every attribute kind."""
+    b = builder_cls("seeded")
+    b.add_input("x", [2, 3, 8, 6], np.float32)
+    w = b.constant(rng.normal(0, 0.3, (4, 3, 3, 3)).astype(np.float32), "w")
+    bias = b.constant(rng.normal(0, 0.1, 4).astype(np.float32), "b")
+    y = b.node("Conv", ["x", w, bias], strides=[1, 1], pads=[1, 1, 1, 1], dilations=[1, 1],
+               group=1)
+    y = b.node("Max", [y, b.constant(np.float32(0.0))])
+    m = b.node("MaxPool", [y], kernel_shape=[2, 2], strides=[2, 2], pads=[0, 0, 0, 0])
+    a = b.node("AveragePool", [y], kernel_shape=[2, 2], strides=[2, 2], pads=[0, 0, 0, 0],
+               count_include_pad=1)
+    y = b.node("Add", [m, b.node("Mul", [a, b.constant(np.float32(0.5))])])
+    mean = b.node("ReduceMean", [y], axes=[2, 3], keepdims=1)
+    y = b.node("Sub", [y, mean])
+    y = b.node("Erf", [b.node("Div", [y, b.node("Sqrt", [b.constant(np.float32(2.0))])])])
+    y = b.node("Transpose", [y], perm=[0, 2, 3, 1])
+    y = b.node("Reshape", [y, b.constant(np.array([2, 48], np.int64))])
+    y = b.node("Slice", [y, *(b.constant(np.array(v, np.int64)) for v in ([0], [40], [1], [1]))])
+    dense = b.constant(rng.normal(0, 0.2, (40, 5)).astype(np.float32), "dense")
+    y = b.node("MatMul", [y, dense])
+    e = b.node("Exp", [b.node("Sub", [y, b.node("ReduceMax", [y], axes=[1], keepdims=1)])])
+    y = b.node("Div", [e, b.node("ReduceSum", [e, b.constant(np.array([1], np.int64))],
+                                 keepdims=1)])
+    y = b.node("Concat", [y, b.node("Sigmoid", [y])], axis=1)
+    y = b.node("Gather", [y, b.constant(np.array([3, 0, 9], np.int64))], axis=1)
+    y = b.node("Pad", [y, b.constant(np.array([0, 1, 0, 2], np.int64)),
+                       b.constant(np.float32(-1.0))])
+    b.node("Identity", [y], outputs=["y"], note="seeded", scale=0.25)
+    b.add_output("y", [2, 6], np.float32)
+    return b
+
+
+def test_onnxlite_copies_encode_and_run_as_jax():
+    """The copied builder (and the port's ``Builder``, which joins its parts
+    once) writes the JAX GraphBuilder's bytes for a seeded graph; the copied
+    evaluator runs it to the JAX evaluator's outputs, to the bit."""
+    from boxmot_tpu.onnxlite import builder as jbuilder
+    from boxmot_tpu.onnxlite import runtime as jruntime
+    from boxmot_tpu_torch.onnxlite import builder as tbuilder
+    from boxmot_tpu_torch.onnxlite import runtime as truntime
+    from boxmot_tpu_torch.onnxlite.export import Builder
+
+    blobs = [seeded_graph(cls, np.random.default_rng(4)).serialize()
+             for cls in (jbuilder.GraphBuilder, tbuilder.GraphBuilder, Builder)]
+    assert blobs[0] == blobs[1] == blobs[2]
+    x = np.random.default_rng(5).normal(size=(2, 3, 8, 6)).astype(np.float32)
+    got, want = truntime.run_onnx(blobs[1], [x])[0], jruntime.run_onnx(blobs[0], [x])[0]
+    assert got.shape == (2, 6) and np.isfinite(got).all()
+    assert_identical(got, want)
+    nodes, inits, ins, outs = truntime.decode_model(blobs[1])
+    assert nodes[-1].attrs == {"note": "seeded", "scale": 0.25} and (ins, outs) == (["x"], ["y"])
 
 
 def test_emb_and_warp_caches_equal_jax(tmp_path):
@@ -356,7 +421,8 @@ COPIED_MODULES = ("motion/calibration.py", "postprocessing/__init__.py", "postpr
                   "postprocessing/gsi.py", "postprocessing/gbrc.py", "postprocessing/gta.py",
                   "postprocessing/registry.py", "data/synth.py", "data/mot17_parquet.py",
                   "utils/fmt.py", "utils/reporters.py", "utils/rich_ui.py", "engine/plots.py",
-                  "trackers/visualization.py", "configs/benchmark.py")
+                  "trackers/visualization.py", "configs/benchmark.py", "onnxlite/proto.py",
+                  "onnxlite/builder.py", "onnxlite/runtime.py")
 
 
 def _below_docstring(path: Path) -> str:

@@ -21,6 +21,7 @@ Tolerances:
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -261,10 +262,11 @@ def test_infer_model_name_equals_jax():
             fn("yolox_s.pt")
 
 
-def test_unported_backbones_and_runtimes_raise(tmp_path):
+def test_unported_backbones_and_runtimes_raise(tmp_path, monkeypatch):
     # every backbone of the JAX MODEL_FACTORY builds (tests/test_torch_{backbones,vit,
     # csl_tinyvit,clip}.py hold them to JAX), ViT, CSL-TinyViT and CLIP among them;
-    # only the runtimes of item 22 raise
+    # the runtimes that item 22 once refused are dispatched by suffix as in JAX
+    # (tests/test_torch_{export,tflite,native_reid}.py drive them)
     for name in ("resnet50", "lmbn_n", "hacnn", "mobilenetv2"):
         assert ReID(model_name=name, device="cpu").model_name == name
     assert create_reid("mlfn_market1501.pt", device="cpu").model_name == "mlfn"
@@ -281,12 +283,25 @@ def test_unported_backbones_and_runtimes_raise(tmp_path):
     native = tmp_path / "native"
     native.mkdir()
     (native / "manifest.txt").write_text("")
-    for weights in ("osnet_x0_25.msgpack", "osnet_x0_25.tflite", saved, native,
-                    native / "manifest.txt"):
-        with pytest.raises(NotImplementedError, match="item 22"):
-            create_reid(weights, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        ReID(weights="osnet_x0_25.msgpack", device="cpu")
+    from boxmot_tpu_torch.native import reid as native_reid
+    from boxmot_tpu_torch.reid import backends as tbackends
+
+    seen = []
+    for cls in ("TFLiteReID", "SavedModelReID"):
+        monkeypatch.setattr(tbackends, cls, lambda p, _c=cls, **kw: seen.append((_c, p, kw)))
+    monkeypatch.setattr(native_reid, "CppReID", lambda p, **kw: seen.append(("CppReID", p, kw)))
+    for weights in ("osnet_x0_25.tflite", saved, native, native / "manifest.txt"):
+        create_reid(weights, device="cpu", half=True)
+    assert [(c, Path(p)) for c, p, _ in seen] == [
+        ("TFLiteReID", Path("osnet_x0_25.tflite")), ("SavedModelReID", saved),
+        ("CppReID", native / "manifest.txt"), ("CppReID", native / "manifest.txt")]
+    assert seen[0][2] == seen[1][2] == {"device": "cpu"} and seen[2][2] == {}
+    # as in JAX, a .msgpack that does not exist gives the name's seeded model
+    for reid in (ReID(weights="osnet_x0_25.msgpack", device="cpu"),
+                 create_reid("osnet_x0_25.msgpack", device="cpu")):
+        assert all(torch.equal(x, y) for x, y in zip(
+            reid.model.state_dict().values(),
+            ReID(model_name="osnet_x0_25", device="cpu").model.state_dict().values()))
 
 
 def test_create_reid_and_defaults(checkpoint):

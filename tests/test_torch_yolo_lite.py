@@ -141,10 +141,10 @@ def test_adapter_postprocess_equals_jax():
 
 def test_seeded_weights_and_refusals(monkeypatch):
     """A stem seeds the port's weights (the same net every time, the JAX
-    package's integer); ``.msgpack`` needs flax; the adapters without their
-    packages raise the JAX package's ImportErrors (``transformers`` is hidden
-    here: where it is installed, RT-DETR would fetch the named model from
-    its hub); the card is the default."""
+    package's integer), also for a ``.msgpack`` path that does not exist;
+    the adapters without their packages raise the JAX package's ImportErrors
+    (``transformers`` is hidden here: where it is installed, RT-DETR would
+    fetch the named model from its hub); the card is the default."""
     assert seed_of("weights/yololite-seg.pt") == int.from_bytes(b"yolo", "little")
     assert task_of("yololite_obb.pt") == "obb" and task_of("yololite.pt") == "detect"
     a, b = LiteYOLO("yololite-pose.pt", device="cpu"), LiteYOLO("yololite-pose.pt", device="cpu")
@@ -152,8 +152,11 @@ def test_seeded_weights_and_refusals(monkeypatch):
                                                  b.model.state_dict().values()))
     got, = a(frame((180, 320)), conf=0.05)
     assert len(got.boxes) > 0 and got.keypoints.data.shape == (len(got.boxes), 17, 3)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        LiteYOLO("yololite.msgpack", device="cpu")
+    # a .msgpack that does not exist gives the stem's seeded weights, as in JAX
+    # (tests/test_torch_export.py loads one that JAX wrote)
+    c, d = LiteYOLO("yololite.msgpack", device="cpu"), LiteYOLO("yololite.pt", device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(c.model.state_dict().values(),
+                                                 d.model.state_dict().values()))
     for weights in ("yolov8n.pt", "yolo11s-seg.pt"):
         assert get_detector_class(weights) is tregistry.UltralyticsDetector
         with pytest.raises(ImportError) as port_err:
