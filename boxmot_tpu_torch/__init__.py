@@ -45,9 +45,18 @@ Entry points, on the card unless ``device="cpu"`` is given::
 
 and from the shell, ``python -m boxmot_tpu_torch.engine.cli eval --data
 root`` (also ``generate``, ``track``, ``tune-kf``, ``tune``, ``research``,
-``train``, ``eval-reid``, ``build``; ``--device cpu`` for the CPU).  A
-``name:cpp`` tracker runs the repo's native C++ core on the host
-(``native``).
+``train``, ``eval-reid``, ``build``, ``export``; ``--device cpu`` for the
+CPU).  A ``name:cpp`` tracker runs the repo's native C++ core on the host
+(``native``).  ``reid.training.ReIDTrainer`` trains data-parallel over a mesh
+of devices with ``TrainConfig(n_devices=N)`` (``parallel.training``).
+
+Besides ``create_tracker``, ``run_eval``, ``run_eval_obb`` and
+``run_generate``, the package exports lazily what the JAX package's
+``__init__`` does: ``Boxmot``, ``track``, ``evaluate``, ``TRACKER_REGISTRY``,
+``TrackResults``, ``ByteTrack``, ``OcSort``, ``BotSort`` and the result types
+``ValidationResult``, ``GenerateResult``, ``TuneResult``,
+``TuneTrialResult``, ``ExportResult``, ``TrackRunResult``, ``TrainResult``
+and ``ResearchResult``.
 """
 
 from boxmot_tpu_torch.engine.eval import run_eval
@@ -55,4 +64,28 @@ from boxmot_tpu_torch.engine.eval_obb import run_eval_obb
 from boxmot_tpu_torch.engine.generate import run_generate
 from boxmot_tpu_torch.trackers.zoo import create_tracker
 
-__all__ = ["create_tracker", "run_eval", "run_eval_obb", "run_generate"]
+__version__ = "0.1.0"
+
+_LAZY = {
+    **dict.fromkeys(("Boxmot", "track", "evaluate"), "boxmot_tpu_torch.api"),
+    "TRACKER_REGISTRY": "boxmot_tpu_torch.trackers.zoo",
+    "TrackResults": "boxmot_tpu_torch.trackers.track_results",
+    "ByteTrack": "boxmot_tpu_torch.trackers.bytetrack",
+    "OcSort": "boxmot_tpu_torch.trackers.ocsort",
+    "BotSort": "boxmot_tpu_torch.trackers.botsort",
+    **dict.fromkeys(("ValidationResult", "GenerateResult", "TuneResult", "TuneTrialResult",
+                     "ExportResult", "TrackRunResult", "TrainResult", "ResearchResult"),
+                    "boxmot_tpu_torch.engine.results"),
+}
+
+__all__ = sorted([*_LAZY, "create_tracker", "run_eval", "run_eval_obb", "run_generate",
+                  "__version__"])
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module 'boxmot_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)

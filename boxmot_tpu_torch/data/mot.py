@@ -1,9 +1,8 @@
-"""MOT Challenge dataset access.
+"""A copy of ``boxmot_tpu/data/mot.py``.
 
-The port's own copy of ``MOTDataset`` and what it uses from
-``boxmot_tpu/data/mot.py``, unchanged: index `<root>/<seq>` directories,
-read seqinfo.ini, and expose per-frame ground truth / public detections as
-numpy arrays.  Images are never touched by replay.
+MOT Challenge dataset access (``MOTDataset``, ``MOTSequence``,
+``compute_fps_mask``): index `<root>/<seq>` directories, read seqinfo.ini,
+and expose per-frame ground truth / public detections as numpy arrays.
 """
 
 from __future__ import annotations
@@ -40,6 +39,19 @@ def read_seqinfo(seq_dir: Path) -> SeqInfo:
         im_dir=s.get("imDir", "img1"),
         im_ext=s.get("imExt", ".jpg"),
     )
+
+
+def compute_fps_mask(frames: np.ndarray, orig_fps: int, target_fps: int) -> np.ndarray:
+    """Boolean frame mask matching target_fps (data/dataset.py:126-131):
+    keep frames at indices 1, 1+step, 1+2*step, ... with
+    step = orig_fps / min(orig_fps, target_fps)."""
+    frames = np.asarray(frames)
+    if frames.size == 0:
+        return np.zeros(0, bool)
+    tgt = min(int(orig_fps), int(target_fps))
+    step = orig_fps / tgt
+    wanted = set(np.arange(1, int(frames.max()) + 1, step).astype(int).tolist())
+    return np.isin(frames.astype(int), list(wanted))
 
 
 def load_mot_txt(path: Path) -> np.ndarray:
@@ -80,6 +92,11 @@ class MOTSequence:
 
     def gt(self) -> np.ndarray:
         return load_mot_txt(self.dir / "gt" / "gt.txt")
+
+    def fps_mask(self, rows: np.ndarray, target_fps: int) -> np.ndarray:
+        """Boolean mask selecting rows whose frame survives subsampling
+        the sequence to target_fps (compute_fps_mask, data/dataset.py:126-131)."""
+        return compute_fps_mask(rows[:, 0], self.info.frame_rate, target_fps)
 
     def public_dets(self) -> np.ndarray:
         return load_mot_txt(self.dir / "det" / "det.txt")

@@ -1,9 +1,8 @@
-"""MOT-format result conversion and writing.
+"""A copy of ``boxmot_tpu/engine/mot_io.py``.
 
-The port's own copy of ``convert_to_mot_format`` and ``write_mot_results``
-from ``boxmot_tpu/engine/mot_io.py``, unchanged.  It mirrors the reference
-conventions in boxmot/engine/tracking/mot.py:239-330: rows are (frame, id,
-left, top, width, height, conf, cls + 1, det_ind) with tlwh rounded to ints.
+MOT-format result conversion, writing and reading: rows are (frame, id,
+left, top, width, height, conf, cls + 1, det_ind) with tlwh rounded to
+ints (reference boxmot/engine/tracking/mot.py:239-330).
 """
 
 from __future__ import annotations
@@ -42,3 +41,13 @@ def write_mot_results(txt_path: Path, mot_results: np.ndarray) -> None:
     with open(txt_path, "w") as f:
         if mot_results is not None and len(mot_results):
             np.savetxt(f, mot_results, fmt=fmt, delimiter=",")
+
+
+def read_mot_results(txt_path: Path) -> np.ndarray:
+    txt_path = Path(txt_path)
+    if not txt_path.exists():
+        return np.zeros((0, 9), np.float64)
+    rows = np.loadtxt(txt_path, delimiter=",", ndmin=2, dtype=np.float64)
+    if rows.size == 0:
+        return np.zeros((0, 9), np.float64)
+    return rows

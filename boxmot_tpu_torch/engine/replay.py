@@ -11,7 +11,8 @@ JAX replay's ``_default_embs`` and ``_default_warps``).  Every output stays
 on the device until the batch has finished; ``_to_host`` then makes the one
 device-to-host copy.  Frame and detection counts are padded to the same
 static buckets as in the JAX package; padded outputs are cut off on the
-host.
+host.  ``init_state`` and ``scan_replay`` are the JAX functions of one
+sequence: the batched ones at S = 1.
 """
 
 from __future__ import annotations
@@ -200,6 +201,33 @@ def batch_replay(cfg, states, dets_batch: torch.Tensor, n_frames: int | None = N
             zero_embs if embs is None else embs[:, f],
             identity if warps is None else warps[:, f])
     return states, outs, masks
+
+
+def init_state(cfg, device="cuda"):
+    """One sequence's fresh state (the JAX ``init_state``): ``init_states``
+    at n = 1, so every field keeps a batch axis of size 1."""
+    return init_states(cfg, 1, device)
+
+
+def _state_device(state) -> torch.device:
+    return next(v.device for v in (getattr(state, f.name) for f in dataclasses.fields(state))
+                if torch.is_tensor(v))
+
+
+def scan_replay(cfg, state, dets_seq, embs_seq=None, warps_seq=None):
+    """Replay one sequence (the JAX ``scan_replay``): ``batch_replay`` at S = 1
+    of ``dets_seq`` (F, D, det_cols + 1), with optional embs (F, D, feat_dim)
+    and warps (F, 2, 3); host arrays go to the state's device.  Returns
+    (state, outs (F, K, 8 or 9), masks (F, K)), the state as
+    ``init_state``'s."""
+    dev = _state_device(state)
+
+    def batched(a):
+        return None if a is None else torch.as_tensor(a, dtype=torch.float32, device=dev)[None]
+
+    states, outs, masks = batch_replay(cfg, state, batched(dets_seq), embs=batched(embs_seq),
+                                       warps=batched(warps_seq))
+    return states, outs[0], masks[0]
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,11 +1,10 @@
-"""Typed eval, cache-generation, tuning, training and research results.
+"""A copy of ``boxmot_tpu/engine/results.py``.
 
-The port's own copy of ``ValidationResult``, ``GenerateResult``,
-``TuneResult``, ``TuneTrialResult``, ``TrainResult``, ``ResearchResult``,
-``ExportResult`` and their base from ``boxmot_tpu/engine/results.py``, unchanged: a dict subclass, so callers
-that index the raw mapping keep working, with attribute accessors and a
-summary (role mirror of the reference's
-boxmot/engine/workflows/results.py:136).
+Typed workflow results (``ValidationResult``, ``GenerateResult``,
+``TuneResult``, ``TuneTrialResult``, ``ExportResult``, ``TrackRunResult``,
+``TrainResult``, ``ResearchResult``): dict subclasses with attribute
+accessors and a summary (role mirror of the reference's
+boxmot/engine/workflows/results.py:136-504).
 """
 
 from __future__ import annotations
@@ -81,6 +80,28 @@ class TuneResult(WorkflowResult):
         return "  ".join(parts)
 
 
+class ExportResult(WorkflowResult):
+    """{target: {path, max_dev?}} from run_export (results.py:4xx)."""
+
+    def summary(self) -> str:
+        return ", ".join(
+            f"{t}->{info['path']}" for t, info in self.items()
+        )
+
+
+class TrackRunResult(WorkflowResult):
+    """Live-tracking run: frames tracked + optional MOT txt path."""
+
+    _fields = ("n_frames", "save_txt")
+
+    @property
+    def results(self):
+        return self["results"]
+
+    def __len__(self):
+        return len(self["results"])
+
+
 class TuneTrialResult(WorkflowResult):
     """One tuning trial: params + metrics + score (reference
     engine/workflows/results.py:232)."""
@@ -104,15 +125,6 @@ class TuneTrialResult(WorkflowResult):
         if self.get("error"):
             parts.append(f"error: {self['error']}")
         return "  ".join(parts)
-
-
-class ExportResult(WorkflowResult):
-    """{target: {path, max_dev?}} from run_export (results.py:4xx)."""
-
-    def summary(self) -> str:
-        return ", ".join(
-            f"{t}->{info['path']}" for t, info in self.items()
-        )
 
 
 class TrainResult(WorkflowResult):

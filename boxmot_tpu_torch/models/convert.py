@@ -13,14 +13,17 @@ ignored, and any other key the model lacks raises.
 ``{"params", "batch_stats"}`` tree (as numpy arrays) into the port's state
 dict: a copy of ``_Exporter`` and of ``export_osnet_state_dict`` /
 ``export_osnet_ain_state_dict`` (convert.py:385-502), with no JAX import.
+``convert_osnet`` / ``convert_osnet_ain`` go the other way, a torchreid
+checkpoint to Flax variables, through the port's module and ``flax_paths``.
 
-YOLOX (counterpart of ``boxmot_tpu/models/yolox.py::convert_yolox``, :308,
-and ``export_yolox``, :329): the port's ``YOLOX`` modules carry the yolox
-checkpoint's key names, so ``load_yolox`` only applies the JAX loader's key
-rules (a ``{"model": sd}`` wrapper and the ``model.`` prefix go,
-``num_batches_tracked`` is ignored, a key outside ``yolox_key_spec`` raises)
-and ``yolox_state_dict_from_flax`` is a JAX-free copy of ``export_yolox``
-over the Flax variables as numpy trees.
+YOLOX: the port's ``YOLOX`` modules carry the yolox checkpoint's key
+names, so ``load_yolox`` only applies the JAX loader's key rules
+(``boxmot_tpu/models/yolox.py::convert_yolox``, :308: a ``{"model": sd}``
+wrapper and the ``model.`` prefix go, ``num_batches_tracked`` is ignored, a
+key outside ``yolox_key_spec`` raises) and ``yolox_state_dict_from_flax`` is
+a JAX-free copy of ``export_yolox`` (:329) over the Flax variables as numpy
+trees; ``models/yolox.py``'s ``convert_yolox`` and ``export_yolox`` keep the
+JAX functions' signatures over them.
 
 The other ReID backbones (ResNet, MobileNetV2, LMBN, MLFN, CSPReID, HACNN,
 ViT, CSL-TinyViT, CLIP) carry the Flax modules' names but for LMBN's OSNet
@@ -151,8 +154,15 @@ class _Exporter:
         self.bn(self.params["fc_bn"], self.stats["fc_bn"], "fc.1")
 
 
-def _export_osnet(variables, ibn: bool) -> dict:
-    """export_osnet_state_dict (convert.py:433-465)."""
+def _check_blocks(blocks) -> None:
+    if tuple(blocks) != BLOCKS:
+        raise ValueError(f"blocks={tuple(blocks)}: every torchreid OSNet has {BLOCKS}")
+
+
+def export_osnet_state_dict(variables, blocks=BLOCKS, ibn: bool = False) -> dict:
+    """Flax variables of an OSNet -> torchreid-style numpy state dict (the
+    JAX ``export_osnet_state_dict``, convert.py:433-465)."""
+    _check_blocks(blocks)
     e = _Exporter(variables)
     params = e.params
     if ibn:
@@ -183,8 +193,10 @@ def _export_osnet(variables, ibn: bool) -> dict:
     return e.sd
 
 
-def _export_osnet_ain(variables) -> dict:
-    """export_osnet_ain_state_dict (convert.py:468-502)."""
+def export_osnet_ain_state_dict(variables, blocks=BLOCKS) -> dict:
+    """Flax variables of an OSNet-AIN -> torchreid-style numpy state dict
+    (the JAX ``export_osnet_ain_state_dict``, convert.py:470-502)."""
+    _check_blocks(blocks)
     e = _Exporter(variables)
     params = e.params
     e.conv_in("conv1", "conv1")
@@ -216,10 +228,39 @@ def osnet_state_dict_from_flax(variables, name: str) -> dict:
     """The JAX package's Flax variables of OSNet variant ``name`` (numpy
     arrays) as the state dict of the port's module, checked key by key."""
     if name.startswith("osnet_ain"):
-        sd = _export_osnet_ain(variables)
+        sd = export_osnet_ain_state_dict(variables)
     else:
-        sd = _export_osnet(variables, ibn=name.startswith("osnet_ibn"))
+        sd = export_osnet_state_dict(variables, ibn=name.startswith("osnet_ibn"))
     return convert_checkpoint(sd, name)
+
+
+def _osnet_to_flax(path_or_dict, family: str, blocks) -> dict:
+    """A torchreid checkpoint of the OSNet ``family`` ("osnet", "osnet_ibn",
+    "osnet_ain"; the width read from its stem) as Flax variables, through the
+    port's module and ``flax_paths``."""
+    from boxmot_tpu_torch.reid.exporters import flax_variables  # noqa: PLC0415 (imports this)
+
+    _check_blocks(blocks)
+    sd = load_state_dict(path_or_dict)
+    width = sd["conv1.conv.weight"].shape[0]
+    name = next(n for n, (channels, _) in OSNET_VARIANTS.items()
+                if channels[0] == width and n.rsplit("_x", 1)[0] == family)
+    model = build_osnet(name)
+    model.load_state_dict(convert_checkpoint(sd, name))
+    return flax_variables(model, name)
+
+
+def convert_osnet(path_or_dict, blocks=BLOCKS, ibn: bool = False) -> dict:
+    """A torchreid OSNet checkpoint -> Flax variables ``{"params",
+    "batch_stats"}`` of numpy arrays (the JAX ``convert_osnet``; ``ibn`` for
+    osnet_ibn_x1_0)."""
+    return _osnet_to_flax(path_or_dict, "osnet_ibn" if ibn else "osnet", blocks)
+
+
+def convert_osnet_ain(path_or_dict, blocks=BLOCKS) -> dict:
+    """A torchreid OSNet-AIN checkpoint -> Flax variables (the JAX
+    ``convert_osnet_ain``)."""
+    return _osnet_to_flax(path_or_dict, "osnet_ain", blocks)
 
 
 def _yolox_keys(name: str) -> set:

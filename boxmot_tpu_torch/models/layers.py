@@ -14,9 +14,20 @@
   switches every batch norm of a model to ``FlaxBatchNorm1d`` /
   ``FlaxBatchNorm2d`` in place (parameters and buffers unchanged); in eval
   mode they are PyTorch's batch norms.
+* ``shard_reduction``: while a thread runs one shard of a data-parallel
+  batch (``parallel/training.py``), its Flax batch norms take their
+  train-mode statistics over the whole batch, as XLA's global reduction does
+  under the JAX trainer's mesh: the shard's per-channel ``sum(x)``,
+  ``sum(x * x)`` and element count go through the reduction given, and the
+  mean and ``E[x^2] - mean^2`` (clipped at 0) come from the totals, with the
+  gradient flowing through them.  Outside it the layer takes its own batch.
+  LayerNorm and InstanceNorm are per sample and take no part.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
@@ -34,14 +45,38 @@ class BiasFreeBatchNorm1d(nn.BatchNorm1d):
         self.register_buffer("bias", torch.zeros(num_features))
 
 
+_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def shard_reduction(reduce):
+    """Within the block, this thread's Flax batch norms reduce their batch
+    statistics through ``reduce(sums, count) -> (totals, total_count)``:
+    ``sums`` a tuple of per-channel tensors, ``count`` the shard's elements a
+    channel; the totals over every shard, the same on each."""
+    prev = getattr(_SHARD, "reduce", None)
+    _SHARD.reduce = reduce
+    try:
+        yield
+    finally:
+        _SHARD.reduce = prev
+
+
 class _FlaxBatchNorm:
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dims)
-        var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+        reduce = getattr(_SHARD, "reduce", None)
+        if reduce is None:
+            mean = x.mean(dims)
+            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+        else:
+            (total, total_sq), n = reduce((x.sum(dims), (x * x).sum(dims)),
+                                          x.numel() // x.shape[1])
+            mean = total / n
+            var = torch.clamp_min(total_sq / n - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(FLAX_BN_MOMENTUM).add_(mean.detach(), alpha=1 - FLAX_BN_MOMENTUM)
             self.running_var.mul_(FLAX_BN_MOMENTUM).add_(var.detach(), alpha=1 - FLAX_BN_MOMENTUM)

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxmot_tpu_torch.models.layers import BiasFreeBatchNorm1d
-from boxmot_tpu_torch.models.osnet import Conv1x1, ConvLayer, OSBlock
+from boxmot_tpu_torch.models.osnet import Conv1x1, ConvBNReLU, OSBlock
 
 FEAT = 512  # every head's width
 
@@ -83,7 +83,7 @@ class LMBN(nn.Module):
         # branches' conv3_1, conv4_0, conv4_1 in, in, os; plain LMBN os
         s2 = ("in", "in") if ain else ("os", "os")
         kinds = ("in", "in", "os") if ain else ("os", "os", "os")
-        self.conv1 = ConvLayer(3, c0, 7, stride=2, IN=ain)
+        self.conv1 = ConvBNReLU(3, c0, 7, stride=2, IN=ain)
         self.conv2_0 = OSBlock(c0, c1, in_inside=s2[0] == "in")
         self.conv2_1 = OSBlock(c1, c1, in_inside=s2[1] == "in")
         self.transition2 = Conv1x1(c1, c1)

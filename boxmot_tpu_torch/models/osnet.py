@@ -41,28 +41,30 @@ OSNET_VARIANTS = {
 # block kinds a stage of OSNet-AIN (osnet.py:37): "in" blocks normalize conv3
 # with instance norm inside the residual branch (torchreid's OSBlockINin)
 AIN_BLOCKS = (("in", "in"), ("os", "in"), ("in", "os"))
+OS_BLOCKS = (("os", "os"), ("os", "os"), ("os", "os"))  # every other OSNet's
 FEATURE_DIM = 512  # the fc embedding of every torchreid OSNet
 
 
-def _instance_norm(channels: int) -> nn.InstanceNorm2d:
+def instance_norm(channels: int) -> nn.InstanceNorm2d:
     """InstanceNorm2d(affine=True): Flax's GroupNorm with one channel a group."""
     return nn.InstanceNorm2d(channels, affine=True)
 
 
-class ConvLayer(nn.Module):
+class ConvBNReLU(nn.Module):
     """Convolution, batch or instance norm (``bn`` either way), ReLU: the stem
-    (torchreid ConvLayer; ``ConvBNReLU(kernel=7, stride=2)`` in Flax)."""
+    (the Flax ``ConvBNReLU(kernel=7, stride=2)``; torchreid's ``ConvLayer``,
+    whose attribute names it keeps)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, IN: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
-        self.bn = _instance_norm(cout) if IN else nn.BatchNorm2d(cout)
+        self.bn = instance_norm(cout) if IN else nn.BatchNorm2d(cout)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
 
 
-class Conv1x1(ConvLayer):
+class Conv1x1(ConvBNReLU):
     """1x1 convolution, batch norm, ReLU (``ConvBNReLU(kernel=1)``)."""
 
     def __init__(self, cin: int, cout: int):
@@ -146,7 +148,7 @@ class OSBlock(nn.Module):
         self.gate = ChannelGate(mid)
         self.conv3 = Conv1x1Linear(mid, cout, bn=not in_inside)
         self.downsample = Conv1x1Linear(cin, cout) if cin != cout else None
-        self.IN = _instance_norm(cout) if (in_inside or IN) else None
+        self.IN = instance_norm(cout) if (in_inside or IN) else None
         self.in_inside = in_inside
 
     def forward(self, x):
@@ -178,11 +180,12 @@ class OSNet(nn.Module):
         super().__init__()
         c0, c1, c2, c3 = channels
         self.feature_dim = feature_dim
-        self.conv1 = ConvLayer(3, c0, 7, stride=2, IN=ain or ibn)
+        self.conv1 = ConvBNReLU(3, c0, 7, stride=2, IN=ain or ibn)
         widths = ((c0, c1), (c1, c2), (c2, c3))
+        kinds = AIN_BLOCKS if ain else OS_BLOCKS
         for s, (cin, cout) in enumerate(widths):
             blocks = [OSBlock(cin if b == 0 else cout, cout, ain=ain,
-                              in_inside=ain and AIN_BLOCKS[s][b] == "in", IN=ibn and s == 0)
+                              in_inside=kinds[s][b] == "in", IN=ibn and s == 0)
                       for b in range(2)]
             transition = nn.Sequential(Conv1x1(cout, cout), nn.AvgPool2d(2, stride=2))
             if s < 2 and not ain:

@@ -24,6 +24,7 @@ on the card), as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -322,3 +323,40 @@ def yolox_key_spec(name: str):
         spec.append((f"head.reg_preds.{lvl}", (f"head_reg_pred{lvl}",), "conv"))
         spec.append((f"head.obj_preds.{lvl}", (f"head_obj_pred{lvl}",), "conv"))
     return spec
+
+
+def convert_yolox(path_or_dict, name: str = "yolox_x", num_classes: int = 1) -> dict:
+    """A yolox torch checkpoint -> Flax variables ``{"params",
+    "batch_stats"}`` (numpy; HWIO kernels) of the JAX ``build_yolox(name)``,
+    the JAX ``convert_yolox``; the key rules are ``convert.load_yolox``'s.
+    ``num_classes`` is taken, as JAX's is, and the checkpoint decides."""
+    from boxmot_tpu_torch.models.convert import load_yolox  # noqa: PLC0415 (imports this)
+
+    sd = {k: v.numpy() for k, v in load_yolox(path_or_dict, name).items()}
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = value
+
+    for tk, fpath, kind in yolox_key_spec(name):
+        if kind == "bn":
+            put(params, (*fpath, "scale"), sd[f"{tk}.weight"])
+            put(params, (*fpath, "bias"), sd[f"{tk}.bias"])
+            put(stats, (*fpath, "mean"), sd[f"{tk}.running_mean"])
+            put(stats, (*fpath, "var"), sd[f"{tk}.running_var"])
+        else:
+            put(params, (*fpath, "kernel"), np.transpose(sd[f"{tk}.weight"], (2, 3, 1, 0)))
+            if f"{tk}.bias" in sd:
+                put(params, (*fpath, "bias"), sd[f"{tk}.bias"])
+    return {"params": params, "batch_stats": stats}
+
+
+def export_yolox(variables, name: str = "yolox_x") -> dict:
+    """Flax variables of YOLOX ``name`` -> the yolox checkpoint's state dict
+    (numpy, OIHW), the JAX ``export_yolox``."""
+    from boxmot_tpu_torch.models.convert import yolox_state_dict_from_flax  # noqa: PLC0415
+
+    return {k: v.numpy() for k, v in yolox_state_dict_from_flax(variables, name).items()}

@@ -40,6 +40,11 @@ class KFLayout:
     enforce: Callable  # (..., dx) mean -> (..., dx)
     nsa: bool = False  # scale the measurement noise by (1 - conf) on update
 
+    @property
+    def F(self) -> torch.Tensor:
+        """The motion matrix, (dx, dx) float32 (the JAX layout's ``F``)."""
+        return torch.tensor(self.motion_mat, dtype=torch.float32)
+
 
 def _const_matmul(F: tuple, x: torch.Tensor, dim: int) -> torch.Tensor:
     """y[a] = sum_b F[a][b] * x[b] along ``dim`` for a static matrix F.

@@ -1,7 +1,9 @@
 """ReID crops: kernel K5 and its plain twin.
 
 Counterpart of ``boxmot_tpu/ops/crops.py`` (``crop_resize_aabb``,
-``crop_resize_obb``, ``standardize``, ``extract_crops``).  The JAX package
+``crop_resize_obb``, ``standardize``, ``extract_crops``); the first two keep
+JAX's signatures and NHWC output over the twin's float sampling, while the
+uint8 frame path ``extract_crops`` runs K5.  The JAX package
 resamples axis-aligned crops as two dense fp32 products over (N, oh, H) and
 (N, ow, W) interpolation matrices, because gathers are slow on the TPU; on
 this card a gather is natural, so ``extract_crops`` on a CUDA frame launches
@@ -38,6 +40,7 @@ import torch
 
 from boxmot_tpu_torch.csrc import build
 from boxmot_tpu_torch.ops.geometry import exact
+from boxmot_tpu_torch.utils.device import as_tensor_on
 
 # copied from boxmot_tpu/ops/crops.py:21-22
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -116,6 +119,22 @@ def crop_resize_obb_plain(img: torch.Tensor, xywha: torch.Tensor,
     xs = c3(cx) + u * c3(ca) - v * c3(sa) - 0.5
     ys = c3(cy) + u * c3(sa) + v * c3(ca) - 0.5
     return _sample(img, _axis(ys, H), _axis(xs, W)).permute(0, 3, 1, 2)
+
+
+def crop_resize_aabb(img, xyxy, out_hw=(256, 128), device=None) -> torch.Tensor:
+    """JAX's ``crop_resize_aabb``: float ``img`` (H, W, C) and ``xyxy`` (N, 4)
+    -> (N, oh, ow, C), JAX's layout, by the twin's sampling on ``device``
+    (host arrays go to the card unless it names another).  The uint8 frame
+    path, ``extract_crops``, is the one that launches kernel K5."""
+    img = as_tensor_on(img, device)
+    return crop_resize_aabb_plain(img, as_tensor_on(xyxy, img.device), out_hw).permute(0, 2, 3, 1)
+
+
+def crop_resize_obb(img, xywha, out_hw=(256, 128), device=None) -> torch.Tensor:
+    """JAX's ``crop_resize_obb``: rectified crops of rotated boxes (N, 5)
+    (cx, cy, w, h, angle) -> (N, oh, ow, C), as ``crop_resize_aabb``."""
+    img = as_tensor_on(img, device)
+    return crop_resize_obb_plain(img, as_tensor_on(xywha, img.device), out_hw).permute(0, 2, 3, 1)
 
 
 def standardize(crops_rgb01: torch.Tensor) -> torch.Tensor:

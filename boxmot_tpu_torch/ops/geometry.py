@@ -52,6 +52,30 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 
+def xywh2tlwh(x: torch.Tensor) -> torch.Tensor:
+    """(cx,cy,w,h) -> (t,l,w,h) top-left corner + size."""
+    cx, cy, w, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    return torch.stack([cx - w / 2.0, cy - h / 2.0, w, h], dim=-1)
+
+
+def tlwh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(t,l,w,h) -> (x1,y1,x2,y2)."""
+    t, l, w, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]  # noqa: E741
+    return torch.stack([t, l, t + w, l + h], dim=-1)
+
+
+def xyxy2tlwh(x: torch.Tensor) -> torch.Tensor:
+    """(x1,y1,x2,y2) -> (t,l,w,h)."""
+    x1, y1, x2, y2 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+
+
+def tlwh2xyah(x: torch.Tensor) -> torch.Tensor:
+    """(t,l,w,h) -> (cx,cy,aspect=w/h,h)."""
+    t, l, w, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]  # noqa: E741
+    return torch.stack([t + w / 2, l + h / 2, w / h, h], dim=-1)
+
+
 def xyxy2xysr(x: torch.Tensor) -> torch.Tensor:
     """(x1,y1,x2,y2) -> (cx,cy,s=area,r=w/(h+1e-6)), OC-SORT's measurement."""
     x1, y1, x2, y2 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]

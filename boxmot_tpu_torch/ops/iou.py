@@ -20,7 +20,7 @@ import torch
 
 from boxmot_tpu_torch.ops.fused_iou_cost import IOU_BATCH_EPS, fused_iou_cost
 from boxmot_tpu_torch.ops.geometry import exact
-from boxmot_tpu_torch.ops.rotated_iou import rotated_iou
+from boxmot_tpu_torch.ops.rotated_iou import iou_batch_obb, rotated_iou  # noqa: F401 (re-export)
 
 _EPS = IOU_BATCH_EPS
 

@@ -18,6 +18,10 @@ nonzero terms in the same order (see the kernel's source note).
 
 Both take the corners from the caller (``obb_corners`` by default), so a
 comparison of the kernel with the twin tests the clip and not the trig.
+
+``iou_batch_obb`` and ``rect_intersection_area`` keep the JAX functions'
+signatures, (N, 5) x (M, 5) -> (N, M): the first is ``rotated_iou`` at S =
+1 (K3 on the card), the second the twin's clip (K3 computes no areas).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from boxmot_tpu_torch.csrc import build
 from boxmot_tpu_torch.ops.geometry import obb_corners
+from boxmot_tpu_torch.utils.device import as_tensor_on
 
 _P = ctypes.c_void_p
 
@@ -72,14 +77,8 @@ def _sum_slots(terms):
     return acc
 
 
-def rotated_iou_plain(obbs1, obbs2, c1=None, c2=None):
-    """(S, N, 5) x (S, M, 5) xywha -> (S, N, M) rotated IoU.
-
-    c1, c2: the boxes' corners (S, N, 4, 2) and (S, M, 4, 2); computed with
-    ``obb_corners`` when not given.
-    """
-    c1 = obb_corners(obbs1) if c1 is None else c1
-    c2 = obb_corners(obbs2) if c2 is None else c2
+def _intersection_plain(obbs1, obbs2, c1, c2):
+    """(S, N, M) intersection areas of the twin's clip."""
     offx = (obbs1[:, :, None, 0] + obbs2[:, None, :, 0]) / 2.0  # (S, N, M)
     offy = (obbs1[:, :, None, 1] + obbs2[:, None, :, 1]) / 2.0
     x = c1[:, :, None, :, 0] - offx[..., None]  # (S, N, M, 4)
@@ -99,7 +98,18 @@ def rotated_iou_plain(obbs1, obbs2, c1=None, c2=None):
                                          ex[..., kn], ey[..., kn], orient)
 
     area = 0.5 * torch.abs(_sum_slots(x * torch.roll(y, -1, -1) - torch.roll(x, -1, -1) * y))
-    inter = torch.where(nonempty, area, 0.0)
+    return torch.where(nonempty, area, 0.0)
+
+
+def rotated_iou_plain(obbs1, obbs2, c1=None, c2=None):
+    """(S, N, 5) x (S, M, 5) xywha -> (S, N, M) rotated IoU.
+
+    c1, c2: the boxes' corners (S, N, 4, 2) and (S, M, 4, 2); computed with
+    ``obb_corners`` when not given.
+    """
+    c1 = obb_corners(obbs1) if c1 is None else c1
+    c2 = obb_corners(obbs2) if c2 is None else c2
+    inter = _intersection_plain(obbs1, obbs2, c1, c2)
     a1 = obbs1[..., 2] * obbs1[..., 3]
     a2 = obbs2[..., 2] * obbs2[..., 3]
     union = a1[:, :, None] + a2[:, None, :] - inter
@@ -182,3 +192,20 @@ def rotated_iou_counted(obbs1, obbs2, c1, c2):
 
 
 rotated_iou.launches = 0
+
+
+def rect_intersection_area(obbs1, obbs2, device=None):
+    """Pairwise intersection areas of rotated rects: (N, 5) x (M, 5)
+    (cx, cy, w, h, angle) -> (N, M), on ``device`` (a host array goes to the
+    card unless it names another)."""
+    b1 = as_tensor_on(obbs1, device)[None, :, :5]
+    b2 = as_tensor_on(obbs2, b1.device)[None, :, :5]
+    return _intersection_plain(b1, b2, obb_corners(b1), obb_corners(b2))[0]
+
+
+def iou_batch_obb(obbs1, obbs2, device=None):
+    """Pairwise rotated IoU, (N, >= 5) x (M, >= 5) -> (N, M): ``rotated_iou``
+    of one problem, kernel K3 on the card."""
+    b1 = as_tensor_on(obbs1, device)[None, :, :5].contiguous()
+    b2 = as_tensor_on(obbs2, b1.device)[None, :, :5].contiguous()
+    return rotated_iou(b1, b2)[0]

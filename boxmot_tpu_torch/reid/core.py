@@ -10,7 +10,7 @@ contract.  The JAX package pads a call's crops to a static bucket for
 XLA's compile cache; eager PyTorch needs none, so a crop's feature is the
 same, within the backbone's rounding, alone or in any batch.
 
-Backbones (``MODEL_BUILDERS``), every name of the JAX ``MODEL_FACTORY``:
+Backbones (``MODEL_FACTORY``), every name of the JAX ``MODEL_FACTORY``:
 the OSNet family (``models/osnet.py``), the ViTs (``models/vit.py``: six
 variants), CSL-TinyViT (``models/csl_tinyvit.py``: ten variants and
 aliases), LMBN and LMBN-AIN (``models/lmbn.py``), CSPReID-n, MLFN, HACNN
@@ -51,7 +51,10 @@ from boxmot_tpu_torch.models.vit import build_vit
 from boxmot_tpu_torch.ops.crops import as_frame, extract_crops
 from boxmot_tpu_torch.utils.device import resolve_device
 
-CHUNK = 256  # the most crops one backbone call takes (the JAX CROP_BUCKETS' largest)
+# the JAX package's crop-count buckets (the batch shapes its jitted ReID
+# compiles for); the port needs no padding, and chunks at the largest
+CROP_BUCKETS = (1, 8, 16, 32, 64, 128, 256)
+CHUNK = CROP_BUCKETS[-1]  # the most crops one backbone call takes
 
 # the JAX MODEL_FACTORY's names, in its order (boxmot_tpu/reid/core.py:42-87)
 CSL_VARIANTS = (
@@ -64,8 +67,8 @@ VIT_VARIANTS = ("vit_nano", "vit_nano_ain", "vit_nano_ain_os", "vit_tiny", "vit_
 MODEL_NAMES = (*OSNET_VARIANTS, *VIT_VARIANTS, *CSL_VARIANTS, "lmbn_n", "lmbn_ain_n",
                "cspreid_n", "mlfn", "hacnn", "clip", "resnet50", "resnet101", "mobilenetv2_x1_0",
                "mobilenetv2_x1_4", "mobilenetv2")
-# the JAX MODEL_FACTORY's builders, by name
-MODEL_BUILDERS = {
+# the JAX MODEL_FACTORY: a builder a name (``crop_hw`` for CROP_SIZED ones)
+MODEL_FACTORY = {
     **{name: partial(build_osnet, name) for name in OSNET_VARIANTS},
     **{name: partial(build_vit, name) for name in VIT_VARIANTS},
     **{name: partial(build_csl_tinyvit, name) for name in CSL_VARIANTS},
@@ -87,11 +90,11 @@ CROP_SIZED = (*VIT_VARIANTS, "clip")  # positional embeddings sized from the cro
 def build_model(name: str, crop_hw=(256, 128)) -> torch.nn.Module:
     """Backbone ``name`` of ``MODEL_NAMES`` for ``crop_hw`` crops, with
     PyTorch's default initialization."""
-    if name not in MODEL_BUILDERS:
+    if name not in MODEL_FACTORY:
         raise KeyError(f"unknown ReID model {name!r}")
     if name in CROP_SIZED:
-        return MODEL_BUILDERS[name](crop_hw=tuple(crop_hw))
-    return MODEL_BUILDERS[name]()
+        return MODEL_FACTORY[name](crop_hw=tuple(crop_hw))
+    return MODEL_FACTORY[name]()
 
 
 def infer_model_name(weights: str | Path | None) -> str:

@@ -6,7 +6,8 @@ Multi-Similarity, Circle, and the ``ArcFaceHead``, ``CosFaceHead`` and
 ``CenterHead`` modules, which carry parameters in the Flax modules' names
 and layouts (``weight`` of (feat, classes), ``centers`` of (classes,
 feat)).  Batch-hard mining takes ``amax`` / ``amin``, which share a tie's
-gradient as JAX's ``max`` / ``min`` do.
+gradient as JAX's ``max`` / ``min`` do.  ``LOSS_REGISTRY`` and
+``HEAD_REGISTRY`` name them as JAX's do.
 """
 
 from __future__ import annotations
@@ -135,3 +136,17 @@ class CenterHead(nn.Module):
     def forward(self, feats, targets):
         return 0.5 * torch.mean(torch.sum((feats - self.centers[targets]) ** 2, dim=1))
 
+
+
+LOSS_REGISTRY = {
+    "ce_smooth": cross_entropy_label_smooth,
+    "triplet": triplet_loss,
+    "multi_similarity": multi_similarity_loss,
+    "circle": circle_loss,
+}
+
+HEAD_REGISTRY = {
+    "arcface": ArcFaceHead,
+    "cosface": CosFaceHead,
+    "center": CenterHead,
+}

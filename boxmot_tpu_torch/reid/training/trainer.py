@@ -20,12 +20,23 @@ equal the JAX trainer's leaf for leaf; without them the model starts from
 PyTorch's initialization under ``torch.manual_seed(cfg.seed)`` (the global
 generator left as it was).  Checkpoints are the port's own (``torch.save``
 of the model's state, the optimizer's moments and count, the EMA, the step
-and the history); the JAX package's pickles do not load.  ``n_devices > 1``
-(the JAX trainer's data-parallel mesh) is not ported: it raises the JAX
-trainer's ``ValueError`` when fewer cards are present, else
-``NotImplementedError``.  ``dtype=torch.float64`` trains in double (model,
-moments, EMA and batches), to tell float32 rounding from a fault; a
-checkpoint loads into either.
+and the history); the JAX package's pickles do not load.
+``dtype=torch.float64`` trains in double (model, moments, EMA and batches),
+to tell float32 rounding from a fault; a checkpoint loads into either.
+
+``n_devices > 1`` is the JAX trainer's data-parallel mesh.  ``device`` is
+then a mesh (a tuple of devices, as ``parallel/replay.py::sequence_mesh``
+returns) whose first ``n_devices`` entries the trainer takes, or "cuda",
+every visible card, as JAX takes ``jax.devices()``; a mesh with fewer
+entries, or a single device, raises JAX's ``ValueError``, as does an
+effective batch ``min(p, num_classes) * k`` that ``n_devices`` does not
+divide.  The model, the optimizer's moments and the EMA live on the mesh's
+first entry; each step the backbone runs over the batch's contiguous slices
+on the entries together, its batch norms reduced over the whole batch
+(``parallel/training.py``), the identity heads and the loss over the whole
+batch on the first entry, and one gradient of that loss sums the replicas'
+(the all-reduce): a sharded step is the one-device step over the whole batch
+up to the order of reductions.  Checkpoints do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ from torch import nn
 
 from boxmot_tpu_torch.models.convert import flax_paths, state_dict_from_flax_paths
 from boxmot_tpu_torch.models.layers import use_flax_batch_norm
+from boxmot_tpu_torch.parallel.replay import sequence_mesh
+from boxmot_tpu_torch.parallel.training import DataParallel
 from boxmot_tpu_torch.reid.datasets import PKSampler, load_dataset, make_batch
 from boxmot_tpu_torch.reid.training import losses as L
 from boxmot_tpu_torch.reid.training import optim as O
@@ -128,7 +141,10 @@ class ReIDClassifier(nn.Module):
             self.center = L.CenterHead(num_classes, dim)
 
     def forward(self, x, targets):
-        feats = self.backbone(x)
+        return self.heads(self.backbone(x), targets)
+
+    def heads(self, feats, targets):
+        """The outputs ``forward`` gives for the backbone's features."""
         if self.classifier_loss in ("arcface", "cosface"):
             id_out = self.margin_head(feats, targets)
         elif len(self.part_dims) > 1:
@@ -151,6 +167,22 @@ def _slash(path) -> str:
     return "/".join(path)
 
 
+def _mesh_for(device, n_devices: int):
+    """The first ``n_devices`` entries of the mesh ``device`` names (module
+    docstring), or None for one device."""
+    if not n_devices or n_devices <= 1:
+        return None
+    if isinstance(device, (tuple, list)):
+        mesh = sequence_mesh(device)
+    elif resolve_device(device).type == "cuda":
+        mesh = sequence_mesh()  # every visible card
+    else:
+        mesh = (resolve_device(device),)
+    if len(mesh) < n_devices:
+        raise ValueError(f"n_devices={n_devices} but only {len(mesh)} present")
+    return mesh[:n_devices]
+
+
 class ReIDTrainer:
     def __init__(self, cfg: TrainConfig, device="cuda", variables: dict | None = None,
                  dtype: torch.dtype = torch.float32):
@@ -159,7 +191,10 @@ class ReIDTrainer:
         if cfg.classifier_loss not in CLASSIFIER_LOSSES:
             raise ValueError(f"unknown classifier loss {cfg.classifier_loss!r}; "
                              f"supported: {CLASSIFIER_LOSSES}")
-        self.device = resolve_device(device)
+        self.mesh = _mesh_for(device, cfg.n_devices)
+        if isinstance(device, (tuple, list)):
+            device = device[0]
+        self.device = resolve_device(self.mesh[0] if self.mesh else device)
         self.dataset = load_dataset(cfg.dataset, cfg.data_root)
         self.num_classes = self.dataset.num_train_pids
         batch = min(cfg.p, self.num_classes) * cfg.k
@@ -169,13 +204,9 @@ class ReIDTrainer:
         if cfg.epochs > 0:
             cfg = dataclasses.replace(cfg, steps=cfg.epochs * spe,
                                       warmup_steps=cfg.warmup_epochs * spe)
-        if cfg.n_devices and cfg.n_devices > 1:
-            present = torch.cuda.device_count() if self.device.type == "cuda" else 1
-            if present < cfg.n_devices:
-                raise ValueError(f"n_devices={cfg.n_devices} but only {present} present")
-            raise NotImplementedError("data-parallel training over several cards is not ported: "
-                                      "it is what remains of ROADMAP Queue A item 23 "
-                                      "(parallel/replay.py is ported over one card)")
+        if self.mesh and batch % cfg.n_devices:
+            # the sampler clips P to the identities available: the effective batch
+            raise ValueError(f"effective batch {batch} must divide n_devices={cfg.n_devices}")
         self.cfg = cfg
         from boxmot_tpu_torch.reid.core import MODEL_NAMES, build_model  # noqa: PLC0415
 
@@ -195,6 +226,7 @@ class ReIDTrainer:
             model.load_state_dict(state_dict_from_flax_paths(model, cfg.model, variables))
         self.dtype = dtype
         self.model = model.to(self.device, dtype)
+        self._sharded = DataParallel(self.model.backbone, self.mesh) if self.mesh else None
         self.sampler = PKSampler(self.dataset.train, cfg.p, cfg.k, seed=cfg.seed)
         self.schedule = make_schedule(cfg)
 
@@ -227,7 +259,10 @@ class ReIDTrainer:
 
     def _losses(self, images, labels):
         cfg, step = self.cfg, self.step
-        out = self.model(images, labels)
+        if self._sharded is None:
+            out = self.model(images, labels)
+        else:
+            out = self.model.heads(self._sharded(images), labels)
         feats, id_out = out[0], out[1]
         if cfg.classifier_loss != "ce":
             ce = id_out

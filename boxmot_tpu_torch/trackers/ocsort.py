@@ -42,7 +42,7 @@ from boxmot_tpu_torch.motion import kalman
 from boxmot_tpu_torch.ops.geometry import exact, obb2xysr, xysr2obb, xysr2xyxy, xyxy2xysr
 from boxmot_tpu_torch.ops.iou import get_asso_func
 from boxmot_tpu_torch.ops.lap import masked_assignment
-from boxmot_tpu_torch.ops.oru import masked_update, oru_replay
+from boxmot_tpu_torch.ops.oru import MAX_ORU, masked_update, oru_replay  # noqa: F401 (JAX's name)
 from boxmot_tpu_torch.trackers.base import BaseTracker
 from boxmot_tpu_torch.trackers.slots import allocate, scatter_det_flags, take
 

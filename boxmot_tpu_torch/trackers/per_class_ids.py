@@ -1,25 +1,7 @@
-"""Reference-style global sequential track ids for per-class mode.
+"""A copy of ``boxmot_tpu/trackers/per_class_ids.py``.
 
-The port's own copy of ``GlobalIdAllocator`` from
-``boxmot_tpu/trackers/per_class_ids.py``, with the methods the live shell
-calls, unchanged.
-
-The reference's per-class split shares one global id counter across all
-classes (each tracker type's track class holds a process-wide ``count``
-/ ``next_id()`` counter, e.g. basetrack ids for ByteTrack), so a track
-created for class 2 after a class-0 track gets the next integer, not an
-id from a class-local namespace.  The batched device states keep one id
-counter per class bank instead; this allocator reconstructs the reference
-numbering on the host by observing how many tracks each class bank created
-per frame (classes are processed in ascending order, matching the
-reference's ``for cls_id in range(nr_classes)`` loop — reference
-trackers/basetracker.py:228).
-
-Creation order — not first-emission order — determines numbering: the
-reference increments its counter when a track is *created*, including
-tracks that age out before ever being emitted (min_hits gating), so the
-allocator must be fed creation counts (``next_id`` deltas), not output
-rows.
+Reference-style global sequential track ids for per-class mode
+(``GlobalIdAllocator``).
 """
 
 from __future__ import annotations
@@ -32,6 +14,10 @@ class GlobalIdAllocator:
 
     def __init__(self):
         self._map: dict[int, int] = {}
+        self._next = 1
+
+    def reset(self) -> None:
+        self._map.clear()
         self._next = 1
 
     def observe_created(self, raw_start: int, raw_stop: int) -> None:

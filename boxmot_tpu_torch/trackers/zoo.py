@@ -7,23 +7,51 @@ tracker in both packages.  Any other name raises.  ``name:cpp`` (or
 ``backend="cpp"``) gives the repo's native C++ core of the tracker, on the
 host, as in the JAX zoo.  Config resolution order,
 as in the JAX zoo: built-in defaults (or a YAML file's) < per-tracker config
-dict < kwargs.
+dict < kwargs.  ``TRACKER_MAPPING`` (``TRACKER_REGISTRY``) names each live
+tracker class by its module path, and ``get_tracker_class`` imports it.
 """
 
 from __future__ import annotations
 
+import importlib
+
 from boxmot_tpu_torch.configs import get_tracker_defaults, load_tracker_yaml
+
+TRACKER_MAPPING = {
+    "bytetrack": "boxmot_tpu_torch.trackers.bytetrack.ByteTrack",
+    "ocsort": "boxmot_tpu_torch.trackers.ocsort.OcSort",
+    "botsort": "boxmot_tpu_torch.trackers.botsort.BotSort",
+    "sfsort": "boxmot_tpu_torch.trackers.sfsort.SFSORT",
+    "deepocsort": "boxmot_tpu_torch.trackers.deepocsort.DeepOcSort",
+    "boosttrack": "boxmot_tpu_torch.trackers.boosttrack.BoostTrack",
+    "occluboost": "boxmot_tpu_torch.trackers.occluboost.OccluBoost",
+    "strongsort": "boxmot_tpu_torch.trackers.strongsort.StrongSort",
+    "hybridsort": "boxmot_tpu_torch.trackers.hybridsort.HybridSort",
+    "sam2mot": "boxmot_tpu_torch.trackers.sam2mot.Sam2Mot",
+}
+TRACKER_REGISTRY = TRACKER_MAPPING
 
 # the trackers that read appearance embeddings (boxmot_tpu/trackers/zoo.py:25)
 REID_TRACKERS = ("botsort", "deepocsort", "strongsort", "boosttrack", "occluboost", "hybridsort")
 PORTED = ("bytetrack", "sfsort", "ocsort", "botsort", "deepocsort", "boosttrack", "occluboost",
-          "strongsort", "hybridsort", "sam2mot")
+          "strongsort", "hybridsort", "sam2mot")  # every name of TRACKER_MAPPING
 
 
 def check_ported(name: str) -> None:
     """Raise unless ``name`` is a tracker the port runs."""
     if name not in PORTED:
         raise ValueError(f"Unknown tracker {name!r}; available: {list(PORTED)}")
+
+
+def get_tracker_class(name: str):
+    """The live tracker class of ``name`` (``TRACKER_MAPPING``)."""
+    try:
+        path = TRACKER_MAPPING[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown tracker {name!r}; available: {sorted(TRACKER_MAPPING)}") from None
+    module, cls = path.rsplit(".", 1)
+    return getattr(importlib.import_module(module), cls)
 
 
 BACKENDS = ("tpu", "cpp")  # the JAX zoo's: its device programs and its native cores
@@ -64,17 +92,6 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config=None,
     if backend not in BACKENDS:
         raise ValueError(f"unknown tracker backend {backend!r}; available: {list(BACKENDS)}")
     check_ported(tracker_type)
-    from boxmot_tpu_torch.trackers.boosttrack import BoostTrack
-    from boxmot_tpu_torch.trackers.botsort import BotSort
-    from boxmot_tpu_torch.trackers.bytetrack import ByteTrack
-    from boxmot_tpu_torch.trackers.deepocsort import DeepOcSort
-    from boxmot_tpu_torch.trackers.hybridsort import HybridSort
-    from boxmot_tpu_torch.trackers.occluboost import OccluBoost
-    from boxmot_tpu_torch.trackers.ocsort import OcSort
-    from boxmot_tpu_torch.trackers.sam2mot import Sam2Mot
-    from boxmot_tpu_torch.trackers.sfsort import SFSORT
-    from boxmot_tpu_torch.trackers.strongsort import StrongSort
-
     if tracker_config is None:
         params = get_tracker_defaults(tracker_type)
     elif isinstance(tracker_config, dict):
@@ -96,7 +113,4 @@ def create_tracker(tracker_type: str, *, device="cuda", tracker_config=None,
         from boxmot_tpu_torch.reid import create_reid
 
         params.setdefault("reid_model", create_reid(weights=reid_weights, half=half, device=device))
-    classes = {"bytetrack": ByteTrack, "sfsort": SFSORT, "ocsort": OcSort, "botsort": BotSort,
-               "deepocsort": DeepOcSort, "boosttrack": BoostTrack, "occluboost": OccluBoost,
-               "strongsort": StrongSort, "hybridsort": HybridSort, "sam2mot": Sam2Mot}
-    return classes[tracker_type](device=device, **params)
+    return get_tracker_class(tracker_type)(device=device, **params)

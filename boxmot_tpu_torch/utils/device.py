@@ -9,6 +9,7 @@ to the CPU, so without a card the default raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -49,3 +50,12 @@ def resolve_device(device: str | torch.device) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r}: use 'cpu' or 'cuda[:N]'")
     set_tracker_precision()
     return dev
+
+
+def as_tensor_on(x, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor: on ``device`` where one is named; else a
+    tensor stays where it lies and a host array goes to the card."""
+    if torch.is_tensor(x):
+        return x.to(dtype) if device is None else x.to(resolve_device(device), dtype)
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(dtype)
+    return t.to(resolve_device("cuda" if device is None else device))

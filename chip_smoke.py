@@ -165,7 +165,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      step in float64: the card's error within ``STEP_RATIO`` x the CPU's),
      ``evaluate()`` on the card against the CPU (mAP 1e-3), 10 steps +
      checkpoint + resume against 20 straight (1e-5), and a line (ms a step,
-     steps/s, kernels, busy, idle); (d) a seeded
+     steps/s, kernels, busy, idle); then, from osnet_x0_25's trainer, one
+     data-parallel step with ``n_devices=2`` over ``sequence_mesh(["cuda:0",
+     "cuda:0"])`` against the one-device step from the same state and batch
+     (``run_sharded_step``: float32 first loss 1e-4 relative and 10c's
+     per-step state tolerance; float64 within 1e-10) and its line (ms and
+     kernels a step of both); (d) a seeded
      full-size CLIP ViT-B/16 checkpoint through ``convert_clip``: the facade
      from the file, card against CPU, and ``learn_identity_prompts`` with
      the converted text tower, 3 steps, card against CPU; (e) live BoT-SORT
@@ -199,10 +204,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      ran on cuda and built no kernel (the workspace is seeded with the
      kernels built in phase 2), and the baseline gives the pins; (d) ``build``,
      then ``eval --tracker bytetrack:cpp --n-workers 4`` and ``eval --tracker
-     occluboost:cpp`` give the ``:cpp`` pins (the native cores are host
-     code; where cmake or a C++ compiler is missing these are named and not
-     run); (e) ``Boxmot(tracker="bytetrack", device="cuda").tune`` with 4
-     trials gives (a)'s first 4 trials; (f) a line per sub-step with its host
+     occluboost:cpp`` give the ``:cpp`` pins, and ``run_eval_obb`` of
+     ``bytetrack:cpp`` on mmot-mini the JAX package's class-averaged metrics
+     (the native cores are host code; where cmake or a C++ compiler is
+     missing these are named and not run); (e)
+     ``Boxmot(tracker="bytetrack", device="cuda").tune`` with 4 trials gives
+     (a)'s first 4 trials; (f) a line per sub-step with its host
      wall time, seconds a trial, a candidate or a child, and the card;
  13. ReID export, its runtimes and the sequence-parallel replay
      (``run_export_phase``), at the JAX CLI's export defaults (osnet_x0_25,
@@ -254,6 +261,7 @@ from __future__ import annotations
 import concurrent.futures
 import configparser
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import math
@@ -3746,6 +3754,91 @@ def _segments(cfg, cpu_losses, ckpts, truth, root: Path) -> dict:
             "step_errors": worst, "noise_params": sorted(noise)}
 
 
+SHARDED_MESH = ("cuda:0", "cuda:0")  # 10c's sharded step: the one card twice
+SHARDED_F64_ATOL = 1e-10  # float64: the sharded step against the one-device step
+
+
+def _step_once(trainer, ckpt: Path, images, labels, out: Path):
+    """One ``_train_step`` of ``trainer`` from the checkpoint ``ckpt`` on
+    (images, labels); its loss and its state (``_train_state``)."""
+    trainer.load_checkpoint(ckpt)
+    loss = float(trainer._train_step(images.to(trainer.dtype), labels)[0])
+    return loss, _train_state(trainer.save_checkpoint(out))
+
+
+def run_sharded_step(trainer, cfg, root: Path, card) -> dict:
+    """Phase 10c's sharded sub-phase, from 10c's osnet_x0_25 trainer after
+    its run (P x K = 16 x 4): one step with ``n_devices=2`` over
+    ``sequence_mesh(SHARDED_MESH)`` against the one-device step (10c's own
+    trainer) from the same state and batch.  float32: the first loss within
+    rtol 1e-4, and the state's error against the float64 one-device step at
+    most STEP_RATIO x the one-device float32 step's + STEP_FLOOR, by kind
+    (10c's per-step tolerance, ``_step_errors``); float64: the sharded step
+    against the one-device step within SHARDED_F64_ATOL (loss relative,
+    every state tensor absolute).  ms a step (host clock, a fixed batch,
+    median of 3) and kernels a step (a 1-step profile) of both, in float32,
+    and the sub-phase's seconds.  The mesh is
+    the one card twice: the code four cards would run, its copies between
+    entries copies within the card."""
+    from boxmot_tpu_torch.parallel.replay import sequence_mesh
+
+    t0 = time.perf_counter()
+    mesh = sequence_mesh(list(SHARDED_MESH))
+    sharded_cfg = dataclasses.replace(cfg, n_devices=len(mesh))
+    images, labels = trainer._next_batch()
+    ckpt = trainer.save_checkpoint(root / "sharded_from.pt")
+    before = _train_state(ckpt)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).removeprefix("torch.")
+        one = trainer if dtype == torch.float32 else ReIDTrainer(cfg, device="cuda", dtype=dtype)
+        sharded = ReIDTrainer(sharded_cfg, device=mesh, dtype=dtype)
+        runs[tag] = {
+            "one": _step_once(one, ckpt, images, labels, root / f"one_{tag}.pt"),
+            "sharded": _step_once(sharded, ckpt, images, labels, root / f"sharded_{tag}.pt"),
+            "trainers": (one, sharded)}
+    loss32, loss64 = runs["float32"], runs["float64"]
+    first = abs(loss32["sharded"][0] - loss32["one"][0]) / abs(loss32["one"][0])
+    exact = loss64["one"][1]
+    sharded_err, _ = _step_errors(trainer, before, exact, loss32["sharded"][1])
+    one_err, noise = _step_errors(trainer, before, exact, loss32["one"][1])
+    scores = {k: sharded_err[k]["rel"] / (STEP_RATIO * one_err[k]["rel"] + STEP_FLOOR)
+              for k in STATE_KINDS}
+    f64_loss = abs(loss64["sharded"][0] - loss64["one"][0]) / abs(loss64["one"][0])
+    f64_state = max(float((loss64["sharded"][1][kind][k] - exact[kind][k]).abs().max())
+                    for kind in STATE_KINDS for k in exact[kind])
+    timing = {}
+    for name, t in zip(("one", "sharded"), runs["float32"]["trainers"]):
+        ms, _ = _host_ms(lambda t=t: float(t._train_step(images, labels)[0]), reps=3, warmup=1)
+        prof = measure.profile_steps(lambda t=t: t._train_step(images, labels), 1)
+        timing[name] = {"ms_per_step": ms, "kernels_per_step": prof["kernels_per_step"],
+                        "busy_ms_per_step": prof["busy_ms_per_step"]}
+    line = {"metric": f"train_{cfg.model}_p{TRAIN_PK[0]}k{TRAIN_PK[1]}_sharded",
+            "mesh": list(SHARDED_MESH), "clock": "host wall",
+            "seconds": time.perf_counter() - t0, **{
+                f"{k}_{name}": v for name, d in timing.items() for k, v in d.items()},
+            "float32_first_loss_rel_diff": first,
+            "float32_state_scores": scores, "float32_state_err_sharded": {
+                k: sharded_err[k]["rel"] for k in STATE_KINDS},
+            "float32_state_err_one_device": {k: one_err[k]["rel"] for k in STATE_KINDS},
+            "float64_loss_rel_diff": f64_loss, "float64_state_max_abs_diff": f64_state,
+            "noise_params": noise, "card": card}
+    print(json.dumps(line))
+    print(f"train {cfg.model} sharded over {list(SHARDED_MESH)}: float32 first loss rel "
+          f"{first:.3g}, state scores {({k: round(v, 4) for k, v in scores.items()})}; float64 "
+          f"loss rel {f64_loss:.3g}, state {f64_state:.3g}; ms a step one-device "
+          f"{timing['one']['ms_per_step']:.1f} ({timing['one']['kernels_per_step']} kernels), "
+          f"sharded {timing['sharded']['ms_per_step']:.1f} "
+          f"({timing['sharded']['kernels_per_step']} kernels), {line['seconds']:.1f} s, on "
+          f"{card}")
+    if not (first <= 1e-4 and all(v <= 1.0 for v in scores.values())
+            and f64_loss <= SHARDED_F64_ATOL and f64_state <= SHARDED_F64_ATOL):
+        raise AssertionError(f"train {cfg.model} sharded: differs from the one-device step "
+                             f"(float32 first {first}, scores {scores}; float64 loss "
+                             f"{f64_loss}, state {f64_state})")
+    return line
+
+
 def run_training_phase(card, root: Path, cpu_jobs):
     """Phase 10c: ``ReIDTrainer`` on the card for each of TRAIN_MODELS
     (osnet_x0_25: Adam; vit_nano: AdamW, clip 1.0, layer decay) on
@@ -3828,6 +3921,9 @@ def run_training_phase(card, root: Path, cpu_jobs):
             raise AssertionError(f"train {model}: the card's run differs (first {first}, segments "
                                  f"{seg['segment_loss_rel_diff']}, state {bad_state}, mAP gap "
                                  f"{map_gap}, resume gap {gap})")
+        if model == "osnet_x0_25":
+            with deterministic_cudnn():
+                run_sharded_step(trainer, cfg, root, card)
         del trainer
         torch.cuda.empty_cache()
 
@@ -4262,8 +4358,15 @@ def run_tuning_phase(card, cpu_jobs):
                 _pinned(f"cli eval {tracker}", _metrics(res), CPP_PINNED[tracker])
                 _front_door_line(f"cli_eval_{tracker.replace(':', '_')}_seconds", seconds, card,
                                  workers=workers, **_metrics(res))
+            t0 = time.perf_counter()
+            res = drive("run_eval_obb bytetrack:cpp", lambda: boxmot_tpu_torch.run_eval_obb(
+                MMOT_ROOT, "bytetrack:cpp", device="cuda"), {})
+            _pinned("run_eval_obb bytetrack:cpp", _metrics(res), OBB_EVAL["bytetrack"])
+            _front_door_line("eval_obb_bytetrack_cpp_seconds", time.perf_counter() - t0, card,
+                             **_metrics(res))
         else:
-            for step in ("cli build", "cli eval bytetrack:cpp", "cli eval occluboost:cpp"):
+            for step in ("cli build", "cli eval bytetrack:cpp", "cli eval occluboost:cpp",
+                         "run_eval_obb bytetrack:cpp"):
                 print(f"phase 12 ({step}) not run: {[t for t, p in tools.items() if not p]} "
                       f"not installed")
 

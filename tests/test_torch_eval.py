@@ -4,7 +4,9 @@ The port's ``run_eval`` on the CPU must reproduce the JAX package's
 ByteTrack pins on both fixtures; the mirrored host pieces (bucket
 constants, ``pack_frames``, MOT row unpacking, the YAML defaults and the
 resolved replay config) must equal the originals; and importing the port
-and running its eval must leave JAX out of the process.
+and running its eval (and the live API, the detectors, cache generation,
+training on one device and data-parallel, every package export) must leave
+JAX out of the process.
 """
 
 from __future__ import annotations
@@ -286,6 +288,15 @@ def test_port_import_and_eval_leave_jax_out():
         "hist = trainer.fit(log_every=1)\n"
         "assert len(hist) == 2 and all(np.isfinite(h['loss']) for h in hist), hist\n"
         "assert 0 <= trainer.evaluate()['mAP'] <= 1\n"
+        "sharded = ReIDTrainer(TrainConfig(model='osnet_x0_25', data_root='assets/reid-mini',\n"
+        "                                  crop_hw=(64, 32), p=2, k=2, steps=1, n_devices=2),\n"
+        "                      device=('cpu', 'cpu'))\n"
+        "assert np.isfinite(sharded.fit(log_every=1)[0]['loss'])\n"
+        "import boxmot_tpu_torch.ops, boxmot_tpu_torch.reid, boxmot_tpu_torch.trackers\n"
+        "for pkg in (boxmot_tpu_torch, boxmot_tpu_torch.ops, boxmot_tpu_torch.reid,\n"
+        "            boxmot_tpu_torch.trackers):\n"
+        "    for name in pkg.__all__:\n"
+        "        getattr(pkg, name)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', 'yaml', 'click')\n"
         "       or m == 'boxmot_tpu' or m.startswith('boxmot_tpu.')]\n"
         "assert not bad, bad\n"

@@ -95,14 +95,20 @@ def test_aabb_metric_stack_equals_jax(mot17_rows):
                                                              ref.summary())
 
 
-@pytest.mark.parametrize("per_class", [True, False], ids=["per-class", "all-classes"])
-def test_obb_metric_stack_equals_jax(per_class, tmp_path):
+@pytest.fixture(scope="module")
+def mmot_rows():
+    """ByteTrack OBB's corner rows of each mmot-mini sequence, replayed once
+    for both cases below."""
     cfg = build_replay_config("bytetrack", is_obb=True)
     dets = mmot_obb_dets(MMOT)
     outputs = replay_sequences_outputs(cfg, [{"dets": d} for d in dets.values()], device="cpu")
+    return {name: corner_rows(outs, masks) for name, (outs, masks) in zip(dets, outputs)}
+
+
+@pytest.mark.parametrize("per_class", [True, False], ids=["per-class", "all-classes"])
+def test_obb_metric_stack_equals_jax(per_class, tmp_path, mmot_rows):
     lengths = {s.name: s.seq_length for s in tmmot.MmotDataset(MMOT)}
-    for name, (outs, masks) in zip(dets, outputs):
-        rows = corner_rows(outs, masks)
+    for name, rows in mmot_rows.items():
         assert len(rows) > 20
         np.savetxt(tmp_path / f"{name}.txt", rows, delimiter=",", fmt="%.10g")
     classes = sorted({c for s in tmmot.MmotDataset(MMOT) for c in s.classes()})
@@ -422,7 +428,8 @@ COPIED_MODULES = ("motion/calibration.py", "postprocessing/__init__.py", "postpr
                   "postprocessing/registry.py", "data/synth.py", "data/mot17_parquet.py",
                   "utils/fmt.py", "utils/reporters.py", "utils/rich_ui.py", "engine/plots.py",
                   "trackers/visualization.py", "configs/benchmark.py", "onnxlite/proto.py",
-                  "onnxlite/builder.py", "onnxlite/runtime.py")
+                  "onnxlite/builder.py", "onnxlite/runtime.py", "data/mot.py",
+                  "trackers/per_class_ids.py", "engine/mot_io.py", "engine/results.py")
 
 
 def _below_docstring(path: Path) -> str:

@@ -9,7 +9,14 @@ serially; its ``NativeTracker`` gives JAX's rows frame by frame for every
 name of ``NATIVE_LIVE_TRACKERS`` (with embeddings where the core takes them,
 and textured frames for the camera-motion cores), per class, on oriented
 boxes and through OccluBoost's GTA flush; ``replay_cache_cpp`` writes JAX's
-file.  Where the library cannot be built the port raises with cmake's
+file.  ``run_eval_obb`` of ``bytetrack:cpp``, ``ocsort:cpp`` and
+``sfsort:cpp`` on mmot-mini gives JAX's class-averaged and per-class metrics
+within 1e-4 (read: equal; they are also the device trackers' values, which
+``chip_smoke.py`` holds the card's ``:cpp`` eval to) and JAX's corner rows
+byte for byte, through the function and through ``cli eval --benchmark
+mmot-mini``; ``occluboost:cpp``
+and ``botsort:cpp``, which have no native OBB core, raise JAX's
+``AssertionError``.  Where the library cannot be built the port raises with cmake's
 output, and the CLI's ``build`` prints what the JAX CLI prints.  A
 subprocess shows that the ``:cpp`` paths load no module of JAX or of the
 JAX package.
@@ -26,15 +33,18 @@ import pytest
 from click.testing import CliRunner
 
 from boxmot_tpu.engine import eval as jeval
+from boxmot_tpu.engine import eval_obb as jeval_obb
 from boxmot_tpu.native import replay as jreplay
 from boxmot_tpu.native import trackers as jtrackers
 from boxmot_tpu_torch import native as tnative
 from boxmot_tpu_torch.engine.eval import run_eval
+from boxmot_tpu_torch.engine.eval_obb import run_eval_obb
 from boxmot_tpu_torch.native import replay as treplay
 from boxmot_tpu_torch.native import trackers as ttrackers
 from tests.test_pinned_metrics import PINNED, ROOTS
 
 REPO = Path(__file__).resolve().parent.parent
+MMOT = REPO / "assets" / "mmot-mini" / "train"
 ATOL = 1e-4
 METRICS = ("HOTA", "MOTA", "IDF1")
 FEAT = 32
@@ -53,6 +63,46 @@ def test_cpp_eval_gives_the_pins_and_jax_rows(root, tracker, tmp_path):
         assert abs(got["combined"][k] - v) <= ATOL, (k, got["combined"][k], v)
         assert got["combined"][k] == want["combined"][k]
     assert _rows(tmp_path / "port") == _rows(tmp_path / "jax") != {}
+
+
+@pytest.mark.parametrize("tracker", ["bytetrack:cpp", "ocsort:cpp", "sfsort:cpp"])
+def test_cpp_eval_obb_gives_jax_metrics_and_rows(tracker, tmp_path):
+    got = run_eval_obb(MMOT, tracker, device="cpu", output_dir=tmp_path / "port")
+    want = jeval_obb.run_eval_obb(MMOT, tracker, output_dir=tmp_path / "jax")
+    import chip_smoke
+
+    for k in METRICS:
+        assert abs(got["combined"][k] - want["combined"][k]) <= ATOL, k
+        # the device tracker's values, which chip_smoke.py holds the card's :cpp eval to
+        assert abs(got["combined"][k] - chip_smoke.OBB_EVAL[tracker[:-4]][k]) <= ATOL, k
+    assert got["per_class"].keys() == want["per_class"].keys()
+    for c, m in want["per_class"].items():
+        for k in METRICS:
+            assert abs(got["per_class"][c][k] - m[k]) <= ATOL, (c, k)
+    assert _rows(tmp_path / "port") == _rows(tmp_path / "jax") != {}
+
+
+@pytest.mark.parametrize("tracker", ["occluboost:cpp", "botsort:cpp"])
+def test_cpp_eval_obb_without_a_native_obb_core_raises_as_jax(tracker):
+    with pytest.raises(AssertionError, match="does not support OBB") as want:
+        jeval_obb.run_eval_obb(MMOT, tracker)
+    with pytest.raises(AssertionError, match="does not support OBB") as got:
+        run_eval_obb(MMOT, tracker, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_cli_cpp_eval_of_the_obb_benchmark_prints_what_the_jax_cli_prints():
+    from boxmot_tpu.engine.cli import cli as jcli
+    from boxmot_tpu_torch.engine.cli import cli
+
+    args = ["eval", "--benchmark", "mmot-mini", "--tracker", "bytetrack:cpp"]
+    port = CliRunner().invoke(cli, [*args, "--device", "cpu"])
+    want = CliRunner().invoke(jcli, args)
+    assert port.exit_code == 0 == want.exit_code, port.output
+    lines = [ln for ln in port.output.splitlines() if ln.startswith(("  class", "CLASS-"))]
+    assert lines == [ln for ln in want.output.splitlines()
+                     if ln.startswith(("  class", "CLASS-"))]
+    assert lines[-1] == "CLASS-AVERAGED: HOTA 60.41  MOTA 66.27  IDF1 67.18"
 
 
 def test_chip_smoke_cpp_pins_are_the_tests():

@@ -12,6 +12,14 @@ warps over the padded mesh equals ``batch_replay`` of the five sequences
 empty; ``sharded_reid_features`` of five NHWC crops within 1e-4 of JAX's
 with the same carried weights, and within 1e-6 of ``ReID._embed``, also
 through replicas.
+
+Data-parallel training (``parallel/training.py``): a Flax batch norm run
+over the mesh ("cpu", "cpu") gives, in float64, the output, running
+statistics, input and weight gradients of the layer over the whole batch
+within 1e-12, and every replica's running statistics equal the master's; a
+shard that raises, before or after the shards first meet, reaches the
+caller (each call held to 60 s) and leaves no thread waiting; twelve shards
+with a 1 us switch interval still give the whole batch's statistics.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ import torch
 from boxmot_tpu.parallel import replay as jpar
 from boxmot_tpu.trackers.bytetrack import ByteTrackConfig as JaxByteTrackConfig
 from boxmot_tpu_torch.engine.replay import batch_replay, init_states
+from boxmot_tpu_torch.models.layers import use_flax_batch_norm
 from boxmot_tpu_torch.parallel import replay as tpar
+from boxmot_tpu_torch.parallel.training import DataParallel
 from boxmot_tpu_torch.reid import ReID
 from boxmot_tpu_torch.trackers.botsort import BotSortConfig
 from boxmot_tpu_torch.trackers.bytetrack import ByteTrackConfig
@@ -145,3 +155,112 @@ def test_mesh_and_shards():
     assert [s["b"][0].tolist() for s in shards] == [[0, 1], [2, 3]] and shards[1]["c"] is None
     with pytest.raises(ValueError, match="not a multiple"):
         tpar.shard_over_sequences(tpar.sequence_mesh(["cpu"] * 3), tree)
+
+
+def _flax_bn(shape, rng):
+    c = shape[1]
+    bn = (torch.nn.BatchNorm2d(c) if len(shape) == 4 else torch.nn.BatchNorm1d(c)).double()
+    with torch.no_grad():
+        for t in (bn.weight, bn.bias, bn.running_mean):
+            t.copy_(torch.from_numpy(rng.normal(size=c)))
+        bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+    return use_flax_batch_norm(bn).train()
+
+
+@pytest.mark.parametrize("shape", [(8, 6), (8, 5, 4, 3)], ids=["bn1d", "bn2d"])
+def test_cross_shard_batch_norm_equals_the_whole_batch(shape):
+    rng = np.random.default_rng(0)
+    whole = _flax_bn(shape, rng)
+    sharded = DataParallel(_flax_bn(shape, np.random.default_rng(0)), tpar.sequence_mesh(
+        ["cpu", "cpu"]))
+    x0 = rng.normal(3.0, 2.0, shape) * rng.uniform(0.1, 10, (1, shape[1]) + (1,) * (len(shape) - 2))
+    w = torch.from_numpy(rng.normal(size=shape))
+    outs = []
+    for run, module in ((whole, whole), (sharded, sharded.module)):
+        x = torch.from_numpy(x0).requires_grad_(True)
+        y = run(x)
+        gx, gw, gb = torch.autograd.grad((y * w).sum(), [x, module.weight, module.bias])
+        outs.append((y.detach(), gx, gw, gb, module.running_mean.clone(),
+                     module.running_var.clone()))
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    replica = sharded.replicas[1]
+    assert torch.equal(replica.running_mean, sharded.module.running_mean)
+    assert torch.equal(replica.running_var, sharded.module.running_var)
+
+
+class _RaiseInShard(torch.nn.Module):
+    """Two batch norms; a shard whose first input is not 0 raises before the
+    first or after it, while the others wait at the next."""
+
+    def __init__(self, c, after_bn):
+        super().__init__()
+        self.bn, self.after_bn = use_flax_batch_norm(torch.nn.BatchNorm1d(c)), after_bn
+
+    def forward(self, x):
+        fail = bool(x[0, 0] != 0)
+        if fail and not self.after_bn:
+            raise RuntimeError("shard failed")
+        x = self.bn(x)
+        if fail:
+            raise RuntimeError("shard failed")
+        return self.bn(x)
+
+
+@pytest.mark.parametrize("after_bn", [False, True])
+def test_a_raising_shard_reaches_the_caller(after_bn):
+    import threading
+
+    dp = DataParallel(_RaiseInShard(3, after_bn).train(), tpar.sequence_mesh(["cpu"] * 3))
+    x = torch.ones(6, 3)
+    x[:4] = 0  # the third shard raises
+    caught = []
+
+    def call():
+        try:
+            dp(x)
+        except BaseException as e:  # noqa: BLE001 - the test reads it
+            caught.append(e)
+
+    before = threading.active_count()
+    t = threading.Thread(target=call, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive(), "a shard's error left the call waiting"
+    assert len(caught) == 1 and isinstance(caught[0], RuntimeError), caught
+    assert str(caught[0]) == "shard failed"
+    assert threading.active_count() == before
+    with pytest.raises(ValueError, match="batch 5 must divide"):
+        dp(torch.ones(5, 3))
+
+
+def test_cross_shard_reduction_under_contention():
+    """More shards than cores and a short switch interval: two batch norms,
+    so the shards meet twice a call; a lost or stale slot would change the
+    statistics.  Within 60 s."""
+    import sys
+    import threading
+
+    shape = (24, 4, 3, 2)
+
+    def two_norms():
+        rng = np.random.default_rng(1)
+        return torch.nn.Sequential(_flax_bn(shape, rng), _flax_bn(shape, rng))
+
+    whole = two_norms()
+    sharded = DataParallel(two_norms(), tpar.sequence_mesh(["cpu"] * 12))
+    x = torch.from_numpy(np.random.default_rng(2).normal(1.0, 3.0, shape))
+    got = []
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        t = threading.Thread(target=lambda: got.append(sharded(x)), daemon=True)
+        t.start()
+        t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not t.is_alive() and len(got) == 1
+    np.testing.assert_allclose(got[0].detach().numpy(), whole(x).detach().numpy(), rtol=0,
+                               atol=1e-12)
+    for mine, ref in zip(sharded.module.buffers(), whole.buffers()):
+        np.testing.assert_allclose(mine.numpy(), ref.numpy(), rtol=0, atol=1e-12)

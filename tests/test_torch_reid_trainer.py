@@ -13,6 +13,9 @@ P = K = 2, from the same seeded Flax variables (JAX's ``init`` replaced by
   both (``jax.enable_x64``; the port's ``dtype=torch.float64``): losses
   within rtol 1e-10, parameters, batch statistics, Adam's moments and
   EMA within 1e-8 (read: losses 2e-13 apart, parameters 4.5e-10).
+* The same in float64 with ``n_devices=2``, one step: the port's trainer
+  over the mesh ("cpu", "cpu") (``parallel/training.py``) against the JAX
+  trainer over two of the suite's virtual devices, within the same bounds.
 * The same run in float32, with 4 crops a batch normalized by batch
   norms over 4 x 2 maps, is chaotic: the first losses already differ by
   3e-5 relative (each package's 1e-6 to 4e-5 from the float64 value, on
@@ -70,15 +73,23 @@ def _fill(path, leaf, rng):
     return rng.normal(0, 0.1, shape)
 
 
+_SHAPES: dict = {}  # the Flax variables' shapes by model and input shapes, traced once
+
+
 def jax_trainer(cfg, seed=1, dtype=np.float32):
     """The JAX trainer with seeded Flax variables: its eager ``init`` (about
-    20 s for OSNet) replaced by ``jax.eval_shape`` and seeded numpy, values
-    that float32 holds exactly, as ``dtype``."""
+    20 s for OSNet) replaced by ``jax.eval_shape`` (once a model and input
+    shape for this module) and seeded numpy, values that float32 holds
+    exactly, as ``dtype``."""
     rng = np.random.default_rng(seed)
 
     def init(self, key, *args, **kw):
-        shapes = jax.eval_shape(lambda k, *a: fnn.Module.init(self, k, *a, **kw), key, *args)
-        tree = jax.tree_util.tree_map_with_path(lambda p, s: _fill(p, s, rng), shapes)
+        tag = (cfg.model, self.num_classes, cfg.classifier_loss, cfg.center_loss_weight > 0,
+               tuple(np.shape(a) for a in args))
+        if tag not in _SHAPES:
+            _SHAPES[tag] = jax.eval_shape(lambda k, *a: fnn.Module.init(self, k, *a, **kw), key,
+                                          *args)
+        tree = jax.tree_util.tree_map_with_path(lambda p, s: _fill(p, s, rng), _SHAPES[tag])
         return jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float32).astype(dtype)),
                             dict(tree))
 
@@ -218,20 +229,44 @@ def test_trainer_equals_jax_osnet_float64():
                                   variables={"params": _np(jt.params),
                                              "batch_stats": _np(jt.batch_stats)},
                                   dtype=torch.float64)
-        want, got = jt.fit(steps=4, log_every=1), tt.fit(steps=4, log_every=1)
-        for w, g in zip(want, got):
-            for k in ("loss", "ce", "triplet"):
-                assert g[k] == pytest.approx(w[k], rel=1e-10), (k, w, g)
-        sd = tt.model.state_dict()
-        variables = {"params": _np(jt.params), "batch_stats": _np(jt.batch_stats)}
-        adam, ema = _adam(jt.opt_state), _np(jt.ema_params)
-        for key, (coll, *path) in tconvert.flax_paths(tt.model, "osnet_x0_25").items():
-            assert sd[key].dtype == tt.opt.mu["backbone/conv1/conv/kernel"].dtype == torch.float64
-            np.testing.assert_allclose(sd[key].numpy(), _leaf(variables[coll], path), rtol=0,
-                                       atol=1e-8, err_msg=key)
-            if coll == "params":
-                p = "/".join(path)
-                for got_t, tree in ((tt.opt.mu[p], adam.mu), (tt.opt.nu[p], adam.nu),
-                                    (tt.ema_params[p], ema)):
-                    np.testing.assert_allclose(got_t.numpy(), _leaf(tree, path), rtol=0,
-                                               atol=1e-8, err_msg=key)
+        _assert_float64_equal(tt, jt, 4)
+
+
+def _assert_float64_equal(tt, jt, steps):
+    """``steps`` logged steps of both trainers: losses within rtol 1e-10;
+    parameters, batch statistics, Adam's moments and EMA within 1e-8."""
+    want, got = jt.fit(steps=steps, log_every=1), tt.fit(steps=steps, log_every=1)
+    assert len(want) == len(got) == steps
+    for w, g in zip(want, got):
+        for k in ("loss", "ce", "triplet"):
+            assert g[k] == pytest.approx(w[k], rel=1e-10), (k, w, g)
+    sd = tt.model.state_dict()
+    variables = {"params": _np(jt.params), "batch_stats": _np(jt.batch_stats)}
+    adam, ema = _adam(jt.opt_state), _np(jt.ema_params)
+    for key, (coll, *path) in tconvert.flax_paths(tt.model, tt.cfg.model).items():
+        assert sd[key].dtype == tt.opt.mu["backbone/conv1/conv/kernel"].dtype == torch.float64
+        np.testing.assert_allclose(sd[key].numpy(), _leaf(variables[coll], path), rtol=0,
+                                   atol=1e-8, err_msg=key)
+        if coll == "params":
+            p = "/".join(path)
+            for got_t, tree in ((tt.opt.mu[p], adam.mu), (tt.opt.nu[p], adam.nu),
+                                (tt.ema_params[p], ema)):
+                np.testing.assert_allclose(got_t.numpy(), _leaf(tree, path), rtol=0,
+                                           atol=1e-8, err_msg=key)
+
+
+def test_sharded_trainer_equals_jax_sharded_osnet_float64():
+    """osnet_x0_25 in float64, ``n_devices=2``: the port over the mesh
+    ("cpu", "cpu") against the JAX trainer over two of the suite's virtual
+    devices, one step from the same variables."""
+    with jax.enable_x64(True):
+        jt = jax_trainer(jtrainer.TrainConfig(**_kw("osnet_x0_25"), n_devices=2),
+                         dtype=np.float64)
+        assert jt.mesh is not None and jt.mesh.devices.size == 2
+        tt = ttrainer.ReIDTrainer(ttrainer.TrainConfig(**_kw("osnet_x0_25"), n_devices=2),
+                                  device=("cpu", "cpu"),
+                                  variables={"params": _np(jt.params),
+                                             "batch_stats": _np(jt.batch_stats)},
+                                  dtype=torch.float64)
+        assert tt.mesh == (torch.device("cpu"),) * 2
+        _assert_float64_equal(tt, jt, 1)

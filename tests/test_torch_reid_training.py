@@ -16,7 +16,19 @@
   those paths are the Flax ones).
 * Trainer against JAX's: ``tests/test_torch_reid_trainer.py``.
 * Resume on the CPU: 4 steps, checkpoint, 4 more equal 8 straight within
-  1e-5 (the JAX test's atol); ``n_devices=2`` raises the JAX error.
+  1e-5 (the JAX test's atol); ``n_devices=2`` on one device raises the JAX
+  error.
+* Data-parallel (``n_devices > 1`` over a mesh of CPU entries,
+  ``parallel/training.py``), osnet_x0_25 at P = 4, K = 2: a sharded step
+  equals the one-device step in float64 within 1e-10 (losses relative;
+  parameters, batch statistics, Adam's moments and EMA absolute) over 2 and
+  4 entries; in float32 the first loss within rtol 1e-4 (shards of another
+  size may take other convolution algorithms); a batch that does not divide
+  raises the JAX trainer's error (reid-mini has 2 identities: P is clipped
+  to 2, and the effective batch is 4); a checkpoint written sharded resumes
+  unsharded, and one written unsharded resumes sharded, within 1e-5 of the
+  uninterrupted sharded run (float64).  The trainer's sharded step against
+  JAX's: ``tests/test_torch_reid_trainer.py``.
 """
 
 from __future__ import annotations
@@ -292,6 +304,71 @@ def test_n_devices_and_bad_configs_raise():
     import inspect
 
     assert inspect.signature(ttrainer.ReIDTrainer).parameters["device"].default == "cuda"
+
+
+def _dp_cfg(n_devices=0):
+    return ttrainer.TrainConfig(**{**_kw("osnet_x0_25"), "p": 4, "k": 2}, n_devices=n_devices)
+
+
+def _dp_trainer(n_devices, dtype=torch.float64):
+    return ttrainer.ReIDTrainer(_dp_cfg(n_devices), device=("cpu",) * max(n_devices, 1),
+                                dtype=dtype)
+
+
+def _dp_state(tt) -> dict:
+    return {**{f"model/{k}": v for k, v in tt.model.state_dict().items() if v.is_floating_point()},
+            **{f"mu/{k}": v for k, v in tt.opt.mu.items()},
+            **{f"nu/{k}": v for k, v in tt.opt.nu.items()},
+            **{f"ema/{k}": v for k, v in tt.ema_params.items()}}
+
+
+def _assert_states_close(got, want, atol):
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=atol, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def one_device_step():
+    """The one-device float64 trainer after one step, and its log."""
+    tt = _dp_trainer(0)
+    return tt, tt.fit(steps=1, log_every=1)
+
+
+@pytest.mark.parametrize("n_devices", [2, 4])
+def test_sharded_step_equals_one_device_float64(one_device_step, n_devices):
+    one, want = one_device_step
+    tt = _dp_trainer(n_devices)
+    assert tt.mesh == (torch.device("cpu"),) * n_devices and tt.device == torch.device("cpu")
+    got = tt.fit(steps=1, log_every=1)
+    for k in ("loss", "ce", "triplet"):
+        assert got[0][k] == pytest.approx(want[0][k], rel=1e-10), k
+    _assert_states_close(_dp_state(tt), _dp_state(one), 1e-10)
+
+
+def test_sharded_step_float32_first_loss():
+    want = _dp_trainer(0, torch.float32).fit(steps=1, log_every=1)[0]["loss"]
+    got = _dp_trainer(2, torch.float32).fit(steps=1, log_every=1)[0]["loss"]
+    assert got == pytest.approx(want, rel=1e-4)
+
+
+def test_sharded_batch_must_divide_and_checkpoints_cross_meshes(tmp_path):
+    with pytest.raises(ValueError, match="effective batch 4 must divide n_devices=3"):
+        _dp_trainer(3)
+    straight = _dp_trainer(2)
+    straight.fit(steps=2, log_every=1)
+    ck_sharded = straight.save_checkpoint(tmp_path / "sharded.pt")
+    straight.fit(steps=4, log_every=1)
+    single = _dp_trainer(0)
+    single.fit(steps=2, log_every=1)
+    ck_single = single.save_checkpoint(tmp_path / "single.pt")
+    for n_devices, ck in ((0, ck_sharded), (2, ck_single)):
+        resumed = _dp_trainer(n_devices)
+        resumed.load_checkpoint(ck)
+        resumed.fit(steps=4, log_every=1)
+        _assert_states_close(_dp_state(resumed), _dp_state(straight), 1e-5)
+        assert [h["loss"] for h in resumed.history] == pytest.approx(
+            [h["loss"] for h in straight.history], rel=1e-5)
 
 
 def test_ranking_eval_equals_jax():

@@ -37,16 +37,28 @@ def _one_thread():
 @pytest.fixture(scope="module")
 def tf_artifacts(tmp_path_factory):
     """osnet_x0_25's SavedModel and TFLite from both packages, one set of
-    carried weights."""
+    carried weights; JAX's two exports share one ``jax2tf`` function (its
+    ``_tf_function`` of the same model, variables and size, made once)."""
     root = tmp_path_factory.mktemp("tf")
     jmodel, variables, model = carried("osnet_x0_25", seed=2)
     blob = tex.onnx_bytes(model, HW)
+    made, real = [], jex._tf_function
+
+    def once(*args):
+        if not made:
+            made.append(real(*args))
+        return made[0]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jex, "_tf_function", once)
+        jax_tflite = jex.export_tflite(jmodel, variables, root / "jax" / "osnet_x0_25.tflite",
+                                       hw=HW)
+        jax_saved = jex.export_saved_model(jmodel, variables, root / "jax" / "osnet_saved", hw=HW)
+        assert len(made) == 1
     return {
         "model": model,
-        "jax_tflite": jex.export_tflite(jmodel, variables, root / "jax" / "osnet_x0_25.tflite",
-                                        hw=HW),
-        "jax_saved": jex.export_saved_model(jmodel, variables, root / "jax" / "osnet_saved",
-                                            hw=HW),
+        "jax_tflite": jax_tflite,
+        "jax_saved": jax_saved,
         "tflite": tex.export_tflite(model, root / "osnet_x0_25.tflite", hw=HW, blob=blob),
         "saved": tex.export_saved_model(model, root / "osnet_saved", hw=HW, blob=blob),
         "dynamic": tex.export_tflite(model, root / "osnet_q.tflite", hw=HW, quantize="dynamic",
