@@ -13,6 +13,13 @@ device-to-host copy.  Frame and detection counts are padded to the same
 static buckets as in the JAX package; padded outputs are cut off on the
 host.  ``init_state`` and ``scan_replay`` are the JAX functions of one
 sequence: the batched ones at S = 1.
+
+A call's stages ``replay.pack``, ``replay.upload`` and ``replay.drain`` are
+timed on every call (``utils/timing.py::CALLS``) and are spans of
+``utils/spans.py``, as is ``replay.step`` around each frame of
+``batch_replay``; the counters ``replay.rows_valid`` and
+``replay.rows_packed`` count the detection rows given and the (S, F, D)
+slots packed.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from boxmot_tpu_torch.trackers import (
     strongsort,
 )
 from boxmot_tpu_torch.utils.device import resolve_device
+from boxmot_tpu_torch.utils.spans import count, span
+from boxmot_tpu_torch.utils.timing import CALLS
 
 FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 DET_BUCKETS = (8, 16, 32, 64, 128, 256)
@@ -196,10 +205,11 @@ def batch_replay(cfg, states, dets_batch: torch.Tensor, n_frames: int | None = N
     if warps is None and wants_warps(cfg):
         identity = torch.eye(2, 3, dtype=torch.float32, device=dev).expand(S, 2, 3)
     for f in range(n_frames):
-        states, outs[:, f], masks[:, f] = step(
-            cfg, states, dets_batch[:, f], det_valid[:, f],
-            zero_embs if embs is None else embs[:, f],
-            identity if warps is None else warps[:, f])
+        with span("replay.step"):
+            states, outs[:, f], masks[:, f] = step(
+                cfg, states, dets_batch[:, f], det_valid[:, f],
+                zero_embs if embs is None else embs[:, f],
+                identity if warps is None else warps[:, f])
     return states, outs, masks
 
 
@@ -314,25 +324,34 @@ def replay_sequences_outputs(cfg, seqs, *, device="cuda", with_states: bool = Fa
 
     results: list = [None] * len(seqs)
     for (F, D), idxs in groups.items():
-        packed, n_frames_list = [], []
-        for i in idxs:
-            p, n_frames = pack_frames(seqs[i]["dets"], D=D, F=F, det_cols=_det_cols(cfg))
-            packed.append(p)
-            n_frames_list.append(n_frames)
-        dets_batch = _to_device(np.stack(packed), device)
-        embs = warps = None
-        if wants_embs(cfg) and any(seqs[i].get("embs") is not None for i in idxs):
-            embs = _to_device(np.stack([
-                pack_embs(seqs[i]["embs"], cfg.feat_dim, D=D, F=F)
-                if seqs[i].get("embs") is not None
-                else np.zeros((F, D, cfg.feat_dim), np.float32) for i in idxs]), device)
-        if wants_warps(cfg) and any(seqs[i].get("warps") is not None for i in idxs):
-            warps = _to_device(np.stack([pack_warps(seqs[i].get("warps"), F) for i in idxs]),
-                               device)
+        with CALLS.timeit("replay.pack"):
+            packed, n_frames_list = [], []
+            for i in idxs:
+                p, n_frames = pack_frames(seqs[i]["dets"], D=D, F=F, det_cols=_det_cols(cfg))
+                packed.append(p)
+                n_frames_list.append(n_frames)
+            packed = np.stack(packed)
+            embs = warps = None
+            if wants_embs(cfg) and any(seqs[i].get("embs") is not None for i in idxs):
+                embs = np.stack([
+                    pack_embs(seqs[i]["embs"], cfg.feat_dim, D=D, F=F)
+                    if seqs[i].get("embs") is not None
+                    else np.zeros((F, D, cfg.feat_dim), np.float32) for i in idxs])
+            if wants_warps(cfg) and any(seqs[i].get("warps") is not None for i in idxs):
+                warps = np.stack([pack_warps(seqs[i].get("warps"), F) for i in idxs])
+        count("replay.rows_valid", sum(len(d) for i in idxs for d in seqs[i]["dets"]))
+        count("replay.rows_packed", packed.shape[0] * packed.shape[1] * packed.shape[2])
+        with CALLS.timeit("replay.upload"):
+            dets_batch = _to_device(packed, device)
+            if embs is not None:
+                embs = _to_device(embs, device)
+            if warps is not None:
+                warps = _to_device(warps, device)
         states = init_states(cfg, len(idxs), device)
         states, outs, masks = batch_replay(cfg, states, dets_batch, max(n_frames_list), embs,
                                            warps)
-        outs, masks, capped = _to_host(outs, masks, states.lap_capped)
+        with CALLS.timeit("replay.drain"):
+            outs, masks, capped = _to_host(outs, masks, states.lap_capped)
         if capped.any():
             raise RuntimeError(
                 f"{int(capped.sum())} assignment(s) stopped at the auction's "

@@ -46,6 +46,11 @@ runs without a host sync.  Without ReID nothing is ever pushed to the
 long-term bank, so its rows past the first stay zero; a birth then writes
 the first row in place, into the bank of the state it was given (the bank
 is read only with ReID).
+
+Each pass runs inside a span of ``utils/spans.py`` (``hybridsort.predict``,
+``pass1``, ``byte``, ``final``, ``oru``, ``update``, ``births``; the bank's
+read and writes in ``hybridsort.bank_read`` and ``bank_write``), which costs
+one check unless a profiler records.
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ from boxmot_tpu_torch.trackers.ocsort import (
     _unique_shortcut,
 )
 from boxmot_tpu_torch.trackers.slots import allocate, scatter_det_flags, take
+from boxmot_tpu_torch.utils.spans import span
 
 LOGGER = logging.getLogger("boxmot_tpu_torch")
 CORNERS = ("lt", "rt", "lb", "rb")
@@ -279,232 +285,248 @@ def hybridsort_step(cfg: HybridSortConfig, state: HybridSortState, dets: torch.T
     det_z = bbox_to_z(det_box5)
     feat = l2_normalize(embs)
 
-    # the camera update: the state's corners warped, the score kept
-    # (reference hybridsort.py:203-226)
-    wb5 = torch.cat([_apply_affine(x_to_bbox(state.mean), warp), state.mean[..., 3:4]], -1)
-    mean = torch.cat([torch.where(active[..., None], bbox_to_z(wb5), state.mean[..., :5]),
-                      state.mean[..., 5:]], -1)
+    with span("hybridsort.predict"):
+        # the camera update: the state's corners warped, the score kept
+        # (reference hybridsort.py:203-226)
+        wb5 = torch.cat([_apply_affine(x_to_bbox(state.mean), warp), state.mean[..., 3:4]], -1)
+        mean = torch.cat([torch.where(active[..., None], bbox_to_z(wb5), state.mean[..., :5]),
+                          state.mean[..., 5:]], -1)
 
-    # predict: the area velocity zeroed where it would drive the area negative
-    vs = mean[..., 7]
-    mean = torch.cat([mean[..., :7], torch.where(vs + mean[..., 2] <= 0, 0.0, vs)[..., None],
-                      mean[..., 8:]], -1)
-    mean, cov = kalman.predict(layout, mean, state.cov, active)
-    age = state.age + active.to(torch.int32)
-    hit_streak = torch.where(active & (state.tsu > 0), 0, state.hit_streak)
-    tsu = state.tsu + active.to(torch.int32)
+        # predict: the area velocity zeroed where it would drive the area negative
+        vs = mean[..., 7]
+        mean = torch.cat([mean[..., :7], torch.where(vs + mean[..., 2] <= 0, 0.0, vs)[..., None],
+                          mean[..., 8:]], -1)
+        mean, cov = kalman.predict(layout, mean, state.cov, active)
+        age = state.age + active.to(torch.int32)
+        hit_streak = torch.where(active & (state.tsu > 0), 0, state.hit_streak)
+        tsu = state.tsu + active.to(torch.int32)
 
-    trk_box = x_to_bbox(mean)
-    kal_score = torch.clamp(mean[..., 3], cfg.track_thresh, 1.0)
-    simple_score = torch.where(
-        state.conf_pre < 0, torch.clamp(state.conf, 0.1, cfg.track_thresh),
-        torch.clamp(state.conf - (state.conf_pre - state.conf), 0.1, cfg.track_thresh))
+        trk_box = x_to_bbox(mean)
+        kal_score = torch.clamp(mean[..., 3], cfg.track_thresh, 1.0)
+        simple_score = torch.where(
+            state.conf_pre < 0, torch.clamp(state.conf, 0.1, cfg.track_thresh),
+            torch.clamp(state.conf - (state.conf_pre - state.conf), 0.1, cfg.track_thresh))
 
-    # the observation delta_t frames back (or the nearest later one), from the ring
-    k_obs = state.last_obs
-    found = torch.zeros_like(active)
-    for i in range(R):
-        target = age - (R - i)
-        slot = torch.clamp(torch.remainder(target, R), 0, R - 1).long()
-        hit = (torch.gather(state.ring_age, 2, slot[..., None])[..., 0] == target) & (target >= 0)
-        ring_obs = torch.gather(state.obs_ring, 2, slot[..., None, None].expand(-1, -1, 1, 5))[:, :, 0]
-        k_obs = torch.where((hit & ~found)[..., None], ring_obs, k_obs)
-        found = found | hit
+        # the observation delta_t frames back (or the nearest later one), from the ring
+        k_obs = state.last_obs
+        found = torch.zeros_like(active)
+        for i in range(R):
+            target = age - (R - i)
+            slot = torch.clamp(torch.remainder(target, R), 0, R - 1).long()
+            hit = ((torch.gather(state.ring_age, 2, slot[..., None])[..., 0] == target)
+                   & (target >= 0))
+            ring_obs = torch.gather(state.obs_ring, 2,
+                                    slot[..., None, None].expand(-1, -1, 1, 5))[:, :, 0]
+            k_obs = torch.where((hit & ~found)[..., None], ring_obs, k_obs)
+            found = found | hit
 
-    # pass 1: the configured similarity, the four corner velocities and TCM
-    capped = state.lap_capped.clone()
-    iou1 = asso(trk_box, det_box)
-    angle_cost = torch.zeros_like(iou1)
-    valid_vel = (k_obs[..., 4] >= 0)[..., None]
-    pi = torch.full_like(iou1, math.pi)
-    for ci, corner in enumerate(CORNERS):
-        cx, cy = CORNER_COLS[corner]
-        Y, X = _unit(det_box[:, None, :, cx] - k_obs[:, :, None, cx],
-                     det_box[:, None, :, cy] - k_obs[:, :, None, cy])
-        cosang = torch.clamp(state.vel[..., ci, 1:2] * X + state.vel[..., ci, 0:1] * Y, -1.0, 1.0)
-        diff = (math.pi / 2.0 - torch.abs(exact(torch.acos, cosang))) / pi
-        angle_cost = angle_cost + valid_vel * diff * cfg.inertia * conf[:, None, :]
-    score_dif = torch.abs(kal_score[..., None] - conf[:, None, :])
-    sim_combo = iou1 + (angle_cost - score_dif)  # TCM (reference association.py:540-543)
-    thre = iou1 - score_dif
-
-    reid = cfg.with_reid
-    eg_high = reid and cfg.EG_weight_high_score > 0 and cfg.TCM_first_step
-    eg_low = reid and cfg.EG_weight_low_score > 0 and cfg.use_byte
-    emb_dist = _emb_dist(state.smooth, feat) if eg_high or eg_low else None
-    if eg_high:
-        cost1 = -sim_combo + cfg.EG_weight_high_score * emb_dist
-        if cfg.with_longterm_reid:
-            long_dist = _longterm_dist(state.bank, state.bank_count, state.smooth, feat)
-            cost1 = cost1 + cfg.longterm_reid_weight * long_dist
-        r2c1 = _full_assignment(cost1, active, first, capped)
-        c1 = torch.clamp(r2c1, 0, D - 1)
-        bad = _at(thre, c1) < thr
-        if cfg.with_longterm_reid_correction:
-            bad = bad & (_at(emb_dist, c1) > cfg.longterm_reid_correction_thresh)
-        m1 = (r2c1 >= 0) & ~bad
-    else:
-        usable, r2c_short = _unique_shortcut(iou1, active, first, thr)
-        r2c_full = _full_assignment(-sim_combo, active, first, capped)
-        r2c1 = torch.where(usable[:, None], r2c_short, r2c_full)
-        c1 = torch.clamp(r2c1, 0, D - 1)
-        keep = torch.where(usable[:, None], _at(iou1, c1) > thr, _at(thre, c1) >= thr)
-        m1 = (r2c1 >= 0) & keep
-    dm = scatter_det_flags(r2c1, m1, D)
-    matched = m1
-    det_col = torch.where(m1, r2c1, -1)
-
-    # the BYTE pass on low-confidence detections (reference hybridsort.py:607-650),
-    # on pass 1's similarity (the same function of the same boxes)
-    if cfg.use_byte:
-        rows2 = active & ~matched
-        cost2 = -iou1
-        if cfg.TCM_byte_step:
-            sdif2 = torch.abs(simple_score[..., None] - conf[:, None, :])
-            cost2 = cost2 + cfg.TCM_byte_step_weight * sdif2
-        if eg_low:
-            cost2 = cost2 + cfg.EG_weight_low_score * emb_dist
-        gate2 = _gate(iou1, rows2, second, thr)
-        r2c2 = _full_assignment(cost2, rows2 & gate2[:, None], second, capped)
-        m2 = _filtered(r2c2, iou1, thr, gate2)
-        if eg_low and cfg.with_longterm_reid_correction:
-            c2 = torch.clamp(r2c2, 0, D - 1)
-            m2 = m2 & (_at(emb_dist, c2) <= cfg.longterm_reid_correction_thresh_low)
-        matched = matched | m2
-        det_col = torch.where(m2, r2c2, det_col)
-        dm = dm | scatter_det_flags(r2c2, m2, D)
-
-    # the final chance: leftover high-confidence detections against the last observations
-    rows3 = active & ~matched
-    cols3 = first & ~dm
-    iou3 = asso(state.last_obs[..., :4].contiguous(), det_box)
-    gate3 = _gate(iou3, rows3, cols3, thr)
-    r2c3 = _full_assignment(-iou3, rows3 & gate3[:, None], cols3, capped)
-    m3 = _filtered(r2c3, iou3, thr, gate3)
-    matched = matched | m3
-    det_col = torch.where(m3, r2c3, det_col)
-    dm = dm | scatter_det_flags(r2c3, m3, D)
-    c = torch.clamp(det_col, 0, D - 1)
-
-    # ORU: re-found tracks replay the XYSCR filter from their frozen state (K4)
-    rejoin = matched & ~state.observed & state.has_obs & (tsu > 1)
-    z2 = take(det_z, c).contiguous()
-    replayed = state.oru_replayed.clone()
-    mean, cov = oru_replay(layout, mean.contiguous(), cov.contiguous(), state.frozen_mean,
-                           state.frozen_cov, state.last_meas, z2, rejoin, tsu, replayed)
-    mean, cov = kalman.update(layout, mean, cov, z2, matched)
-
-    # corner velocities: unit vectors summed over the delta_t window, the
-    # last observation where the window holds none
-    box_c = take(det_box, c)
-    acc = [torch.zeros_like(state.vel[..., 0, :]) for _ in CORNERS]
-    any_prev = torch.zeros_like(active)
-    for i in range(R):
-        target = age - i - 1
-        slot = torch.clamp(torch.remainder(target, R), 0, R - 1).long()
-        hit = (torch.gather(state.ring_age, 2, slot[..., None])[..., 0] == target) & (target >= 0)
-        prev = torch.gather(state.obs_ring, 2, slot[..., None, None].expand(-1, -1, 1, 5))[:, :, 0]
+    with span("hybridsort.pass1"):
+        # pass 1: the configured similarity, the four corner velocities and TCM
+        capped = state.lap_capped.clone()
+        iou1 = asso(trk_box, det_box)
+        angle_cost = torch.zeros_like(iou1)
+        valid_vel = (k_obs[..., 4] >= 0)[..., None]
+        pi = torch.full_like(iou1, math.pi)
         for ci, corner in enumerate(CORNERS):
             cx, cy = CORNER_COLS[corner]
-            contrib = torch.stack(_unit(box_c[..., cx] - prev[..., cx], box_c[..., cy] - prev[..., cy]),
-                                  -1)
-            acc[ci] = acc[ci] + torch.where(hit[..., None], contrib, 0.0)
-        any_prev = any_prev | hit
-    fb = [torch.stack(_unit(box_c[..., cx] - state.last_obs[..., cx],
-                            box_c[..., cy] - state.last_obs[..., cy]), -1)
-          for cx, cy in (CORNER_COLS[k] for k in CORNERS)]
-    new_vel = torch.where(any_prev[..., None, None], torch.stack(acc, -2), torch.stack(fb, -2))
-    vel = torch.where((matched & state.has_obs)[..., None, None], new_vel, state.vel)
+            Y, X = _unit(det_box[:, None, :, cx] - k_obs[:, :, None, cx],
+                         det_box[:, None, :, cy] - k_obs[:, :, None, cy])
+            cosang = torch.clamp(state.vel[..., ci, 1:2] * X + state.vel[..., ci, 0:1] * Y,
+                                 -1.0, 1.0)
+            diff = (math.pi / 2.0 - torch.abs(exact(torch.acos, cosang))) / pi
+            angle_cost = angle_cost + valid_vel * diff * cfg.inertia * conf[:, None, :]
+        score_dif = torch.abs(kal_score[..., None] - conf[:, None, :])
+        sim_combo = iou1 + (angle_cost - score_dif)  # TCM (reference association.py:540-543)
+        thre = iou1 - score_dif
 
-    # feature updates on pass-1 matches (EMA or adapfs) and the long-term
-    # bank's push-front; without ReID none happens
-    f = take(feat, c)
-    det_conf = take(conf, c)
-    smooth, bank, bank_count = state.smooth, state.bank, state.bank_count
-    if reid:
-        if cfg.adapfs:
-            total = torch.clamp_min(state.conf + det_conf, 1e-6)
-            pre_w = cfg.alpha * (state.conf / total)
-            cur_w = (1 - cfg.alpha) * (det_conf / total)
-            s_ = pre_w + cur_w
-            sm = (pre_w / s_)[..., None] * state.smooth + (cur_w / s_)[..., None] * f
+        reid = cfg.with_reid
+        eg_high = reid and cfg.EG_weight_high_score > 0 and cfg.TCM_first_step
+        eg_low = reid and cfg.EG_weight_low_score > 0 and cfg.use_byte
+        emb_dist = _emb_dist(state.smooth, feat) if eg_high or eg_low else None
+        if eg_high:
+            cost1 = -sim_combo + cfg.EG_weight_high_score * emb_dist
+            if cfg.with_longterm_reid:
+                with span("hybridsort.bank_read"):
+                    long_dist = _longterm_dist(state.bank, state.bank_count, state.smooth, feat)
+                cost1 = cost1 + cfg.longterm_reid_weight * long_dist
+            r2c1 = _full_assignment(cost1, active, first, capped)
+            c1 = torch.clamp(r2c1, 0, D - 1)
+            bad = _at(thre, c1) < thr
+            if cfg.with_longterm_reid_correction:
+                bad = bad & (_at(emb_dist, c1) > cfg.longterm_reid_correction_thresh)
+            m1 = (r2c1 >= 0) & ~bad
         else:
-            sm = cfg.alpha * state.smooth + (1 - cfg.alpha) * f
-        upd = m1[..., None]
-        smooth = torch.where(upd, l2_normalize(sm), state.smooth)
-        bank_row0 = torch.where(upd, f, bank[:, :, 0])
-        bank_rest = torch.where(upd[..., None], bank[:, :, :-1], bank[:, :, 1:])
-        bank_count = bank_count + m1.to(torch.int32)
+            usable, r2c_short = _unique_shortcut(iou1, active, first, thr)
+            r2c_full = _full_assignment(-sim_combo, active, first, capped)
+            r2c1 = torch.where(usable[:, None], r2c_short, r2c_full)
+            c1 = torch.clamp(r2c1, 0, D - 1)
+            keep = torch.where(usable[:, None], _at(iou1, c1) > thr, _at(thre, c1) >= thr)
+            m1 = (r2c1 >= 0) & keep
+        dm = scatter_det_flags(r2c1, m1, D)
+        matched = m1
+        det_col = torch.where(m1, r2c1, -1)
 
-    # bookkeeping of the matched slots
-    new_obs = torch.cat([box_c, det_conf[..., None]], -1)
-    last_obs = torch.where(matched[..., None], new_obs, state.last_obs)
-    slot = torch.clamp(torch.remainder(age, R), 0, R - 1).long()
-    ring_set = state.obs_ring.scatter(2, slot[..., None, None].expand(-1, -1, 1, 5),
-                                      new_obs[:, :, None, :])
-    obs_ring = torch.where(matched[..., None, None], ring_set, state.obs_ring)
-    ring_age = torch.where(matched[..., None],
-                           state.ring_age.scatter(2, slot[..., None], age[..., None]), state.ring_age)
-    last_meas = torch.where(matched[..., None], z2, state.last_meas)
-    has_obs = state.has_obs | matched
-    hits = state.hits + matched.to(torch.int32)
-    hit_streak = hit_streak + matched.to(torch.int32)
-    det_cls = dets[..., 5].contiguous()
-    det_ind = dets[..., 6].contiguous()
-    conf_pre = torch.where(matched, state.conf, state.conf_pre)
-    conf_s = torch.where(matched, det_conf, state.conf)
-    cls_s = torch.where(matched, take(det_cls, c), state.cls)
-    det_ind_s = torch.where(matched, take(det_ind, c), state.det_ind)
-    tsu = torch.where(matched, 0, tsu)
+    with span("hybridsort.byte"):
+        # the BYTE pass on low-confidence detections (reference hybridsort.py:607-650),
+        # on pass 1's similarity (the same function of the same boxes)
+        if cfg.use_byte:
+            rows2 = active & ~matched
+            cost2 = -iou1
+            if cfg.TCM_byte_step:
+                sdif2 = torch.abs(simple_score[..., None] - conf[:, None, :])
+                cost2 = cost2 + cfg.TCM_byte_step_weight * sdif2
+            if eg_low:
+                cost2 = cost2 + cfg.EG_weight_low_score * emb_dist
+            gate2 = _gate(iou1, rows2, second, thr)
+            r2c2 = _full_assignment(cost2, rows2 & gate2[:, None], second, capped)
+            m2 = _filtered(r2c2, iou1, thr, gate2)
+            if eg_low and cfg.with_longterm_reid_correction:
+                c2 = torch.clamp(r2c2, 0, D - 1)
+                m2 = m2 & (_at(emb_dist, c2) <= cfg.longterm_reid_correction_thresh_low)
+            matched = matched | m2
+            det_col = torch.where(m2, r2c2, det_col)
+            dm = dm | scatter_det_flags(r2c2, m2, D)
 
-    # misses: freeze on the first unobserved step; update(None) clears the trend
-    miss = active & ~matched
-    first_miss = miss & state.observed
-    frozen_mean = torch.where(first_miss[..., None], mean, state.frozen_mean)
-    frozen_cov = torch.where(first_miss[..., None, None], cov, state.frozen_cov)
-    observed = torch.where(active, matched, state.observed)
-    conf_pre = torch.where(miss, -1.0, conf_pre)
+    with span("hybridsort.final"):
+        # the final chance: leftover high-confidence detections against the last observations
+        rows3 = active & ~matched
+        cols3 = first & ~dm
+        iou3 = asso(state.last_obs[..., :4].contiguous(), det_box)
+        gate3 = _gate(iou3, rows3, cols3, thr)
+        r2c3 = _full_assignment(-iou3, rows3 & gate3[:, None], cols3, capped)
+        m3 = _filtered(r2c3, iou3, thr, gate3)
+        matched = matched | m3
+        det_col = torch.where(m3, r2c3, det_col)
+        dm = dm | scatter_det_flags(r2c3, m3, D)
+        c = torch.clamp(det_col, 0, D - 1)
 
-    # new tracks from the unmatched high-confidence detections, into free slots in order
-    n_new, free_rank, takes, slot_det = allocate(first & ~dm, ~active)
-    init_mean_v, init_cov_v = kalman.initiate(layout, take(det_z, slot_det))
-    mean = torch.where(takes[..., None], init_mean_v, mean)
-    cov = torch.where(takes[..., None, None], init_cov_v, cov)
-    active = active | takes
-    tid = torch.where(takes, state.next_id[:, None] + free_rank, state.tid)
-    conf_s = torch.where(takes, take(conf, slot_det), conf_s)
-    conf_pre = torch.where(takes, -1.0, conf_pre)
-    cls_s = torch.where(takes, take(det_cls, slot_det), cls_s)
-    det_ind_s = torch.where(takes, take(det_ind, slot_det), det_ind_s)
-    age = torch.where(takes, 0, age)
-    tsu = torch.where(takes, 0, tsu)
-    hits = torch.where(takes, 0, hits)
-    hit_streak = torch.where(takes, 0, hit_streak)
-    has_obs = has_obs & ~takes
-    observed = observed & ~takes
-    vel = torch.where(takes[..., None, None], 0.0, vel)
-    last_obs = torch.where(takes[..., None], -1.0, last_obs)
-    ring_age = torch.where(takes[..., None], -1, ring_age)
-    born = take(feat, slot_det)
-    smooth = torch.where(takes[..., None], born, smooth)
-    bank_count = torch.where(takes, 1, bank_count)
-    if reid:
-        # a birth empties the bank and writes its feature first
-        bank_row0 = torch.where(takes[..., None], born, bank_row0)
-        bank_rest = torch.where(takes[..., None, None], 0.0, bank_rest)
-        bank = torch.cat([bank_row0[:, :, None], bank_rest], dim=2)
-    else:
-        bank[:, :, 0] = torch.where(takes[..., None], born, bank[:, :, 0])
+    with span("hybridsort.oru"):
+        # ORU: re-found tracks replay the XYSCR filter from their frozen state (K4)
+        rejoin = matched & ~state.observed & state.has_obs & (tsu > 1)
+        z2 = take(det_z, c).contiguous()
+        replayed = state.oru_replayed.clone()
+        mean, cov = oru_replay(layout, mean.contiguous(), cov.contiguous(), state.frozen_mean,
+                               state.frozen_cov, state.last_meas, z2, rejoin, tsu, replayed)
+        mean, cov = kalman.update(layout, mean, cov, z2, matched)
 
-    # removal
-    active = active & ~(tsu > cfg.max_age)
+    with span("hybridsort.update"):
+        # corner velocities: unit vectors summed over the delta_t window, the
+        # last observation where the window holds none
+        box_c = take(det_box, c)
+        acc = [torch.zeros_like(state.vel[..., 0, :]) for _ in CORNERS]
+        any_prev = torch.zeros_like(active)
+        for i in range(R):
+            target = age - i - 1
+            slot = torch.clamp(torch.remainder(target, R), 0, R - 1).long()
+            hit = ((torch.gather(state.ring_age, 2, slot[..., None])[..., 0] == target)
+                   & (target >= 0))
+            prev = torch.gather(state.obs_ring, 2,
+                                slot[..., None, None].expand(-1, -1, 1, 5))[:, :, 0]
+            for ci, corner in enumerate(CORNERS):
+                cx, cy = CORNER_COLS[corner]
+                contrib = torch.stack(_unit(box_c[..., cx] - prev[..., cx],
+                                            box_c[..., cy] - prev[..., cy]), -1)
+                acc[ci] = acc[ci] + torch.where(hit[..., None], contrib, 0.0)
+            any_prev = any_prev | hit
+        fb = [torch.stack(_unit(box_c[..., cx] - state.last_obs[..., cx],
+                                box_c[..., cy] - state.last_obs[..., cy]), -1)
+              for cx, cy in (CORNER_COLS[k] for k in CORNERS)]
+        new_vel = torch.where(any_prev[..., None, None], torch.stack(acc, -2), torch.stack(fb, -2))
+        vel = torch.where((matched & state.has_obs)[..., None, None], new_vel, state.vel)
 
-    # output: tid + 1, the last observation box where there is one
-    out_box = torch.where(has_obs[..., None], last_obs[..., :4], x_to_bbox(mean))
-    warm = (hit_streak >= cfg.min_hits) | (frame[:, None] <= cfg.min_hits)
-    out_mask = active & (tsu < 1) & warm
-    out = torch.cat([out_box, (tid + 1)[..., None].to(torch.float32), conf_s[..., None],
-                     cls_s[..., None], det_ind_s[..., None]], dim=-1)
+        # feature updates on pass-1 matches (EMA or adapfs) and the long-term
+        # bank's push-front; without ReID none happens
+        f = take(feat, c)
+        det_conf = take(conf, c)
+        smooth, bank, bank_count = state.smooth, state.bank, state.bank_count
+        if reid:
+            if cfg.adapfs:
+                total = torch.clamp_min(state.conf + det_conf, 1e-6)
+                pre_w = cfg.alpha * (state.conf / total)
+                cur_w = (1 - cfg.alpha) * (det_conf / total)
+                s_ = pre_w + cur_w
+                sm = (pre_w / s_)[..., None] * state.smooth + (cur_w / s_)[..., None] * f
+            else:
+                sm = cfg.alpha * state.smooth + (1 - cfg.alpha) * f
+            upd = m1[..., None]
+            smooth = torch.where(upd, l2_normalize(sm), state.smooth)
+            with span("hybridsort.bank_write"):
+                bank_row0 = torch.where(upd, f, bank[:, :, 0])
+                bank_rest = torch.where(upd[..., None], bank[:, :, :-1], bank[:, :, 1:])
+            bank_count = bank_count + m1.to(torch.int32)
+
+        # bookkeeping of the matched slots
+        new_obs = torch.cat([box_c, det_conf[..., None]], -1)
+        last_obs = torch.where(matched[..., None], new_obs, state.last_obs)
+        slot = torch.clamp(torch.remainder(age, R), 0, R - 1).long()
+        ring_set = state.obs_ring.scatter(2, slot[..., None, None].expand(-1, -1, 1, 5),
+                                          new_obs[:, :, None, :])
+        obs_ring = torch.where(matched[..., None, None], ring_set, state.obs_ring)
+        ring_age = torch.where(matched[..., None],
+                               state.ring_age.scatter(2, slot[..., None], age[..., None]),
+                               state.ring_age)
+        last_meas = torch.where(matched[..., None], z2, state.last_meas)
+        has_obs = state.has_obs | matched
+        hits = state.hits + matched.to(torch.int32)
+        hit_streak = hit_streak + matched.to(torch.int32)
+        det_cls = dets[..., 5].contiguous()
+        det_ind = dets[..., 6].contiguous()
+        conf_pre = torch.where(matched, state.conf, state.conf_pre)
+        conf_s = torch.where(matched, det_conf, state.conf)
+        cls_s = torch.where(matched, take(det_cls, c), state.cls)
+        det_ind_s = torch.where(matched, take(det_ind, c), state.det_ind)
+        tsu = torch.where(matched, 0, tsu)
+
+        # misses: freeze on the first unobserved step; update(None) clears the trend
+        miss = active & ~matched
+        first_miss = miss & state.observed
+        frozen_mean = torch.where(first_miss[..., None], mean, state.frozen_mean)
+        frozen_cov = torch.where(first_miss[..., None, None], cov, state.frozen_cov)
+        observed = torch.where(active, matched, state.observed)
+        conf_pre = torch.where(miss, -1.0, conf_pre)
+
+    with span("hybridsort.births"):
+        # new tracks from the unmatched high-confidence detections, into free slots in order
+        n_new, free_rank, takes, slot_det = allocate(first & ~dm, ~active)
+        init_mean_v, init_cov_v = kalman.initiate(layout, take(det_z, slot_det))
+        mean = torch.where(takes[..., None], init_mean_v, mean)
+        cov = torch.where(takes[..., None, None], init_cov_v, cov)
+        active = active | takes
+        tid = torch.where(takes, state.next_id[:, None] + free_rank, state.tid)
+        conf_s = torch.where(takes, take(conf, slot_det), conf_s)
+        conf_pre = torch.where(takes, -1.0, conf_pre)
+        cls_s = torch.where(takes, take(det_cls, slot_det), cls_s)
+        det_ind_s = torch.where(takes, take(det_ind, slot_det), det_ind_s)
+        age = torch.where(takes, 0, age)
+        tsu = torch.where(takes, 0, tsu)
+        hits = torch.where(takes, 0, hits)
+        hit_streak = torch.where(takes, 0, hit_streak)
+        has_obs = has_obs & ~takes
+        observed = observed & ~takes
+        vel = torch.where(takes[..., None, None], 0.0, vel)
+        last_obs = torch.where(takes[..., None], -1.0, last_obs)
+        ring_age = torch.where(takes[..., None], -1, ring_age)
+        born = take(feat, slot_det)
+        smooth = torch.where(takes[..., None], born, smooth)
+        bank_count = torch.where(takes, 1, bank_count)
+        with span("hybridsort.bank_write"):
+            if reid:
+                # a birth empties the bank and writes its feature first
+                bank_row0 = torch.where(takes[..., None], born, bank_row0)
+                bank_rest = torch.where(takes[..., None, None], 0.0, bank_rest)
+                bank = torch.cat([bank_row0[:, :, None], bank_rest], dim=2)
+            else:
+                bank[:, :, 0] = torch.where(takes[..., None], born, bank[:, :, 0])
+
+        # removal
+        active = active & ~(tsu > cfg.max_age)
+
+        # output: tid + 1, the last observation box where there is one
+        out_box = torch.where(has_obs[..., None], last_obs[..., :4], x_to_bbox(mean))
+        warm = (hit_streak >= cfg.min_hits) | (frame[:, None] <= cfg.min_hits)
+        out_mask = active & (tsu < 1) & warm
+        out = torch.cat([out_box, (tid + 1)[..., None].to(torch.float32), conf_s[..., None],
+                         cls_s[..., None], det_ind_s[..., None]], dim=-1)
 
     new_state = HybridSortState(
         mean=mean,

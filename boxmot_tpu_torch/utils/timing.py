@@ -7,27 +7,50 @@ tracker update and plotting, with FPS breakdown rows for display.
 
 from __future__ import annotations
 
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from contextlib import contextmanager
+
+from boxmot_tpu_torch.utils.spans import span
+
+LAST = 64
 
 
 class TimingStats:
+    """Host seconds and counts by stage, and each stage's last ``LAST``
+    seconds.
+
+    The clock is the host's.  A stage that launches work on the card returns
+    before the card has done it, so its time is the enqueue, and the device
+    time lands in whichever later stage waits.  ``timeit`` also opens a span
+    of ``utils/spans.py`` named by its key: under ``torch.profiler`` the stage
+    is a range of the trace with its kernels linked to it, which gives its
+    device time.  After the profiler stops, ``spans.table()`` gives each
+    span's count, host and self ms and stream ms over that session.
+    """
+
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self.last = defaultdict(lambda: deque(maxlen=LAST))
+        self._lock = threading.Lock()
 
     @contextmanager
     def timeit(self, key: str):
+        """Host seconds of the block under ``key``, the block in ``span(key)``."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(key):
+                yield
         finally:
             self.add(key, time.perf_counter() - t0)
 
     def add(self, key: str, seconds: float):
-        self.totals[key] += seconds
-        self.counts[key] += 1
+        with self._lock:
+            self.totals[key] += seconds
+            self.counts[key] += 1
+            self.last[key].append(seconds)
 
     # reference-compatible helpers (timing.py:328-340)
     def add_detector_phase_time(self, phase: str, seconds: float):
@@ -69,6 +92,12 @@ class TimingStats:
                 f"{r['stage']:<16}{r['mean_ms']:>10.3f}{r['fps']:>10.1f}{r['count']:>8}"
             )
         return "\n".join(lines)
+
+
+# Always on: the host seconds of the stages of the port's requests
+# (``engine/replay.py``: ``replay.pack``, ``replay.upload``, ``replay.drain``
+# a call).
+CALLS = TimingStats()
 
 
 class TimedTracker:
